@@ -1,0 +1,249 @@
+"""Decoder LM over packed token buffers, dense path.
+
+Port of `repro/models/transformer.py` for the serving slice: token
+frontend, RMSNorm, GQA attention with RoPE over packed segments, gated or
+plain MLP, tied or untied logits.  Activations are flat packed buffers
+[T, d]; every token carries (segment_id, position).  Parameters keep the
+reference's tree and layouts, so a JAX parameter tree bridges by a plain
+copy (`repro_torch.bridge`):
+
+    embed [V, d]; head_blocks []; final_norm {scale [d] f32};
+    blocks: one dict per layer-pattern position, every leaf stacked
+    [n_periods, ...]: norm1/norm2 {scale}, attn {w_q [d, h*Dk],
+    w_kv [d, 2, G, Dk], w_o [h*Dk, d]}, mlp {w_in, w_gate, w_out}.
+
+Dense weights are [in, out] and used as ``x @ W``.  MLA, MoE, SSM mixers,
+non-token frontends and the Gemma-style extras (window, softcaps,
+post-block norms, embedding scale, q/k norms) are later slices and raise
+`NotImplementedError`.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import ring as R
+from repro_torch.models import layers as L
+from repro_torch.parallel.sharding import Runtime, resolve_device
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what the dense slice does not run."""
+    missing = []
+    if set(cfg.layer_pattern) - {"g"}:
+        missing.append(f"layer pattern {cfg.layer_pattern!r}")
+    for name in ("mla", "moe", "rwkv", "mamba"):
+        if getattr(cfg, name) is not None:
+            missing.append(name)
+    if cfg.frontend != "none":
+        missing.append(f"frontend {cfg.frontend!r}")
+    if cfg.pos_embed not in ("rope", "none"):
+        missing.append(f"pos_embed {cfg.pos_embed!r}")
+    for flag in ("window", "attn_softcap", "final_softcap", "qk_norm",
+                 "embed_scale", "post_block_norm"):
+        if getattr(cfg, flag):
+            missing.append(flag)
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
+            f"dense global-attention decoders with a token frontend)")
+
+
+def head_layer_count(cfg: ModelConfig) -> int:
+    """Leading layers kept outside the stacked periods (DeepSeek dense
+    head); zero for every dense model."""
+    return cfg.moe.first_k_dense if cfg.moe is not None else 0
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _attn_init(gen, cfg: ModelConfig, layout, dtype, device) -> dict:
+    d = cfg.d_model
+    dk = cfg.resolved_head_dim
+    g = cfg.num_kv_heads
+    return {
+        "w_q": L.dense_init(gen, d, layout.h_pad * dk, dtype, device),
+        "w_kv": L.normal(gen, (d, 2, g, dk), 1.0 / math.sqrt(d), dtype,
+                         device),
+        "w_o": L.dense_init(gen, layout.h_pad * dk, d, dtype, device),
+    }
+
+
+def _mlp_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    p = {"w_in": L.dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+         "w_out": L.dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device)}
+    if cfg.gated_mlp:
+        p["w_gate"] = L.dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def _block_init(gen, cfg: ModelConfig, layout, dtype, device) -> dict:
+    return {"norm1": L.rmsnorm_init(cfg.d_model, device),
+            "norm2": L.rmsnorm_init(cfg.d_model, device),
+            "attn": _attn_init(gen, cfg, layout, dtype, device),
+            "mlp": _mlp_init(gen, cfg, dtype, device)}
+
+
+def _stack(trees: list) -> dict:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
+    """Random parameters from a ``torch.Generator`` seeded with ``seed``,
+    drawn on ``device`` (default ``cuda``; raises without one unless
+    ``device="cpu"``).  Same tree, shapes and distributions as the
+    reference: dense N(0,1)/sqrt(in), embeddings N(0,1)*0.02, norm scales
+    zero (the (1 + scale) form).  The draws differ from ``jax.random``."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    dtype = L.activation_dtype(cfg)
+    layout = L.gqa_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+    period = len(cfg.layer_pattern)
+    n_periods = cfg.num_layers // period
+    params: dict = {
+        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
+                              device),
+        "head_blocks": [],
+    }
+    blocks = []
+    for _ in range(period):
+        per = [_block_init(gen, cfg, layout, dtype, device)
+               for _ in range(n_periods)]
+        blocks.append(_stack(per))
+        del per
+    params["blocks"] = blocks
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                         dtype, device)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
+                     window: int, collect: Optional[list] = None):
+    """``collect`` (serving): a list the block appends its post-rotation
+    per-token cache rows ``{"k", "v"}`` [T, G, Dk] to, in the layout the
+    decode cache stores per position."""
+    t = x.shape[0]
+    pos_s = L.scalar_positions(cfg, pos)
+    layout = rt.layout(cfg)
+    dk = cfg.resolved_head_dim
+    q = (x @ bp["w_q"]).reshape(t, layout.h_pad, dk)
+    kv = torch.einsum("td,dsgk->tsgk", x, bp["w_kv"])       # [T, 2, G, Dk]
+    k, v = kv[:, 0], kv[:, 1]
+    q, k = L.positional_rotate(cfg, q, k, pos, pos)
+    if collect is not None:
+        collect.append({"k": k, "v": v})
+    out = R.ring_attention(
+        q, k, v, seg, seg, pos_s, pos_s,
+        composition=rt.composition, kv_sharded=layout.kv_sharded,
+        kv_group_of_head=(None if layout.kv_sharded
+                          else layout.group_of_head(x.device)),
+        scale=dk ** -0.5, window=window, softcap=cfg.attn_softcap,
+        kv_chunk=rt.kv_chunk, block_skip=rt.block_skip,
+        attn_impl=rt.attn_impl, block_q=rt.attn_block_q,
+        block_k=rt.attn_block_k)
+    if layout.pad_heads:
+        out = out * layout.head_mask(x.device)[None, :, None].to(out.dtype)
+    return out.reshape(t, -1) @ bp["w_o"]
+
+
+def _ffn_block(bp, cfg: ModelConfig, x):
+    act = L.act_fn(cfg.act)
+    h = x @ bp["w_in"]
+    if cfg.gated_mlp:
+        h = act(x @ bp["w_gate"]) * h
+    else:
+        h = act(h)
+    return h @ bp["w_out"]
+
+
+def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
+                  layer_idx: int, collect: Optional[list] = None):
+    code = cfg.layer_code(layer_idx)
+    if code != "g":
+        raise NotImplementedError(f"layer code {code!r} not ported yet")
+    h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
+    h = _attention_block(bp["attn"], cfg, rt, h, seg, pos, 0,
+                         collect=collect)
+    x = x + h.to(x.dtype)
+    h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
+    h = _ffn_block(bp["mlp"], cfg, h)
+    return x + h.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    return params["embed"].index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, cfg.d_model)
+
+
+def embed_frontend(params, cfg: ModelConfig, rt: Runtime, batch,
+                   collect: Optional[list] = None) -> torch.Tensor:
+    """Token frontend + the un-stacked head blocks.  ``collect``:
+    per-head-block KV capture for serving (see `_attention_block`)."""
+    check_supported(cfg)
+    seg, pos = batch["seg"], batch["pos"]
+    x = embed_tokens(params, cfg, batch["tokens"])
+    for i, bp in enumerate(params["head_blocks"]):
+        x = block_forward(bp, cfg, rt, x, seg, pos, i, collect=collect)
+    return x
+
+
+def apply_periods(blocks, cfg: ModelConfig, rt: Runtime, x, seg, pos,
+                  collect: Optional[list] = None):
+    """Run the stacked layer periods over the residual stream, one Python
+    iteration per period (inference: no remat).  ``collect`` receives one
+    list per period of the per-position KV rows."""
+    period = len(cfg.layer_pattern)
+    head_n = head_layer_count(cfg)
+    n_periods = blocks[0]["norm1"]["scale"].shape[0]
+    for i in range(n_periods):
+        kvs: list = []
+        for j in range(period):
+            bp = _index(blocks[j], i)
+            x = block_forward(bp, cfg, rt, x, seg, pos, head_n + j,
+                              collect=None if collect is None else kvs)
+        if collect is not None:
+            collect.append(kvs)
+    return x
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def forward_hidden(params, cfg: ModelConfig, rt: Runtime,
+                   batch) -> torch.Tensor:
+    """batch: {"tokens" [T], "seg" [T], "pos" [T]} (int32 tensors on the
+    runtime's device) -> final hidden [T, d]."""
+    x = embed_frontend(params, cfg, rt, batch)
+    x = apply_periods(params["blocks"], cfg, rt, x, batch["seg"],
+                      batch["pos"])
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def logits_head(params, cfg: ModelConfig, hidden):
+    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = hidden @ w.to(hidden.dtype)
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits

@@ -1,0 +1,65 @@
+"""The port's runtime: what model code needs to know about placement.
+
+Port of `repro/parallel/sharding.py::Runtime` for one device: there is no
+mesh, tensor parallelism is 1 and the HDP axis has one rank, so every
+composition is ``(1,)``.  The device defaults to ``cuda``; without a GPU
+the caller must ask for ``device="cpu"`` explicitly — a runtime never
+falls back to the CPU on its own.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.ring import ATTN_IMPLS
+from repro_torch.models.layers import gqa_layout
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """``None`` means ``cuda``.  Raises if a CUDA device is asked for (or
+    defaulted to) and none is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU (the port never falls back to it on its own)")
+        if dev.index is None:            # tensors report "cuda:<index>"
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@dataclass(frozen=True)
+class Runtime:
+    device: Optional[Union[str, torch.device]] = None
+    composition: Tuple[int, ...] = (1,)
+    attn_impl: str = "flash"          # flash (the kernel; its plain version
+                                      # on the CPU) | ref (plain oracle)
+    attn_block_q: int = 64            # flash kernel tile rows
+    attn_block_k: int = 64
+    kv_chunk: int = 1024              # ref path KV chunk
+    block_skip: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r} not in "
+                             f"{ATTN_IMPLS}")
+
+    @property
+    def tp(self) -> int:
+        return 1
+
+    @property
+    def hdp_size(self) -> int:
+        return 1
+
+    def with_composition(self, comp: Tuple[int, ...]) -> "Runtime":
+        return dataclasses.replace(self, composition=tuple(comp))
+
+    def layout(self, cfg: ModelConfig):
+        return gqa_layout(cfg.num_heads, cfg.num_kv_heads, self.tp)

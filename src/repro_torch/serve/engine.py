@@ -1,0 +1,352 @@
+"""ServeEngine: continuous batching over the HDP planner.
+
+Port of `repro/serve/engine.py`.  One engine owns one model replica and
+two regimes:
+
+* **Prefill** — waiting prompts are planned by
+  `SchedulerService.plan_pool` into waves (the same planner the trainer
+  uses), materialized into flat packed buffers and run through
+  `make_prefill_kv_step`, which returns the per-layer KV rows.  The engine
+  gathers each request's rows by the wave's piece layout and writes them
+  into that request's decode-slab slot — the prefill→decode handoff.
+  One prefill callable is kept per composition, so
+  ``compiled_compositions`` and the ``serve.compile_hit/miss`` counters
+  keep the reference's meaning (PyTorch runs eagerly: nothing compiles).
+* **Decode** — a fixed-width slab of ``max_slots`` cache slots; every
+  wave decodes all live slots one token at their own depths.  A slot
+  frees the moment its request finishes and the next admission round
+  refills it without touching the running batch.  ``admission:
+  "static"`` admits only into an empty slab (the baseline).
+
+The slab lives on the runtime's device and is updated IN PLACE (prefill
+rows, decode writes, scrubs).  Hidden states and logits stay on the
+device; only the [n, V] logit rows the host needs (finiteness, argmax,
+``collect_logits``) are copied back, as fp32.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.planner import PlanSpec
+from repro_torch.data.loader import WaveMaterializer
+from repro_torch.models.transformer import check_supported, logits_head
+from repro_torch.obs import get_metrics, get_recorder, get_tracer
+from repro_torch.parallel.sharding import Runtime
+from repro_torch.serve.pool import Request, RequestPool
+from repro_torch.train.serve_step import (_layer_cache_len, init_decode_cache,
+                                          make_decode_step,
+                                          make_prefill_kv_step)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    max_slots: int = 8            # decode-slab width (live batch ceiling)
+    max_context: int = 256        # per-slot cache length (prompt + gen)
+    prefill_capacity: int = 256   # per-rank capacity tokens for planning
+    admission: str = "continuous"  # or "static" (drain-then-refill)
+    collect_logits: bool = False  # keep per-token logits rows (tests)
+
+
+class _PromptProvider:
+    """Duck-typed dataset for the materializer: token reads slice the
+    admitted prompts (zero-padded past the end, which only the unused
+    labels ever read)."""
+
+    def __init__(self, prompts: List[np.ndarray]):
+        self.prompts = prompts
+
+    def tokens(self, step: int, seq_id: int, start: int,
+               end: int) -> np.ndarray:
+        p = self.prompts[seq_id]
+        out = np.zeros(end - start, np.int32)
+        n = max(0, min(end, len(p)) - start)
+        if n > 0:
+            out[:n] = p[start:start + n]
+        return out
+
+
+class ServeEngine:
+    def __init__(self, params, cfg: ModelConfig, rt: Optional[Runtime] = None,
+                 scfg: Optional[ServeConfig] = None, *, device=None,
+                 service=None, clock=time.monotonic):
+        """``rt`` defaults to ``Runtime(device=device)``: the engine runs on
+        ``cuda`` unless asked for ``device="cpu"``, and raises when no GPU
+        is present and none was asked for."""
+        check_supported(cfg)
+        rt = Runtime(device=device) if rt is None else rt
+        scfg = ServeConfig() if scfg is None else scfg
+        if params["embed"].device != rt.device:
+            raise ValueError(f"parameters live on {params['embed'].device}, "
+                             f"the runtime on {rt.device}")
+        self.params = params
+        self.cfg = cfg
+        self.rt = rt
+        self.scfg = scfg
+        self.clock = clock
+        self.pool = RequestPool(clock=clock)
+        if service is None:
+            from repro_torch.sched.service import SchedulerService
+            spec = PlanSpec.for_config(
+                cfg, capacity=scfg.prefill_capacity, hdp=rt.hdp_size,
+                use_offload=False)
+            service = SchedulerService(None, spec)
+        self.service = service
+
+        b, s = scfg.max_slots, scfg.max_context
+        self.cache = init_decode_cache(cfg, rt, b, s)
+        self._decode = make_decode_step(cfg, rt, b, s)
+        self._prefill_fns: Dict[Tuple[int, ...], object] = {}
+        self._head_n = len(self.cache["head_layers"])
+
+        # slab bookkeeping (host side)
+        self._req: List[Optional[Request]] = [None] * b
+        self._pos = np.zeros(b, np.int64)   # next position each slot feeds
+        self._tok = np.zeros(b, np.int64)   # next token each slot feeds
+        self.records: List[dict] = []       # per-request telemetry
+        self.stats = {"prefill_waves": 0, "decode_waves": 0,
+                      "compiled_compositions": 0}
+
+    def _dev(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype).to(self.rt.device)
+
+    # -- submission ----------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int) -> int:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size >= self.scfg.max_context:
+            raise ValueError(
+                f"prompt ({prompt.size}) must fit the per-slot cache "
+                f"(max_context={self.scfg.max_context}) with room to "
+                f"generate")
+        rid = self.pool.submit(prompt, max_new_tokens,
+                               collect_logits=self.scfg.collect_logits)
+        get_tracer().instant("submit", rid=rid, plen=int(prompt.size))
+        mx = get_metrics()
+        mx.counter("serve.submitted").inc()
+        mx.gauge("serve.queue_depth").set(self.pool.n_waiting)
+        return rid
+
+    # -- engine loop ---------------------------------------------------
+    def step(self) -> List[Request]:
+        """One engine iteration: admit into free slots, then decode one
+        token on every live slot.  Returns the requests finished now."""
+        with torch.inference_mode():
+            self._admit()
+            return self._decode_wave()
+
+    def drain(self, max_steps: int = 1_000_000) -> List[Request]:
+        out: List[Request] = []
+        for _ in range(max_steps):
+            if self.pool.n_open == 0:
+                return out
+            out.extend(self.step())
+        raise RuntimeError(f"pool not drained after {max_steps} steps")
+
+    # -- admission (prefill) -------------------------------------------
+    def _admit(self) -> None:
+        free = [i for i, r in enumerate(self._req) if r is None]
+        if not free:
+            return
+        if self.scfg.admission == "static" and len(free) != len(self._req):
+            return                       # static: drain, then refill
+        reqs = self.pool.take_waiting(len(free))
+        if not reqs:
+            return
+        with get_tracer().span("admit", n=len(reqs),
+                               rids=[r.rid for r in reqs]):
+            plan = self.service.plan_pool([r.plen for r in reqs])
+            slot_of = {i: free[i] for i in range(len(reqs))}
+            provider = _PromptProvider([r.prompt for r in reqs])
+            mat = WaveMaterializer(provider, self.cfg,
+                                   self.scfg.prefill_capacity)
+            for wave in plan.waves:
+                self._prefill_wave(wave, mat, reqs, slot_of)
+            for r in reqs:               # max_new_tokens == 1 finishes at
+                if len(r.generated) >= r.max_new_tokens:  # prefill already
+                    self._retire(r)
+        get_metrics().gauge("serve.queue_depth").set(self.pool.n_waiting)
+
+    def _prefill_fn(self, comp: Tuple[int, ...]):
+        fn = self._prefill_fns.get(comp)
+        if fn is None:
+            with get_tracer().span("compile", composition=comp):
+                fn = make_prefill_kv_step(self.cfg,
+                                          self.rt.with_composition(comp))
+            self._prefill_fns[comp] = fn
+            self.stats["compiled_compositions"] += 1
+            get_metrics().counter("serve.compile_miss").inc()
+        else:
+            get_metrics().counter("serve.compile_hit").inc()
+        return fn
+
+    def _prefill_wave(self, wave, mat: WaveMaterializer,
+                      reqs: List[Request], slot_of: Dict[int, int]) -> None:
+        t0 = self.clock()
+        tr = get_tracer()
+        with tr.span("prefill", composition=tuple(wave.composition),
+                     rids=[reqs[p.seq_id].rid
+                           for s in wave.slots for p in s]):
+            with tr.span("materialize"):
+                lw = mat.materialize(0, wave)
+            fn = self._prefill_fn(tuple(wave.composition))
+            batch = {k: self._dev(lw.batch[k])
+                     for k in ("tokens", "seg", "pos")}
+            hidden, head_kv, block_kv = fn(self.params, batch)
+
+            # flat-buffer row of every (seq, abs position) — the same
+            # cursor walk `WaveMaterializer.materialize` packs with
+            c = self.scfg.prefill_capacity * wave.c_mult
+            flat: Dict[int, np.ndarray] = {}
+            for r, pieces in enumerate(wave.slots):
+                cursor = r * c
+                for p in pieces:
+                    fl = flat.setdefault(p.seq_id,
+                                         np.full(reqs[p.seq_id].plen, -1,
+                                                 np.int64))
+                    fl[p.start:p.end] = np.arange(cursor,
+                                                  cursor + p.length)
+                    cursor += p.length
+
+            mx = get_metrics()
+            sids = sorted(flat)
+            covered = [reqs[sid] for sid in sids]
+            total = sum(r.plen for r in covered)
+            # first generated tokens come straight out of the prefill: the
+            # last prompt row of every request, one logits call on device
+            last = self._dev(np.array([flat[sid][reqs[sid].plen - 1]
+                                       for sid in sids]), torch.int64)
+            rows = logits_head(self.params, self.cfg,
+                               hidden.index_select(0, last))
+            rows = rows.float().cpu().numpy()
+            for n, sid in enumerate(sids):
+                req = reqs[sid]
+                slot = slot_of[sid]
+                req.slot = slot
+                self._scatter_kv(slot, req.plen, flat[sid], head_kv,
+                                 block_kv)
+                row = rows[n]
+                if not np.isfinite(row).all():
+                    self._req[slot] = req
+                    self._fail_numerics(req, where="prefill")
+                    continue
+                tok = int(row.argmax())
+                req.generated.append(tok)
+                req.t_first = self.clock()
+                mx.histogram("serve.ttft_s").observe(
+                    req.t_first - req.t_submit)
+                if req.logits is not None:
+                    req.logits.append(row.copy())
+                self._req[slot] = req
+                self._pos[slot] = req.plen
+                self._tok[slot] = tok
+            dt = self.clock() - t0
+            for req in covered:          # attribute by token share
+                req.prefill_s += dt * req.plen / max(total, 1)
+        self.stats["prefill_waves"] += 1
+        mx.counter("serve.prefill_waves").inc()
+
+    def _scatter_kv(self, slot: int, plen: int, fl: np.ndarray,
+                    head_kv, block_kv) -> None:
+        """Write one request's collected KV rows into its slab slot, in
+        place — ring-buffer layers keep only the last window of the
+        prompt, at `pos % window` exactly like the decode-side writes."""
+        def write(cache_layer, kv, layer_idx, stacked):
+            s_l = _layer_cache_len(self.cfg, layer_idx,
+                                   self.scfg.max_context)
+            keep = np.arange(max(0, plen - s_l), plen)
+            slots = self._dev(keep % s_l, torch.int64)
+            rows = self._dev(fl[keep], torch.int64)
+            for name, arr in kv.items():
+                buf = cache_layer[name]
+                if stacked:
+                    buf[:, slot, slots] = arr[:, rows].to(buf.dtype)
+                else:
+                    buf[slot, slots] = arr[rows].to(buf.dtype)
+
+        for i, kv in enumerate(head_kv):
+            write(self.cache["head_layers"][i], kv, i, stacked=False)
+        for j, kv in enumerate(block_kv):
+            write(self.cache["blocks"][j], kv, self._head_n + j,
+                  stacked=True)
+
+    # -- decode --------------------------------------------------------
+    def _decode_wave(self) -> List[Request]:
+        active = [i for i, r in enumerate(self._req) if r is not None]
+        if not active:
+            return []
+        t0 = self.clock()
+        with get_tracer().span("decode", n_live=len(active),
+                               rids=[self._req[i].rid for i in active]):
+            logits, self.cache = self._decode(
+                self.params, self.cache, self._dev(self._tok, torch.int64),
+                self._dev(self._pos, torch.int64))
+            live = logits.index_select(0, self._dev(np.array(active),
+                                                    torch.int64))
+            lognp = live.float().cpu().numpy()
+        dt = self.clock() - t0
+        self.stats["decode_waves"] += 1
+        get_metrics().counter("serve.decode_waves").inc()
+        finished: List[Request] = []
+        for n, i in enumerate(active):
+            req = self._req[i]
+            row = lognp[n]
+            if not np.isfinite(row).all():
+                self._fail_numerics(req, where="decode")
+                finished.append(req)
+                continue
+            tok = int(row.argmax())
+            req.generated.append(tok)
+            req.decode_s += dt / len(active)
+            if req.logits is not None:
+                req.logits.append(row.copy())
+            self._pos[i] += 1
+            self._tok[i] = tok
+            if (len(req.generated) >= req.max_new_tokens
+                    or int(self._pos[i]) >= self.scfg.max_context):
+                finished.append(req)
+                self._retire(req)
+        return finished
+
+    def _fail_numerics(self, req: Request, *, where: str) -> None:
+        """Non-finite logits fail the REQUEST, not the engine: the slab
+        slot frees, the pool completes the request with ``error`` set,
+        and the flight recorder keeps the postmortem trail.  The slot's
+        KV rows are scrubbed back to zero so a NaN row cannot poison the
+        slot's next tenant through the masked-attention sum."""
+        req.error = "nonfinite_logits"
+        if req.slot is not None:
+            self._scrub_slot(req.slot)
+        get_metrics().counter("serve.numerics_failed").inc()
+        get_recorder().record("serve_numerics", rid=req.rid, where=where,
+                              n_tokens=len(req.generated))
+        self._retire(req)
+
+    def _scrub_slot(self, slot: int) -> None:
+        for layer in self.cache["head_layers"]:
+            for buf in layer.values():
+                buf[slot].zero_()
+        for layer in self.cache["blocks"]:
+            for buf in layer.values():
+                buf[:, slot].zero_()
+
+    def _retire(self, req: Request) -> None:
+        if req.slot is not None:
+            self._req[req.slot] = None
+        self.pool.finish(req)
+        get_tracer().instant("finish", rid=req.rid,
+                             n_tokens=len(req.generated))
+        mx = get_metrics()
+        mx.counter("serve.finished").inc()
+        if req.t_done is not None:
+            mx.histogram("serve.e2e_s").observe(req.t_done - req.t_submit)
+        self.records.append(req.telemetry())
+
+    # -- introspection -------------------------------------------------
+    @property
+    def n_live(self) -> int:
+        return sum(1 for r in self._req if r is not None)

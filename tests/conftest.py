@@ -33,6 +33,9 @@ def pytest_configure(config):
         "markers",
         "jax_feature(name): skip when the running JAX lacks the feature "
         "(names: shard_map, axis_types, set_mesh, host_offload)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels); skips without one")
 
 
 def pytest_runtest_setup(item):
