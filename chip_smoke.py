@@ -8,30 +8,50 @@ Phases (any failure raises and exits non-zero before the result line):
 1. device  — the card's name and power limit (nvidia-smi), torch/CUDA
    versions; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every CUDA kernel of the port from the checkout's
-   sources (one nvcc per source, all started together).
-3. kernels — holds each flash kernel against its plain PyTorch version on
-   the card: the serving slice's shape [8,3,4096,128] bf16 with packed
+   sources (flash_fwd, flash_bwd, fused_ce: one nvcc per source, all
+   started together) and prints ptxas' register and spill lines.
+3. kernels — holds each kernel against its plain PyTorch version on the
+   card.  Flash forward: the slice's shape [8,3,4096,128] bf16 with packed
    segments, padding rows and a non-zero carry-in; a ragged T=S=4000; a
-   window=16/softcap=30 case; Dv=64 != Dk=128.  Tolerance 2e-2 (bf16, the
-   reference's kernel-test tolerance); padding rows must be exactly zero
-   with lse exactly -1e30 (finalising) or keep their carry-in exactly.
-   Prints max error, kernel_ms, plain_ms, library_ms and the bound.
+   window=16/softcap=30 case; Dv=64 != Dk=128.  Flash backward (dq, dkv):
+   the same four cases from the forward kernel's (out, lse).  Fused
+   cross-entropy forward and backward: [4096,128256] bf16 with padding
+   rows (label 0, g = 0) and V=4096.  Tolerance 2e-2 element-wise (bf16,
+   the reference's kernel-test tolerance) and 2e-2 relative L2 per output;
+   padding rows must come out exactly 0 (dq, dk/dv of padding keys,
+   dlogits) with lse exactly -1e30 (finalising forward) or keep their
+   carry-in exactly.  Prints max error, relative L2, ms, plain_ms,
+   library_ms and the bound with what binds it.
 4. serve   — llama3.2-3b at full width and depth (random weights from
    seed 0) in bf16 on the card through `ServeEngine`: 8 prompts, 16 new
-   tokens each; checks finite logits, >= 2 prefill waves and the carry
-   kernel launched 28 times per prefill wave; holds the longest request's
-   engine logits to a float32 teacher-forced forward (rms within 0.08:
-   element-wise, bf16 noise at this depth and vocabulary reaches 0.1);
-   then the same width cut to 2 layers, every request held element-wise
-   to its teacher-forced forward at test_serve's atol = rtol = 0.08.
-5. report  — one JSON line of every ported kernel (launches on the serve
-   run, errors and times), then the result line.
+   tokens each; checks finite logits, >= 2 prefill waves, the carry
+   kernel launched 28 times per prefill wave and no backward or
+   cross-entropy kernel; holds the longest request's engine logits to a
+   float32 teacher-forced forward (rms within 0.08: element-wise, bf16
+   noise at this depth and vocabulary reaches 0.1); then the same width
+   cut to 2 layers, every request held element-wise to its teacher-forced
+   forward at test_serve's atol = rtol = 0.08.
+5. train   — llama3.2-3b at full width and depth in bf16 through
+   `Trainer.train_step`: github lengths, 16384 tokens per step, context
+   and wave capacity 4096, strategy balance, AdamW lr 3e-4 without warmup,
+   3 steps.  Checks every wave loss and grad norm finite, applied == 1 on
+   every step and per wave exactly 56 carry launches (28 forward + 28
+   recomputed), 28 dq, 28 dkv, 1 CE forward and 1 CE backward.  Then the
+   same width cut to 2 layers, one wave: the kernel route against the
+   float32 plain route (weights upcast, attn_impl="ref", plain CE), loss
+   within 1e-2 relative and every gradient leaf within 5e-2 relative L2,
+   with the bf16 plain route's errors printed beside them.
+6. report  — one JSON line of every kernel (launches on the path that runs
+   it: serve for the forward kernels, train for the rest; errors, times,
+   bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -42,15 +62,67 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (data sheet)
+PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 TOL = 2e-2                      # bf16, tests/test_kernels.py
 SERVE_TOL = 0.08                # tests/test_serve.py
+TRAIN_LOSS_TOL = 1e-2           # 2-layer kernel route vs float32 plain
+TRAIN_GRAD_TOL = 5e-2           # per gradient leaf, relative L2
 PROMPT_LENS = [3000, 1800, 900, 400, 200, 120, 64, 33]
 NEW_TOKENS = 16
+SLICE_LENS = [3000, 900, 120]   # a packed wave of the slices + padding
+DEVICE = "cuda"
+
+CSRC = "src/repro_torch/kernels/csrc"
+# every TPU kernel's counterpart: (name, source, replaced Pallas kernel,
+# wrapper module, wrapper holding the launch count)
+KERNELS = [
+    ("flash_fwd", f"{CSRC}/flash_fwd.cu",
+     "src/repro/kernels/flash_attention.py:79", "flash_attention",
+     "flash_attention_fwd"),
+    ("flash_fwd_carry", f"{CSRC}/flash_fwd.cu",
+     "src/repro/kernels/flash_attention.py:153", "flash_attention",
+     "flash_attention_fwd_carry"),
+    ("flash_bwd_dq", f"{CSRC}/flash_bwd.cu",
+     "src/repro/kernels/flash_attention.py:238", "flash_attention",
+     "flash_attention_bwd_dq"),
+    ("flash_bwd_dkv", f"{CSRC}/flash_bwd.cu",
+     "src/repro/kernels/flash_attention.py:281", "flash_attention",
+     "flash_attention_bwd_dkv"),
+    ("fused_ce_fwd", f"{CSRC}/fused_ce.cu",
+     "src/repro/kernels/fused_ce.py:24", "fused_ce", "fused_ce_fwd"),
+    ("fused_ce_bwd", f"{CSRC}/fused_ce.cu",
+     "src/repro/kernels/fused_ce.py:57", "fused_ce", "fused_ce_bwd"),
+]
+SERVE_KERNELS = ("flash_fwd", "flash_fwd_carry")   # launches from serve
+# exact launches per training wave at llama3.2-3b's 28 layers
+TRAIN_WAVE_LAUNCHES = {"flash_fwd": 0, "flash_fwd_carry": 56,
+                       "flash_bwd_dq": 28, "flash_bwd_dkv": 28,
+                       "fused_ce_fwd": 1, "fused_ce_bwd": 1}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def wrappers() -> dict:
+    return {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{mod}"), attr)
+        for name, _, _, mod, attr in KERNELS}
+
+
+def zero_counts() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def fmt(res: dict) -> str:
+    return json.dumps({k: (float(f"{v:.5g}") if isinstance(v, float) else v)
+                       for k, v in res.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -81,12 +153,15 @@ def phase_device(torch) -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
+    names = sorted({Path(src).stem for _, src, _, _, _ in KERNELS})
     t0 = time.perf_counter()
-    libs = build.build_all(["flash_fwd"])
+    libs = build.build_all(names)
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for line in build.build_log("flash_fwd").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    for name in names:
+        for line in build.build_log(name).splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +170,7 @@ def phase_build() -> None:
 
 def packed_meta(rng, n: int, lens):
     """Segments of the given lengths packed from row 0, padding (seg 0)
-    after them — the layout of one prefill wave."""
+    after them — the layout of one wave."""
     import numpy as np
     seg = np.zeros(n, np.int32)
     pos = np.zeros(n, np.int32)
@@ -121,60 +196,83 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(g, hg, t, s, dk, dv, n_pairs, carry: bool):
-    """Least time on the card: operations the data needs (unmasked
-    (q, k) pairs x 2*(Dk+Dv) per head) over the bf16 tensor-core peak,
-    against bytes read once and written once over the memory rate."""
-    flops = 2.0 * (dk + dv) * g * hg * n_pairs
-    nbytes = 2 * (g * hg * t * dk + g * s * (dk + dv)) + 4 * 2 * (t + s)
-    state = 4 * g * hg * t * (dv + 2)
-    nbytes += 2 * state if carry else 2 * g * hg * t * dv + 4 * g * hg * t
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """Least time on the card: the larger of operations over the peak rate
+    of their type and bytes read once and written once over the memory
+    rate -> (ms, what binds it)."""
+    ops_ms = flops / peak_flops * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
 
 
-def kernel_case(torch, FA, name, *, g, hg, t, s, dk, dv, lens_q, window=0,
-                softcap=0.0, seed=0):
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def hold(torch, name, got, want):
+    """Element-wise 2e-2 and relative L2 <= 2e-2 -> (max abs err, rel L2)."""
+    err = (got.float() - want.float()).abs().max().item()
+    rl2 = rel_l2(got, want)
+    if not torch.allclose(got.float(), want.float(), atol=TOL, rtol=TOL) \
+            or not rl2 <= TOL:
+        raise AssertionError(f"{name}: max abs error {err}, relative L2 "
+                             f"{rl2} against its plain version")
+    return err, rl2
+
+
+def attn_inputs(torch, g, hg, t, dk, dv, lens, seed):
     import numpy as np
-    from repro_torch.core.attention import attention_mask
     rng = np.random.RandomState(seed)
     dev = "cuda"
     q = torch.tensor(rng.randn(g, hg, t, dk), dtype=torch.bfloat16,
                      device=dev)
-    k = torch.tensor(rng.randn(g, s, dk), dtype=torch.bfloat16, device=dev)
-    v = torch.tensor(rng.randn(g, s, dv), dtype=torch.bfloat16, device=dev)
-    seg_np, pos_np = packed_meta(rng, t, lens_q)
+    k = torch.tensor(rng.randn(g, t, dk), dtype=torch.bfloat16, device=dev)
+    v = torch.tensor(rng.randn(g, t, dv), dtype=torch.bfloat16, device=dev)
+    seg_np, pos_np = packed_meta(rng, t, lens)
     seg = torch.tensor(seg_np, device=dev)
     pos = torch.tensor(pos_np, device=dev)
-    if s != t:
-        raise ValueError("cases use self-attention over one packed buffer")
+    return rng, (q, k, v, seg, seg, pos, pos), seg_np, pos_np
+
+
+def visible_pairs(seg_np, pos_np, window) -> int:
+    import numpy as np
+    return int(np.sum((seg_np[:, None] == seg_np[None, :])
+                      & (seg_np[:, None] > 0)
+                      & (pos_np[None, :] <= pos_np[:, None])
+                      & ((pos_np[:, None] - pos_np[None, :] < window)
+                         if window else True)))
+
+
+def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
+             softcap=0.0, seed=0):
+    """Both forward kernels (self-attention over one packed buffer)."""
+    from repro_torch.core.attention import attention_mask
+    rng, args, seg_np, pos_np = attn_inputs(torch, g, hg, t, dk, dv, lens,
+                                            seed)
+    q, k, v, seg = args[:4]
     scale = dk ** -0.5
     kw = dict(scale=scale, causal=True, window=window, softcap=softcap)
-    args = (q, k, v, seg, seg, pos, pos)
-    pad = torch.tensor(seg_np == 0, device=dev)
+    pad = torch.tensor(seg_np == 0, device="cuda")
 
     # finalising kernel vs its plain version
     out, lse = FA.flash_attention_fwd(*args, **kw)
     out_p, lse_p = FA.flash_attention_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
-    err_f = (out.float() - out_p.float()).abs().max().item()
-    if not torch.allclose(out.float(), out_p.float(), atol=TOL, rtol=TOL):
-        raise AssertionError(f"{name}: flash_fwd out differs by {err_f}")
+    err_f, rl2_f = hold(torch, f"{name} flash_fwd out", out, out_p)
     live = ~pad[None, None, :].expand_as(lse)
-    if not torch.allclose(lse[live], lse_p[live], atol=TOL, rtol=TOL):
-        raise AssertionError(f"{name}: flash_fwd lse differs")
+    hold(torch, f"{name} flash_fwd lse", lse[live], lse_p[live])
     if out[:, :, pad].abs().max().item() != 0.0 or \
             not bool((lse[:, :, pad] == FA.NEG_INF).all()):
         raise AssertionError(f"{name}: padding rows not exactly 0 / -1e30")
 
     # carry kernel vs its plain version, from a non-zero carry-in
     acc0 = torch.tensor(rng.randn(g, hg, t, dv), dtype=torch.float32,
-                        device=dev)
-    m0 = torch.tensor(rng.randn(g, hg, t), dtype=torch.float32, device=dev)
+                        device="cuda")
+    m0 = torch.tensor(rng.randn(g, hg, t), dtype=torch.float32, device="cuda")
     l0 = torch.tensor(rng.rand(g, hg, t) + 0.5, dtype=torch.float32,
-                      device=dev)
+                      device="cuda")
     acc, m, l = FA.flash_attention_fwd_carry(*args, acc0.clone(), m0.clone(),
                                              l0.clone(), **kw)
     acc_p, m_p, l_p = FA.flash_attention_fwd_carry_plain(*args, acc0, m0, l0,
@@ -182,66 +280,207 @@ def kernel_case(torch, FA, name, *, g, hg, t, s, dk, dv, lens_q, window=0,
     torch.cuda.synchronize()
     o_c, lse_c = FA.finalize(acc, m, l, torch.float32)
     o_cp, lse_cp = FA.finalize(acc_p, m_p, l_p, torch.float32)
-    err_c = (o_c - o_cp).abs().max().item()
-    if not (torch.allclose(o_c, o_cp, atol=TOL, rtol=TOL)
-            and torch.allclose(lse_c, lse_cp, atol=TOL, rtol=TOL)
-            and torch.allclose(m, m_p, atol=TOL, rtol=TOL)):
-        raise AssertionError(f"{name}: flash_fwd_carry differs by {err_c}")
+    err_c, rl2_c = hold(torch, f"{name} flash_fwd_carry out", o_c, o_cp)
+    hold(torch, f"{name} flash_fwd_carry lse", lse_c, lse_cp)
+    hold(torch, f"{name} flash_fwd_carry m", m, m_p)
     if not (torch.equal(acc[:, :, pad], acc0[:, :, pad])
             and torch.equal(m[:, :, pad], m0[:, :, pad])
             and torch.equal(l[:, :, pad], l0[:, :, pad])):
         raise AssertionError(f"{name}: padding rows changed their carry")
 
-    res = {"fwd_err": err_f, "carry_err": err_c}
-    n_pairs = int(np.sum((seg_np[:, None] == seg_np[None, :])
-                         & (seg_np[:, None] > 0)
-                         & (pos_np[None, :] <= pos_np[:, None])
-                         & ((pos_np[:, None] - pos_np[None, :] < window)
-                            if window else True)))
-    res["fwd_ms"] = time_ms(torch, lambda: FA.flash_attention_fwd(
-        *args, **kw), 20)
-    res["carry_ms"] = time_ms(torch, lambda: FA.flash_attention_fwd_carry(
-        *args, acc, m, l, **kw), 20)
-    res["fwd_plain_ms"] = time_ms(
-        torch, lambda: FA.flash_attention_fwd_plain(*args, **kw), 3)
-    res["carry_plain_ms"] = time_ms(
-        torch, lambda: FA.flash_attention_fwd_carry_plain(
-            *args, acc0, m0, l0, **kw), 3)
+    n_pairs = visible_pairs(seg_np, pos_np, window)
+    flops = 2.0 * (dk + dv) * g * hg * n_pairs
+    in_bytes = 2 * (g * hg * t * dk + g * t * (dk + dv)) + 4 * 4 * t
+    state = 4 * g * hg * t * (dv + 2)
     # yardstick only: one PyTorch call computing the same attention
-    mask = attention_mask(seg, seg, pos, pos, causal=True,
+    mask = attention_mask(seg, seg, args[5], args[6], causal=True,
                           window=window)
-    kq = k[:, None].expand(g, hg, s, dk)
-    vq = v[:, None].expand(g, hg, s, dv)
+    kq = k[:, None].expand(g, hg, t, dk)
+    vq = v[:, None].expand(g, hg, t, dv)
     F = torch.nn.functional
-    res["library_ms"] = (None if softcap else time_ms(
+    library = None if softcap else time_ms(
         torch, lambda: F.scaled_dot_product_attention(
-            q, kq, vq, attn_mask=mask, scale=scale), 10))
-    res["fwd_bound"] = bound_ms(g, hg, t, s, dk, dv, n_pairs, False)
-    res["carry_bound"] = bound_ms(g, hg, t, s, dk, dv, n_pairs, True)
-    res["n_pairs"] = n_pairs
-    # drop the wrappers' counts: comparison launches are not the path's
-    FA.flash_attention_fwd.launches = 0
-    FA.flash_attention_fwd_carry.launches = 0
-    fmt = {k: (round(v, 4) if isinstance(v, float) else v)
-           for k, v in res.items()}
-    log(f"[kernels] {name}: {json.dumps(fmt)}")
-    return res
+            q, kq, vq, attn_mask=mask, scale=scale), 10)
+    rows = {
+        "flash_fwd": {
+            "err": err_f, "rel_l2": rl2_f,
+            "ms": time_ms(torch, lambda: FA.flash_attention_fwd(*args, **kw),
+                          20),
+            "plain_ms": time_ms(torch, lambda: FA.flash_attention_fwd_plain(
+                *args, **kw), 3),
+            "bound": bound(flops, in_bytes + 2 * g * hg * t * dv
+                           + 4 * g * hg * t),
+            "library_ms": library},
+        "flash_fwd_carry": {
+            "err": err_c, "rel_l2": rl2_c,
+            "ms": time_ms(torch, lambda: FA.flash_attention_fwd_carry(
+                *args, acc, m, l, **kw), 20),
+            "plain_ms": time_ms(
+                torch, lambda: FA.flash_attention_fwd_carry_plain(
+                    *args, acc0, m0, l0, **kw), 3),
+            "bound": bound(flops, in_bytes + 2 * state),
+            "library_ms": library}}
+    for key, row in rows.items():
+        log(f"[kernels] {name} {key}: "
+            f"{fmt({**row, 'bound': row['bound'][0], 'n_pairs': n_pairs})}")
+    return rows
+
+
+def bwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
+             softcap=0.0, seed=0):
+    """Both backward kernels from the forward kernel's (out, lse)."""
+    rng, args, seg_np, pos_np = attn_inputs(torch, g, hg, t, dk, dv, lens,
+                                            seed)
+    q, k, v = args[:3]
+    scale = dk ** -0.5
+    kw = dict(scale=scale, causal=True, window=window, softcap=softcap)
+    pad = torch.tensor(seg_np == 0, device="cuda")
+    out, lse = FA.flash_attention_fwd(*args, **kw)
+    do = torch.tensor(rng.randn(g, hg, t, dv), dtype=torch.bfloat16,
+                      device="cuda")
+    res = (*args, out, lse, do)
+
+    dq = FA.flash_attention_bwd_dq(*res, **kw)
+    dk_, dv_ = FA.flash_attention_bwd_dkv(*res, **kw)
+    dq_p, dk_p, dv_p = FA.flash_attention_bwd_plain(*res, **kw)
+    torch.cuda.synchronize()
+    err_q, rl2_q = hold(torch, f"{name} dq", dq, dq_p)
+    err_k, rl2_k = hold(torch, f"{name} dk", dk_, dk_p)
+    err_v, rl2_v = hold(torch, f"{name} dv", dv_, dv_p)
+    if dq[:, :, pad].abs().max().item() != 0.0 \
+            or dk_[:, pad].abs().max().item() != 0.0 \
+            or dv_[:, pad].abs().max().item() != 0.0:
+        raise AssertionError(f"{name}: padding rows' dq / dk / dv not "
+                             f"exactly 0")
+
+    n_pairs = visible_pairs(seg_np, pos_np, window)
+    heads = g * hg
+    # reads: q, k, v, out, do, lse, seg/pos once each
+    in_bytes = 2 * (heads * t * (dk + 2 * dv) + g * t * (dk + dv)) \
+        + 4 * heads * t + 4 * 4 * t
+    # yardstick only: autograd backward of one masked SDPA call
+    library = None
+    if not softcap:
+        from repro_torch.core.attention import attention_mask
+        mask = attention_mask(args[3], args[4], args[5], args[6],
+                              causal=True, window=window)
+        qq = q.detach().requires_grad_(True)
+        kq = k[:, None].expand(g, hg, t, dk).detach().requires_grad_(True)
+        vq = v[:, None].expand(g, hg, t, dv).detach().requires_grad_(True)
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qq, kq, vq, attn_mask=mask, scale=scale)
+        library = time_ms(torch, lambda: torch.autograd.grad(
+            o, (qq, kq, vq), do, retain_graph=True), 10)
+        del o
+    rows = {
+        "flash_bwd_dq": {
+            "err": err_q, "rel_l2": rl2_q,
+            "ms": time_ms(torch, lambda: FA.flash_attention_bwd_dq(
+                *res, **kw), 20),
+            "plain_ms": time_ms(torch, lambda: FA.flash_attention_bwd_plain(
+                *res, **kw), 3),
+            "bound": bound(2.0 * (2 * dk + dv) * heads * n_pairs,
+                           in_bytes + 2 * heads * t * dk),
+            "library_ms": library},
+        "flash_bwd_dkv": {
+            "err": max(err_k, err_v), "rel_l2": max(rl2_k, rl2_v),
+            "ms": time_ms(torch, lambda: FA.flash_attention_bwd_dkv(
+                *res, **kw), 20),
+            "bound": bound(2.0 * (2 * dk + 2 * dv) * heads * n_pairs,
+                           in_bytes + 2 * g * t * (dk + dv)),
+            "library_ms": library}}
+    # one plain version computes dq, dk and dv together: both rows carry it
+    rows["flash_bwd_dkv"]["plain_ms"] = rows["flash_bwd_dq"]["plain_ms"]
+    for key, row in rows.items():
+        log(f"[kernels] {name} {key}: "
+            f"{fmt({**row, 'bound': row['bound'][0], 'n_pairs': n_pairs})}")
+    return rows
+
+
+def ce_case(torch, CE, name, *, t, v, n_pad, seed=0):
+    """Both cross-entropy kernels; the last n_pad rows are padding (label
+    0, g = 0)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    dev = "cuda"
+    logits = torch.tensor(rng.randn(t, v) * 3, dtype=torch.bfloat16,
+                          device=dev)
+    labels_np = rng.randint(0, v, t).astype(np.int32)
+    labels_np[t - n_pad:] = 0
+    g_np = rng.randn(t).astype(np.float32)
+    g_np[t - n_pad:] = 0.0
+    labels = torch.tensor(labels_np, device=dev)
+    g = torch.tensor(g_np, device=dev)
+
+    nll, lse, tgt = CE.fused_ce_fwd(logits, labels)
+    nll_p, lse_p, tgt_p = CE.fused_ce_fwd_plain(logits, labels)
+    dl = CE.fused_ce_bwd(logits, labels, lse, g)
+    dl_p = CE.fused_ce_bwd_plain(logits, labels, lse, g)
+    torch.cuda.synchronize()
+    err_n, rl2_n = hold(torch, f"{name} nll", nll, nll_p)
+    err_l, rl2_l = hold(torch, f"{name} lse", lse, lse_p)
+    hold(torch, f"{name} tgt", tgt, tgt_p)
+    err_d, rl2_d = hold(torch, f"{name} dlogits", dl, dl_p)
+    if dl[t - n_pad:].abs().max().item() != 0.0:
+        raise AssertionError(f"{name}: padding rows' dlogits not exactly 0")
+
+    F = torch.nn.functional
+    labels64 = labels.long()
+    x = logits.float().requires_grad_(True)
+    ce = F.cross_entropy(x, labels64, reduction="none")
+    elems = float(t) * v
+    rows = {
+        "fused_ce_fwd": {
+            "err": max(err_n, err_l), "rel_l2": max(rl2_n, rl2_l),
+            "ms": time_ms(torch, lambda: CE.fused_ce_fwd(logits, labels), 20),
+            "plain_ms": time_ms(torch, lambda: CE.fused_ce_fwd_plain(
+                logits, labels), 3),
+            # max, subtract, exp, add per logit in fp32
+            "bound": bound(4 * elems, 2 * elems + 4 * t * 4,
+                           PEAK_FP32_FLOPS),
+            "library_ms": time_ms(torch, lambda: F.cross_entropy(
+                logits.float(), labels64, reduction="none"), 10)},
+        "fused_ce_bwd": {
+            "err": err_d, "rel_l2": rl2_d,
+            "ms": time_ms(torch, lambda: CE.fused_ce_bwd(
+                logits, labels, lse, g), 20),
+            "plain_ms": time_ms(torch, lambda: CE.fused_ce_bwd_plain(
+                logits, labels, lse, g), 3),
+            # subtract, exp, subtract, multiply per logit in fp32
+            "bound": bound(4 * elems, 2 * 2 * elems + 3 * t * 4,
+                           PEAK_FP32_FLOPS),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                ce, x, g, retain_graph=True), 10)}}
+    for key, row in rows.items():
+        log(f"[kernels] {name} {key}: "
+            f"{fmt({**row, 'bound': row['bound'][0]})}")
+    return rows
 
 
 def phase_kernels(torch):
+    """-> list of cases, each {kernel name: row}; the first case of each
+    kernel is at the slice's shape."""
     from repro_torch.kernels import flash_attention as FA
-    slice_lens = [3000, 900, 120]       # a packed prefill wave + padding
-    cases = [
-        kernel_case(torch, FA, "slice [8,3,4096,128]", g=8, hg=3, t=4096,
-                    s=4096, dk=128, dv=128, lens_q=slice_lens),
-        kernel_case(torch, FA, "ragged T=S=4000", g=8, hg=3, t=4000, s=4000,
-                    dk=128, dv=128, lens_q=[2500, 1000, 433], seed=1),
-        kernel_case(torch, FA, "window=16 softcap=30", g=2, hg=2, t=256,
-                    s=256, dk=64, dv=64, lens_q=[100, 90, 40], window=16,
-                    softcap=30.0, seed=2),
-        kernel_case(torch, FA, "Dk=128 Dv=64", g=2, hg=4, t=512, s=512,
-                    dk=128, dv=64, lens_q=[300, 150, 33], seed=3),
+    from repro_torch.kernels import fused_ce as CE
+    attn = [
+        ("slice [8,3,4096,128]", dict(g=8, hg=3, t=4096, dk=128, dv=128,
+                                      lens=SLICE_LENS)),
+        ("ragged T=S=4000", dict(g=8, hg=3, t=4000, dk=128, dv=128,
+                                 lens=[2500, 1000, 433], seed=1)),
+        ("window=16 softcap=30", dict(g=2, hg=2, t=256, dk=64, dv=64,
+                                      lens=[100, 90, 40], window=16,
+                                      softcap=30.0, seed=2)),
+        ("Dk=128 Dv=64", dict(g=2, hg=4, t=512, dk=128, dv=64,
+                              lens=[300, 150, 33], seed=3)),
     ]
+    cases = [fwd_case(torch, FA, name, **kw) for name, kw in attn]
+    cases += [bwd_case(torch, FA, name, **kw) for name, kw in attn]
+    cases.append(ce_case(torch, CE, "CE [4096,128256]", t=4096, v=128256,
+                         n_pad=76))
+    cases.append(ce_case(torch, CE, "CE [512,4096]", t=512, v=4096,
+                         n_pad=9, seed=1))
+    # comparison launches are not the path's
+    zero_counts()
     return cases
 
 
@@ -253,7 +492,6 @@ def serve_pool(torch, cfg, params, rt):
     """The 8-request pool through `ServeEngine`, drained; launch counts
     are zeroed just before the drain and read just after."""
     import numpy as np
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.serve import ServeConfig, ServeEngine
 
     eng = ServeEngine(params, cfg, rt, ServeConfig(
@@ -263,14 +501,12 @@ def serve_pool(torch, cfg, params, rt):
     rids = [eng.submit(rng.randint(0, cfg.vocab_size, n), NEW_TOKENS)
             for n in PROMPT_LENS]
     torch.cuda.reset_peak_memory_stats()
-    FA.flash_attention_fwd.launches = 0
-    FA.flash_attention_fwd_carry.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     eng.drain(max_steps=200)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd_carry": FA.flash_attention_fwd_carry.launches,
-                "flash_fwd": FA.flash_attention_fwd.launches}
+    launches = read_counts()
 
     waves = eng.stats["prefill_waves"]
     if waves < 2:
@@ -279,6 +515,9 @@ def serve_pool(torch, cfg, params, rt):
         raise AssertionError(
             f"carry kernel launched {launches['flash_fwd_carry']} times, "
             f"want {cfg.num_layers} x {waves} prefill waves")
+    if any(launches[n] for n in launches if n not in SERVE_KERNELS):
+        raise AssertionError(f"serving launched a training kernel: "
+                             f"{launches}")
     reqs = [eng.pool.get(r) for r in rids]
     for r in reqs:
         if r.error or len(r.generated) != NEW_TOKENS:
@@ -306,30 +545,21 @@ def teacher_forced(torch, params, cfg, rt, req):
             .numpy()
 
 
-def _to_float32(tree):
-    if isinstance(tree, dict):
-        return {k: _to_float32(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_float32(v) for v in tree]
-    return tree.float()
-
-
 def phase_serve(torch):
     """Full width and depth: counts, finiteness, and the engine against a
     float32 teacher-forced reference (rms gate, see below).  Then the same
     width cut to 2 layers, held element-wise at test_serve's tolerance."""
-    import dataclasses
-
     import numpy as np
     from repro_torch.configs.registry import get_config
     from repro_torch.models.transformer import init_params
     from repro_torch.parallel.sharding import Runtime
+    from repro_torch.tree import leaves, tree_map
 
     cfg = get_config("llama3.2-3b")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     rt = Runtime(device="cuda")                 # attn_impl="flash"
-    n_params = sum(x.numel() for x in _leaves(params))
+    n_params = sum(x.numel() for x in leaves(params))
     torch.cuda.synchronize()
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers d_model {cfg.d_model} "
         f"{n_params / 1e9:.3f} B params {cfg.dtype}, init "
@@ -348,7 +578,7 @@ def phase_serve(torch):
     tf_bf16_max = float(np.abs(np.stack(req.logits) - teacher_forced(
         torch, params, cfg, rt, req)).max())
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    ref = teacher_forced(torch, _to_float32(params), cfg32,
+    ref = teacher_forced(torch, tree_map(lambda x: x.float(), params), cfg32,
                          Runtime(device="cuda", attn_impl="ref"), req)
     got = np.stack(req.logits)
     tf_rms = float(np.sqrt(np.mean((got - ref) ** 2)))
@@ -392,42 +622,173 @@ def phase_serve(torch):
                                  f"teacher-forced logits differ by {err2}")
     res["layers2_max_abs_err"] = err2
     res["layers2_carry_launches"] = launches2["flash_fwd_carry"]
-    fmt = {k: (round(v, 4) if isinstance(v, float) else v)
-           for k, v in res.items()}
-    log(f"[serve] {json.dumps(fmt)}")
+    log(f"[serve] {fmt(res)}")
     return launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ---------------------------------------------------------------------------
+# 5. train
+# ---------------------------------------------------------------------------
+
+def train_setup(cfg, *, tokens_per_step=16384, capacity=4096):
+    from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    ds = SyntheticDataset("github", cfg.vocab_size,
+                          tokens_per_step=tokens_per_step, context=4096)
+    return GlobalScheduler(ds, cfg, capacity=capacity, hdp=1,
+                           strategy="balance", use_offload=False)
+
+
+def train_full(torch, cfg, steps=3):
+    """Full width and depth through `Trainer.train_step`; per-wave launch
+    counts through the trainer's telemetry hook (zeroed before the run,
+    read after every wave)."""
+    import numpy as np
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    sched = train_setup(cfg)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, Runtime(device=DEVICE),
+                 AdamWConfig(lr=3e-4, warmup_steps=0), sched,
+                 TrainerConfig(capacity=4096))
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, params + optimiser "
+        f"state {torch.cuda.memory_allocated() / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    waves = []
+
+    def telemetry(wave_list, measured, fresh, wall_s=None):
+        counts = read_counts()
+        zero_counts()
+        tokens = sum(p.length for w in wave_list for slot in w.slots
+                     for p in slot)
+        waves.append({"step": tr.step, "wall_s": wall_s, "fresh": fresh,
+                      "tokens": tokens, "counts": counts})
+
+    tr.telemetry_fn = telemetry
+    torch.cuda.reset_peak_memory_stats()
+    steps_out = []
+    zero_counts()
+    try:
+        for _ in range(steps):
+            rec = tr.train_step()
+            nu = tr.last_numerics
+            steps_out.append({**rec, "applied": nu["applied"],
+                              "wave_losses": nu["wave_losses"]})
+    finally:
+        sched.stop()
+    totals = read_counts()
+    for w in waves:
+        for name, n in w["counts"].items():
+            totals[name] += n
+    peak = torch.cuda.max_memory_allocated()
+
+    for s in steps_out:
+        if s["applied"] != 1:
+            raise AssertionError(f"step {s['step']}: the guarded apply "
+                                 f"skipped (applied = {s['applied']})")
+        if not (np.isfinite(s["wave_losses"]).all()
+                and np.isfinite(s["grad_norm"])):
+            raise AssertionError(f"step {s['step']}: non-finite loss or "
+                                 f"grad norm {s}")
+    for i, w in enumerate(waves):
+        if w["counts"] != TRAIN_WAVE_LAUNCHES:
+            raise AssertionError(f"wave {i} of step {w['step']}: launches "
+                                 f"{w['counts']}, want {TRAIN_WAVE_LAUNCHES}")
+    warm = [w["wall_s"] for w in waves if not w["fresh"]]
+    res = {"steps": len(steps_out),
+           "waves_per_step": [s["waves"] for s in steps_out],
+           "losses": [s["loss"] for s in steps_out],
+           "grad_norms": [s["grad_norm"] for s in steps_out],
+           "first_wave_ms": waves[0]["wall_s"] * 1e3,
+           "warm_ms_per_wave": float(np.mean(warm)) * 1e3,
+           "step_wall_s": [s["wall_s"] for s in steps_out],
+           "tokens_per_step": [sum(w["tokens"] for w in waves
+                                   if w["step"] == i) for i in range(steps)],
+           "peak_mem_gb": peak / 1e9}
+    res["tokens_per_s_warm_steps"] = float(
+        sum(res["tokens_per_step"][1:]) / sum(res["step_wall_s"][1:]))
+    log(f"[train] {json.dumps(res)}")
+    del tr
+    torch.cuda.empty_cache()
+    return totals
+
+
+def train_layers2(torch, cfg):
+    """One wave at full width cut to 2 layers: the kernel route (bf16,
+    flash + fused CE) and the bf16 plain route against the float32 plain
+    route (weights upcast, attn_impl="ref", plain CE)."""
+    from repro_torch.data.loader import WaveMaterializer
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.train_step import make_accum_steps, zeros_accum
+    from repro_torch.tree import leaves, tree_map
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    sched = train_setup(cfg2)
+    plan = sched.plan_step(0)
+    sched.stop()
+    lw = WaveMaterializer(sched.ds, cfg2, 4096).materialize(0, plan.waves[0])
+    batch = {k: torch.tensor(v, device=DEVICE) for k, v in lw.batch.items()}
+    batch["denom"] = torch.tensor(float(plan.denom), device=DEVICE)
+    params = init_params(cfg2, seed=0, device=DEVICE)
+
+    def run(route_cfg, p, attn_impl):
+        rt = Runtime(device=DEVICE, attn_impl=attn_impl)
+        grad_step, _ = make_accum_steps(route_cfg, rt, AdamWConfig())
+        acc, m = grad_step(p, zeros_accum(p), batch, rt)
+        return m["loss"].item(), acc
+
+    loss_k, g_k = run(cfg2, params, "flash")
+    loss_b, g_b = run(cfg2, params, "ref")
+    loss_32, g_32 = run(dataclasses.replace(cfg2, dtype="float32"),
+                        tree_map(lambda x: x.float(), params), "ref")
+    rel = [rel_l2(a, b) for a, b in zip(leaves(g_k), leaves(g_32))]
+    rel_b = [rel_l2(a, b) for a, b in zip(leaves(g_b), leaves(g_32))]
+    res = {"wave_tokens": int((lw.batch["seg"] > 0).sum()),
+           "loss_kernel": loss_k, "loss_f32": loss_32, "loss_bf16_plain":
+           loss_b, "loss_rel_err": abs(loss_k - loss_32) / abs(loss_32),
+           "loss_rel_err_bf16_plain": abs(loss_b - loss_32) / abs(loss_32),
+           "grad_rel_l2_max": max(rel), "grad_rel_l2_max_bf16_plain":
+           max(rel_b), "n_leaves": len(rel)}
+    log(f"[train] layers2 {fmt(res)}")
+    if not res["loss_rel_err"] <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"2-layer loss: kernel route {loss_k} vs "
+                             f"float32 {loss_32}")
+    if not max(rel) <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"2-layer grads: relative L2 up to {max(rel)} "
+                             f"against the float32 route")
+
+
+def phase_train(torch):
+    from repro_torch.configs.registry import get_config
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-3b")
+    launches = train_full(torch, cfg)
+    train_layers2(torch, cfg)
+    return launches
 
 
 # ---------------------------------------------------------------------------
-# 5. report
+# 6. report
 # ---------------------------------------------------------------------------
 
-def kernels_line(cases, launches):
-    head = cases[0]
-    err = {"flash_fwd": max(c["fwd_err"] for c in cases),
-           "flash_fwd_carry": max(c["carry_err"] for c in cases)}
+def kernels_line(cases, serve_launches, train_launches):
     rows = []
-    for name, key, line in (("flash_fwd_carry", "carry", 153),
-                            ("flash_fwd", "fwd", 79)):
-        bound, by = head[f"{key}_bound"]
+    for name, src, replaces, _, _ in KERNELS:
+        mine = [c[name] for c in cases if name in c]
+        head = mine[0]                       # the slice's shape
+        ms, by = head["bound"]
+        launches = serve_launches if name in SERVE_KERNELS \
+            else train_launches
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
-            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": launches[name], "max_abs_err": err[name],
-            "ms": head[f"{key}_ms"], "plain_ms": head[f"{key}_plain_ms"],
-            "bound_ms": bound, "bound_by": by,
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(c["err"] for c in mine),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": ms, "bound_by": by,
             "library_ms": head["library_ms"]})
     return {"kernels": rows}
 
@@ -445,8 +806,12 @@ def main() -> int:
     phase_device(torch)
     phase_build()
     cases = phase_kernels(torch)
-    launches = phase_serve(torch)
-    log(json.dumps(kernels_line(cases, launches)))
+    log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
+    serve_launches = phase_serve(torch)
+    log(f"[serve] done at {time.perf_counter() - t0:.1f} s")
+    train_launches = phase_train(torch)
+    log(f"[train] done at {time.perf_counter() - t0:.1f} s")
+    log(json.dumps(kernels_line(cases, serve_launches, train_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

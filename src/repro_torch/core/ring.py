@@ -7,9 +7,11 @@ larger than one come with the ``torch.distributed`` slice and raise
 `NotImplementedError` here.
 
 ``attn_impl`` selects the compute backend: ``"ref"`` runs the plain
-oracle (`core/attention.py`'s chunked stats); ``"flash"`` runs the
-ring-flash engine (`kernels/ring_flash.py`), whose carry kernel is the
-CUDA flash kernel on a CUDA device and its plain version on the CPU.
+oracle (`core/attention.py`'s chunked stats, differentiated by autograd);
+``"flash"`` runs the ring-flash engine (`kernels/ring_flash.py` behind
+`kernels/ops.make_ring_flash`), whose carry kernel is the CUDA flash
+kernel on a CUDA device and its plain version on the CPU, and whose
+gradient runs the flash backward kernels.
 """
 from __future__ import annotations
 
@@ -60,14 +62,16 @@ def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
     dk, v_off, dv = kv_split
 
     if attn_impl == "flash":
-        from repro_torch.kernels.ring_flash import RingConfig, ring_flash_fwd
+        # lazy import: the kernel modules import this package's attention
+        from repro_torch.kernels import ops as kernel_ops
+        from repro_torch.kernels.ring_flash import RingConfig
         cfg = RingConfig(composition=tuple(composition), kv_split=kv_split,
                          gather=use_group_gather, scale=scale, causal=causal,
                          window=window, softcap=softcap, block_q=block_q,
                          block_k=block_k)
         kgi = kv_group_of_head if use_group_gather else None
-        out, _ = ring_flash_fwd(cfg, q, kv, q_seg, k_seg, q_pos, k_pos, kgi)
-        return out
+        return kernel_ops.make_ring_flash(cfg)(q, kv, q_seg, k_seg, q_pos,
+                                               k_pos, kgi)
 
     c = q.shape[0]
     k_blk, v_blk = kv[..., :dk], kv[..., v_off:v_off + dv]

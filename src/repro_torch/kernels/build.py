@@ -5,7 +5,8 @@ shared library under ``<checkout>/build/kernels/``, named by a hash of
 the source and the flags, so an edited source rebuilds and an unchanged
 one is reused.  The build happens at first use, inside the process that
 launches the kernel; nothing is built when a module is imported.
-`build_all` starts one ``nvcc`` per source at once and waits for all.
+`build_all` starts one ``nvcc`` per source at once and waits for all;
+`call` launches one entry point on the caller's stream.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -86,3 +89,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def call(name: str, symbol: str, args: Sequence, device) -> None:
+    """Call ``symbol`` of ``csrc/<name>.cu`` on the current stream of
+    ``device``.  Tensors pass as pointers, None as a null pointer, Python
+    floats as C floats and ints as C ints; the stream goes last.  Raises
+    RuntimeError on a non-zero cudaError (a refused launch never runs)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_float if isinstance(a, float)
+                   else ctypes.c_int if isinstance(a, int)
+                   else ctypes.c_void_p for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")

@@ -1,5 +1,5 @@
-"""Flash attention forward over packed segments: CUDA kernel wrappers and
-their plain PyTorch versions.
+"""Flash attention over packed segments, forward and backward: CUDA kernel
+wrappers and their plain PyTorch versions.
 
 Layout (the reference's kernel layout):
     q    [G, Hg, T, Dk]
@@ -9,16 +9,17 @@ Layout (the reference's kernel layout):
 
 `flash_attention_fwd_carry` folds one KV block into carried online-softmax
 state (acc [G,Hg,T,Dv], m/l [G,Hg,T], fp32) and `flash_attention_fwd`
-finalises to (out [G,Hg,T,Dv] in q's dtype, lse [G,Hg,T] fp32).  On a
-CUDA tensor each wrapper launches the Hopper kernel of
-``csrc/flash_fwd.cu`` (bf16, Dk/Dv in {32, 64, 128}) or raises; on a CPU
+finalises to (out [G,Hg,T,Dv] in q's dtype, lse [G,Hg,T] fp32).
+`flash_attention_bwd` takes the forward's (out, lse) and the output
+gradient do and returns (dq, dk, dv) through two kernels,
+`flash_attention_bwd_dq` and `flash_attention_bwd_dkv`.  On a CUDA tensor
+each wrapper launches its Hopper kernel (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``; bf16, Dk/Dv in {32, 64, 128}) or raises; on a CPU
 tensor it runs the plain version, which repeats the Pallas kernels'
-arithmetic panel by panel.  Each wrapper counts its kernel launches in
-its ``launches`` attribute.
+arithmetic panel by panel.  Each kernel wrapper counts its launches in its
+``launches`` attribute.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -89,6 +90,41 @@ def flash_attention_fwd_plain(q, k, v, q_seg, k_seg, q_pos, k_pos, *, scale,
     return finalize(acc, m, l, q.dtype)
 
 
+def flash_attention_bwd_plain(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse,
+                              do, *, scale, causal=True, window=0,
+                              softcap=0.0, block_k=BLOCK_K):
+    """Plain version of both backward kernels -> (dq, dk, dv) in the
+    inputs' dtypes.  One KV panel of ``block_k`` rows at a time, in fp32:
+    the arithmetic of ``_bwd_dq_kernel`` (dq += ds·k·scale) and of
+    ``_bwd_dkv_kernel`` (dv = pᵀ·do, dk = dsᵀ·q·scale) on the same p, ds."""
+    qf, dof = q.float(), do.float()
+    delta = (dof * out.float()).sum(dim=-1)                  # [G,Hg,T]
+    dq = torch.zeros_like(qf)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    for a in range(0, k.shape[1], block_k):
+        b = a + block_k
+        kb, vb = k[:, a:b].float(), v[:, a:b].float()
+        s = torch.einsum("ghtd,gsd->ghts", qf, kb) * scale
+        dcap = None
+        if softcap:
+            th = torch.tanh(s / softcap)
+            s = softcap * th
+            dcap = 1.0 - th * th
+        mask = attention_mask(q_seg, k_seg[a:b], q_pos, k_pos[a:b],
+                              causal=causal, window=window)
+        p = torch.exp(torch.where(mask, s, NEG_INF) - lse[..., None])
+        p = torch.where(mask, p, 0.0)
+        dp = torch.einsum("ghte,gse->ghts", dof, vb)
+        ds = p * (dp - delta[..., None])
+        if dcap is not None:
+            ds = ds * dcap
+        dq += torch.einsum("ghts,gsd->ghtd", ds, kb) * scale
+        dv[:, a:b] = torch.einsum("ghts,ghte->gse", p, dof)
+        dk[:, a:b] = torch.einsum("ghts,ghtd->gsd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # checks and launch
 # ---------------------------------------------------------------------------
@@ -127,47 +163,62 @@ def _check(q, k, v, q_seg, k_seg, q_pos, k_pos, state=None):
     return tensors
 
 
-def _launch(q, k, v, q_seg, k_seg, q_pos, k_pos, acc, m, l, out, lse, *,
-            carry, scale, causal, window, softcap, block_q, block_k):
-    """Check what the CUDA kernel takes, then launch it on the current
-    stream.  Raises on anything it does not take, or a launch error."""
+def _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do):
+    _check(q, k, v, q_seg, k_seg, q_pos, k_pos)
+    g, hg, t, _ = q.shape
+    want = (g, hg, t, v.shape[-1])
+    if tuple(out.shape) != want or tuple(do.shape) != want:
+        raise ValueError(f"out and do must be [G,Hg,T,Dv] = {want}, got "
+                         f"{tuple(out.shape)}, {tuple(do.shape)}")
+    if out.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"out/do dtypes {out.dtype}, {do.dtype} differ from "
+                         f"q's {q.dtype}")
+    if tuple(lse.shape) != (g, hg, t) or lse.dtype != torch.float32:
+        raise ValueError("lse must be float32 [G,Hg,T]")
+    if any(x.device != q.device for x in (out, lse, do)):
+        raise ValueError("all inputs must be on one device")
+
+
+def _launch(source, symbol, q, k, v, args, *, block_q, block_k):
+    """Check what the CUDA kernels take, then call ``symbol`` of
+    ``csrc/<source>.cu`` with ``args`` (`build.call`).  Raises on anything
+    the kernel does not take, or a launch error."""
     g, hg, t, dk = q.shape
-    s, dv = k.shape[1], v.shape[-1]
+    dv = v.shape[-1]
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA flash kernel takes bfloat16, got "
+        raise TypeError(f"the CUDA flash kernels take bfloat16, got "
                         f"{q.dtype}")
     if dk not in HEAD_DIMS or dv not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernel takes Dk, Dv in "
+        raise ValueError(f"the CUDA flash kernels take Dk, Dv in "
                          f"{HEAD_DIMS}, got {dk}, {dv}")
     if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
-        raise ValueError(f"the CUDA flash kernel tiles {BLOCK_Q}x{BLOCK_K}, "
+        raise ValueError(f"the CUDA flash kernels tile {BLOCK_Q}x{BLOCK_K}, "
                          f"got block_q={block_q}, block_k={block_k}")
-    bufs = [x for x in (q, k, v, q_seg, k_seg, q_pos, k_pos, acc, m, l,
-                        out, lse) if x is not None]
+    bufs = [a for a in args if isinstance(a, torch.Tensor)]
     if not all(x.is_contiguous() for x in bufs):
-        raise ValueError("the CUDA flash kernel takes contiguous tensors")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("q, k, v must be 16-byte aligned")
-    if t == 0 or g == 0 or hg == 0:
+        raise ValueError("the CUDA flash kernels take contiguous tensors")
+    if any(x.data_ptr() % 16 for x in bufs if x.dtype == torch.bfloat16):
+        raise ValueError("bf16 operands must be 16-byte aligned")
+    if t == 0 or g == 0 or hg == 0 or k.shape[1] == 0:
         return
     from repro_torch.kernels import build
-    fn = build.load("flash_fwd").flash_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    build.call(source, symbol, args, q.device)
 
-    def ptr(x):
-        return None if x is None else x.data_ptr()
 
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(ptr(q), ptr(k), ptr(v), ptr(q_seg), ptr(k_seg), ptr(q_pos),
-                 ptr(k_pos), ptr(acc), ptr(m), ptr(l), ptr(out), ptr(lse),
-                 int(carry), g, hg, t, s, dk, dv, float(scale), int(causal),
-                 int(window), float(softcap), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_bf16 launch failed: cudaError {err}")
+def _fwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, acc, m, l, out, lse, *,
+              carry, scale, causal, window, softcap):
+    g, hg, t, dk = q.shape
+    return [q, k, v, q_seg, k_seg, q_pos, k_pos, acc, m, l, out, lse,
+            int(carry), g, hg, t, k.shape[1], dk, v.shape[-1], float(scale),
+            int(causal), int(window), float(softcap)]
+
+
+def _bwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do, grads, *,
+              scale, causal, window, softcap):
+    g, hg, t, dk = q.shape
+    return [q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do, *grads, g,
+            hg, t, k.shape[1], dk, v.shape[-1], float(scale), int(causal),
+            int(window), float(softcap)]
 
 
 # ---------------------------------------------------------------------------
@@ -190,9 +241,11 @@ def flash_attention_fwd_carry(q, k, v, q_seg, k_seg, q_pos, k_pos, acc, m,
         for dst, src in zip((acc, m, l), new):
             dst.copy_(src)
         return acc, m, l
-    _launch(q, k, v, q_seg, k_seg, q_pos, k_pos, acc, m, l, None, None,
-            carry=True, scale=scale, causal=causal, window=window,
-            softcap=softcap, block_q=block_q, block_k=block_k)
+    args = _fwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, acc, m, l, None,
+                     None, carry=True, scale=scale, causal=causal,
+                     window=window, softcap=softcap)
+    _launch("flash_fwd", "flash_fwd_bf16", q, k, v, args, block_q=block_q,
+            block_k=block_k)
     flash_attention_fwd_carry.launches += 1
     return acc, m, l
 
@@ -215,11 +268,74 @@ def flash_attention_fwd(q, k, v, q_seg, k_seg, q_pos, k_pos, *, scale,
     out = torch.empty((g, hg, t, v.shape[-1]), dtype=q.dtype,
                       device=q.device)
     lse = torch.empty((g, hg, t), dtype=torch.float32, device=q.device)
-    _launch(q, k, v, q_seg, k_seg, q_pos, k_pos, None, None, None, out, lse,
-            carry=False, scale=scale, causal=causal, window=window,
-            softcap=softcap, block_q=block_q, block_k=block_k)
+    args = _fwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, None, None, None,
+                     out, lse, carry=False, scale=scale, causal=causal,
+                     window=window, softcap=softcap)
+    _launch("flash_fwd", "flash_fwd_bf16", q, k, v, args, block_q=block_q,
+            block_k=block_k)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
+                           *, scale, causal=True, window=0, softcap=0.0,
+                           block_q=BLOCK_Q, block_k=BLOCK_K):
+    """dq [G,Hg,T,Dk] in q's dtype (the dq kernel of the backward)."""
+    _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
+            block_k=block_k, **kw)[0]
+    dq = torch.empty_like(q)
+    args = _bwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
+                     [dq], **kw)
+    _launch("flash_bwd", "flash_bwd_dq_bf16", q, k, v, args,
+            block_q=block_q, block_k=block_k)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse,
+                            do, *, scale, causal=True, window=0, softcap=0.0,
+                            block_q=BLOCK_Q, block_k=BLOCK_K):
+    """(dk [G,S,Dk], dv [G,S,Dv]) in k's dtype (the dkv kernel of the
+    backward), summed over the Hg heads of each group."""
+    _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
+            block_k=block_k, **kw)[1:]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    args = _bwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
+                     [dk, dv], **kw)
+    _launch("flash_bwd", "flash_bwd_dkv_bf16", q, k, v, args,
+            block_q=block_q, block_k=block_k)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do, *,
+                        scale, causal=True, window=0, softcap=0.0,
+                        block_q=BLOCK_Q, block_k=BLOCK_K):
+    """Packed-segment flash backward from the forward's (out, lse) and the
+    output gradient ``do`` [G,Hg,T,Dv] -> (dq, dk, dv).  Rows with no
+    visible key (padding) get dq = 0, and keys no row sees dk = dv = 0."""
+    args = (q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              block_k=block_k)
+    if q.device.type == "cpu":
+        _check_bwd(*args)
+        return flash_attention_bwd_plain(*args, **kw)
+    return (flash_attention_bwd_dq(*args, block_q=block_q, **kw),
+            *flash_attention_bwd_dkv(*args, block_q=block_q, **kw))

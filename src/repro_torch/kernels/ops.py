@@ -1,0 +1,63 @@
+"""Differentiable wrappers around the kernels (`torch.autograd.Function`s).
+
+Port of `repro/kernels/ops.py`'s ring-flash and fused cross-entropy
+custom VJPs.  Neither differentiates through a kernel: each forward saves
+the residuals its backward kernels take, and the backward calls them.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import fused_ce as CE
+from repro_torch.kernels import ring_flash as RF
+
+
+class _RingFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, q, kv, q_seg, k_seg, q_pos, k_pos, kgi):
+        out, res = RF.ring_flash_fwd(cfg, q, kv, q_seg, k_seg, q_pos, k_pos,
+                                     kgi)
+        ctx.cfg = cfg
+        ctx.save_for_backward(*res)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dkv = RF.ring_flash_bwd(ctx.cfg, ctx.saved_tensors, do)
+        return None, dq, dkv, None, None, None, None, None
+
+
+@functools.lru_cache(maxsize=None)
+def make_ring_flash(cfg: RF.RingConfig):
+    """The differentiable ring-flash call for one static ring
+    configuration: ``fn(q [C, hpl, D], kv [C, G, Dk(+Dv)], q_seg, k_seg,
+    q_pos, k_pos, kgi) -> out [C, hpl, Dv]``.  Its backward runs
+    `ring_flash_bwd` (the flash backward kernels) on the saved (out, lse)
+    residuals."""
+
+    def ring_flash(q, kv, q_seg, k_seg, q_pos, k_pos, kgi):
+        return _RingFlash.apply(cfg, q, kv, q_seg, k_seg, q_pos, k_pos, kgi)
+
+    return ring_flash
+
+
+class _FusedXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels):
+        nll, lse, _ = CE.fused_ce_fwd(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        return CE.fused_ce_bwd(logits, labels, lse,
+                               g.float().contiguous()), None
+
+
+def fused_softmax_xent(logits, labels):
+    """logits [T, V], labels [T] int32 -> nll [T] fp32 (differentiable in
+    the logits)."""
+    return _FusedXent.apply(logits, labels)

@@ -1,5 +1,7 @@
-"""Dense PyTorch oracle for the flash kernels (tests only)."""
+"""Dense PyTorch oracles for the kernels (tests only)."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.attention import attention_dense_oracle
 
@@ -13,3 +15,21 @@ def flash_attention_ref(q, k, v, q_seg, k_seg, q_pos, k_pos, *, scale,
         q_seg, k_seg, q_pos, k_pos, scale=scale, causal=causal,
         window=window, softcap=softcap)
     return out.permute(1, 2, 0, 3)
+
+
+def fused_ce_ref(logits, labels):
+    """-> (nll [T], lse [T]) in fp32."""
+    lg = logits.float()
+    m = lg.amax(dim=-1)
+    lse = m + torch.log(torch.exp(lg - m[:, None]).sum(dim=-1))
+    tgt = lg.gather(-1, labels.long()[:, None])[:, 0]
+    return lse - tgt, lse
+
+
+def fused_ce_grad_ref(logits, labels, g):
+    """dlogits for loss = sum(nll * g)."""
+    lg = logits.float()
+    p = torch.softmax(lg, dim=-1)
+    onehot = torch.nn.functional.one_hot(labels.long(),
+                                         lg.shape[-1]).float()
+    return ((p - onehot) * g[:, None]).to(logits.dtype)

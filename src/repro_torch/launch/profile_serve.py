@@ -29,6 +29,10 @@ from repro_torch.serve import ServeConfig, ServeEngine
 PROMPT_LENS = [3000, 1800, 900, 400, 200, 120, 64, 33]
 NEW_TOKENS = 16
 FAMILIES = (("flash_fwd_kernel", "flash attention (CUDA kernel)"),
+            ("flash_bwd_dq", "flash backward dq (CUDA kernel)"),
+            ("flash_bwd_dkv", "flash backward dkv (CUDA kernel)"),
+            ("ce_fwd_kernel", "fused CE (CUDA kernels)"),
+            ("ce_bwd_kernel", "fused CE (CUDA kernels)"),
             ("gemm", "matmul"), ("gemv", "matmul"), ("cutlass", "matmul"),
             ("xmma", "matmul"), ("nvjet", "matmul"),
             ("reduce", "reductions"), ("elementwise", "elementwise"),

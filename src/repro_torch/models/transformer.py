@@ -1,11 +1,11 @@
 """Decoder LM over packed token buffers, dense path.
 
-Port of `repro/models/transformer.py` for the serving slice: token
-frontend, RMSNorm, GQA attention with RoPE over packed segments, gated or
-plain MLP, tied or untied logits.  Activations are flat packed buffers
-[T, d]; every token carries (segment_id, position).  Parameters keep the
-reference's tree and layouts, so a JAX parameter tree bridges by a plain
-copy (`repro_torch.bridge`):
+Port of `repro/models/transformer.py` for the serving and training
+slices: token frontend, RMSNorm, GQA attention with RoPE over packed
+segments, gated or plain MLP, tied or untied logits.  Activations are
+flat packed buffers [T, d]; every token carries (segment_id, position).
+Parameters keep the reference's tree and layouts, so a JAX parameter tree
+bridges by a plain copy (`repro_torch.bridge`):
 
     embed [V, d]; head_blocks []; final_norm {scale [d] f32};
     blocks: one dict per layer-pattern position, every leaf stacked
@@ -23,6 +23,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ring as R
@@ -209,20 +210,46 @@ def embed_frontend(params, cfg: ModelConfig, rt: Runtime, batch,
 def apply_periods(blocks, cfg: ModelConfig, rt: Runtime, x, seg, pos,
                   collect: Optional[list] = None):
     """Run the stacked layer periods over the residual stream, one Python
-    iteration per period (inference: no remat).  ``collect`` receives one
-    list per period of the per-position KV rows."""
+    iteration per period.  ``collect`` receives one list per period of the
+    per-position KV rows.
+
+    With ``rt.remat == "full"`` and grad enabled, each period runs under
+    ``torch.utils.checkpoint`` (the reference's per-period
+    ``jax.checkpoint``): only its input residual is kept and the backward
+    recomputes the period.  The stacked params are unbound once per call,
+    so the backward stacks each leaf's per-period grads in one copy
+    instead of scattering every period into a full-size zero tensor."""
     period = len(cfg.layer_pattern)
     head_n = head_layer_count(cfg)
-    n_periods = blocks[0]["norm1"]["scale"].shape[0]
-    for i in range(n_periods):
-        kvs: list = []
+    layers = [_unstack(b) for b in blocks]          # [position][period]
+    remat = (rt.remat == "full" and torch.is_grad_enabled()
+             and collect is None)
+
+    def period_body(x, i, kvs):
         for j in range(period):
-            bp = _index(blocks[j], i)
-            x = block_forward(bp, cfg, rt, x, seg, pos, head_n + j,
-                              collect=None if collect is None else kvs)
+            x = block_forward(layers[j][i], cfg, rt, x, seg, pos, head_n + j,
+                              collect=kvs)
+        return x
+
+    for i in range(len(layers[0])):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(period_body, x, i, None,
+                                                  use_reentrant=False)
+            continue
+        kvs = None if collect is None else []
+        x = period_body(x, i, kvs)
         if collect is not None:
             collect.append(kvs)
     return x
+
+
+def _unstack(tree) -> list:
+    """Stacked [n, ...] tree -> list of n per-period trees (views)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _index(tree, i: int):

@@ -43,12 +43,21 @@ class Runtime:
     attn_block_k: int = 64
     kv_chunk: int = 1024              # ref path KV chunk
     block_skip: bool = True
+    remat: str = "full"               # none | full: recompute each layer
+                                      # period in the backward
+                                      # (torch.utils.checkpoint)
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{ATTN_IMPLS}")
+        if self.remat == "offload":
+            raise NotImplementedError(
+                "remat='offload' (selective activation offload) comes with "
+                "the offload slice of the port (ROADMAP queue 1 item 4)")
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat {self.remat!r} not in ('none', 'full')")
 
     @property
     def tp(self) -> int:

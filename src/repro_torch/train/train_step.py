@@ -1,0 +1,97 @@
+"""Gradient-accumulation steps over HDP waves.
+
+Port of `repro/train/train_step.py` (`loss_fn`, `make_accum_steps`).  A
+*wave* is one packed micro-batch; every wave divides its loss by the same
+global ``denom`` (total valid tokens of the step, paper Eq. 1–2), so
+accumulating grads over heterogeneous waves equals one plain-DP batch.
+
+The reference's steps are pure jitted functions; here ``grad_step`` adds
+one wave's gradient into the caller's fp32 accumulator in place and
+``apply_step`` updates params and optimiser state in place (see
+`optim/adamw.py`), one leaf at a time.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.loss import token_ce_loss
+from repro_torch.models.transformer import forward_hidden
+from repro_torch.obs import numerics as NU
+from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import Runtime
+from repro_torch.tree import leaves, tree_map
+
+
+def loss_fn(params, cfg: ModelConfig, rt: Runtime, batch):
+    hidden = forward_hidden(params, cfg, rt, batch)
+    return token_ce_loss(params, cfg, rt, hidden, batch["labels"],
+                         batch["seg"], batch["denom"])
+
+
+def zeros_accum(params):
+    """The fp32 gradient accumulator of a step, zeroed."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def make_accum_steps(cfg: ModelConfig, rt: Runtime,
+                     opt_cfg: adamw.AdamWConfig, *,
+                     numerics: bool = True, guard: bool = False):
+    """(grad_step, apply_step) for multi-wave gradient accumulation.
+
+    ``grad_step(params, grad_accum, batch, rt_wave)`` runs one wave's
+    forward and backward under ``rt_wave`` and adds its grads into
+    ``grad_accum``; it returns (grad_accum, {"loss", "nll_sum", "tokens"}).
+
+    ``apply_step(params, opt_state, grad_accum)`` computes the global grad
+    norm once, applies AdamW in place and returns (params, opt_state, om).
+    ``numerics`` fills om with the sentinels (per-group grad/param/update
+    norms, non-finite count).  ``guard`` decides from the grads, BEFORE
+    anything is written, whether any element is non-finite; if so params,
+    state and the step counter stay unchanged bit for bit and
+    ``om["applied"]`` is 0 (the reference's ``where`` select).  A skipped
+    apply reports the kept params' norms and zero update norms.  om values
+    are device scalars, for one fetch by the caller.
+    """
+
+    def grad_step(params, grad_accum, batch, rt_wave: Runtime):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(live, cfg, rt_wave, batch)
+            grads = torch.autograd.grad(loss, leaves(live))
+        with torch.no_grad():
+            for acc, g in zip(leaves(grad_accum), grads):
+                acc.add_(g)
+        del grads
+        return grad_accum, {"loss": loss.detach(),
+                            **{k: v.detach() for k, v in metrics.items()}}
+
+    def apply_step(params, opt_state, grad_accum):
+        with torch.no_grad():
+            om: Dict[str, torch.Tensor] = {}
+            gnorm = adamw.global_norm(grad_accum)
+            if numerics or guard:
+                om.update(NU.sentinel_summary(grad_accum))
+            ok = not guard or int(om["grad_nonfinite"]) == 0
+            update_sq: Dict[str, torch.Tensor] = {}
+            if ok:
+                _, _, opt_om = adamw.apply_updates(
+                    params, grad_accum, opt_state, opt_cfg, gnorm=gnorm,
+                    update_sq=update_sq if numerics or guard else None)
+            else:
+                opt_om = {"grad_norm": gnorm,
+                          "lr": adamw.schedule_lr(opt_cfg,
+                                                  opt_state["step"] + 1)}
+            om = {**opt_om, **om}
+            if numerics or guard:
+                om.update(NU.group_norms(params, "pnorm"))
+                om.update({f"unorm/{k}": (update_sq[k].sqrt() if ok
+                                          else torch.zeros_like(gnorm))
+                           for k, v in params.items() if leaves(v)})
+                om["applied"] = torch.tensor(int(ok))
+        return params, opt_state, om
+
+    return grad_step, apply_step
