@@ -9,12 +9,16 @@ Phases (any failure raises and exits non-zero before the result line):
    versions; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every CUDA kernel of the port from the checkout's
    sources (flash_fwd, flash_bwd, fused_ce: one nvcc per source, all
-   started together) and prints ptxas' register and spill lines.
+   started together) and prints ptxas' registers and spills per kernel.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card.  Flash forward: the slice's shape [8,3,4096,128] bf16 with packed
-   segments, padding rows and a non-zero carry-in; a ragged T=S=4000; a
-   window=16/softcap=30 case; Dv=64 != Dk=128.  Flash backward (dq, dkv):
-   the same four cases from the forward kernel's (out, lse).  Fused
+   segments (3000/900/120), padding rows and a non-zero carry-in; the
+   skip-heavy case, 64 segments of 64 tokens at the same shape (only the
+   diagonal tiles live); a ragged T=S=4000; a window=16/softcap=30 case;
+   Dv=64 != Dk=128.  Flash backward (dq, then dkv from dq's delta): the
+   same five cases from the forward kernel's (out, lse).  Each attention
+   case prints the fraction of 64x64 tiles the kernels visit, from the
+   port's tile predicate (`core/ring.py::tile_liveness`).  Fused
    cross-entropy forward and backward: [4096,128256] bf16 with padding
    rows (label 0, g = 0) and V=4096.  Tolerance 2e-2 element-wise (bf16,
    the reference's kernel-test tolerance) and 2e-2 relative L2 per output;
@@ -151,6 +155,46 @@ def phase_device(torch) -> str:
 # 2. build
 # ---------------------------------------------------------------------------
 
+def kernel_name(mangled: str) -> str:
+    """'_ZN..20flash_bwd_dkv_kernelILi128ELi128EEEv..' ->
+    'flash_bwd_dkv_kernel<128,128>' (the last name of a mangled symbol and
+    its integer template arguments)."""
+    import re
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if mangled[i:i + 1] != "I":
+        return name
+    args = re.findall(r"L[ib](\d+)E", mangled[i:].split("EE")[0] + "E")
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_report(text: str):
+    """[(kernel<template args>, registers, spill stores, spill loads)] from
+    nvcc's -Xptxas -v output."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return rows
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     names = sorted({Path(src).stem for _, src, _, _, _ in KERNELS})
@@ -158,10 +202,9 @@ def phase_build() -> None:
     libs = build.build_all(names)
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in names:
-        for line in build.build_log(name).splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kern, regs, st, ld in ptxas_report(build.build_log(name)):
+            log(f"[build] {name}: {kern} registers {regs} spill stores "
+                f"{st} B, spill loads {ld} B")
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +222,7 @@ def packed_meta(rng, n: int, lens):
         seg[cur:cur + ln] = i + 1
         pos[cur:cur + ln] = np.arange(ln)
         cur += ln
-    assert cur < n, "leave padding rows"
+    assert cur <= n
     return seg, pos
 
 
@@ -236,6 +279,15 @@ def attn_inputs(torch, g, hg, t, dk, dv, lens, seed):
     return rng, (q, k, v, seg, seg, pos, pos), seg_np, pos_np
 
 
+def live_fraction(torch, seg_np, pos_np, window) -> float:
+    """Share of the 64x64 tiles the flash kernels visit (self-attention
+    over one packed buffer, causal)."""
+    from repro_torch.core.ring import tile_liveness
+    seg, pos = torch.tensor(seg_np), torch.tensor(pos_np)
+    return float(tile_liveness(seg, seg, pos, pos, causal=True,
+                               window=window).float().mean())
+
+
 def visible_pairs(seg_np, pos_np, window) -> int:
     import numpy as np
     return int(np.sum((seg_np[:, None] == seg_np[None, :])
@@ -263,7 +315,7 @@ def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
     err_f, rl2_f = hold(torch, f"{name} flash_fwd out", out, out_p)
     live = ~pad[None, None, :].expand_as(lse)
     hold(torch, f"{name} flash_fwd lse", lse[live], lse_p[live])
-    if out[:, :, pad].abs().max().item() != 0.0 or \
+    if bool((out[:, :, pad] != 0).any()) or \
             not bool((lse[:, :, pad] == FA.NEG_INF).all()):
         raise AssertionError(f"{name}: padding rows not exactly 0 / -1e30")
 
@@ -320,9 +372,11 @@ def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
                     *args, acc0, m0, l0, **kw), 3),
             "bound": bound(flops, in_bytes + 2 * state),
             "library_ms": library}}
+    extra = {"n_pairs": n_pairs,
+             "live_tiles": live_fraction(torch, seg_np, pos_np, window)}
     for key, row in rows.items():
         log(f"[kernels] {name} {key}: "
-            f"{fmt({**row, 'bound': row['bound'][0], 'n_pairs': n_pairs})}")
+            f"{fmt({**row, 'bound': row['bound'][0], **extra})}")
     return rows
 
 
@@ -340,16 +394,15 @@ def bwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
                       device="cuda")
     res = (*args, out, lse, do)
 
-    dq = FA.flash_attention_bwd_dq(*res, **kw)
-    dk_, dv_ = FA.flash_attention_bwd_dkv(*res, **kw)
+    dq, delta = FA.flash_attention_bwd_dq(*res, **kw)
+    dk_, dv_ = FA.flash_attention_bwd_dkv(*res, delta, **kw)
     dq_p, dk_p, dv_p = FA.flash_attention_bwd_plain(*res, **kw)
     torch.cuda.synchronize()
     err_q, rl2_q = hold(torch, f"{name} dq", dq, dq_p)
     err_k, rl2_k = hold(torch, f"{name} dk", dk_, dk_p)
     err_v, rl2_v = hold(torch, f"{name} dv", dv_, dv_p)
-    if dq[:, :, pad].abs().max().item() != 0.0 \
-            or dk_[:, pad].abs().max().item() != 0.0 \
-            or dv_[:, pad].abs().max().item() != 0.0:
+    if bool((dq[:, :, pad] != 0).any()) or bool((dk_[:, pad] != 0).any()) \
+            or bool((dv_[:, pad] != 0).any()):
         raise AssertionError(f"{name}: padding rows' dq / dk / dv not "
                              f"exactly 0")
 
@@ -385,15 +438,17 @@ def bwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
         "flash_bwd_dkv": {
             "err": max(err_k, err_v), "rel_l2": max(rl2_k, rl2_v),
             "ms": time_ms(torch, lambda: FA.flash_attention_bwd_dkv(
-                *res, **kw), 20),
+                *res, delta, **kw), 20),
             "bound": bound(2.0 * (2 * dk + 2 * dv) * heads * n_pairs,
                            in_bytes + 2 * g * t * (dk + dv)),
             "library_ms": library}}
     # one plain version computes dq, dk and dv together: both rows carry it
     rows["flash_bwd_dkv"]["plain_ms"] = rows["flash_bwd_dq"]["plain_ms"]
+    extra = {"n_pairs": n_pairs,
+             "live_tiles": live_fraction(torch, seg_np, pos_np, window)}
     for key, row in rows.items():
         log(f"[kernels] {name} {key}: "
-            f"{fmt({**row, 'bound': row['bound'][0], 'n_pairs': n_pairs})}")
+            f"{fmt({**row, 'bound': row['bound'][0], **extra})}")
     return rows
 
 
@@ -465,6 +520,8 @@ def phase_kernels(torch):
     attn = [
         ("slice [8,3,4096,128]", dict(g=8, hg=3, t=4096, dk=128, dv=128,
                                       lens=SLICE_LENS)),
+        ("64x64-token segments [8,3,4096,128]",
+         dict(g=8, hg=3, t=4096, dk=128, dv=128, lens=[64] * 64, seed=4)),
         ("ragged T=S=4000", dict(g=8, hg=3, t=4000, dk=128, dv=128,
                                  lens=[2500, 1000, 433], seed=1)),
         ("window=16 softcap=30", dict(g=2, hg=2, t=256, dk=64, dv=64,

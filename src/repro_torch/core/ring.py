@@ -6,6 +6,12 @@ traffic; on one device the composition is ``(1,)``.  Rings over groups
 larger than one come with the ``torch.distributed`` slice and raise
 `NotImplementedError` here.
 
+`_block_meta` and `_block_relevant` are copies of the reference's ring
+block predicate (can any query of one block see any key of another, from
+their segment and position ranges); the flash kernels apply the same rule
+per 64-row tile (`kernels/csrc/flash_tiles.cuh`), and `tile_liveness`
+states it per tile in Python.
+
 ``attn_impl`` selects the compute backend: ``"ref"`` runs the plain
 oracle (`core/attention.py`'s chunked stats, differentiated by autograd);
 ``"flash"`` runs the ring-flash engine (`kernels/ring_flash.py` behind
@@ -29,6 +35,51 @@ def _check_composition(composition: Tuple[int, ...]) -> None:
         raise NotImplementedError(
             f"composition {tuple(composition)}: ring groups larger than one "
             f"need the torch.distributed ring, a later slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# block metadata for ring-step and tile skipping
+# ---------------------------------------------------------------------------
+
+def _block_meta(seg, pos):
+    """O(1) scalars describing a KV block: position/segment ranges over
+    non-padding tokens."""
+    valid = seg > 0
+    big = torch.tensor(2**30, dtype=torch.int32, device=seg.device)
+    none = torch.tensor(-1, dtype=torch.int32, device=seg.device)
+    pos_min = torch.where(valid, pos, big).min()
+    pos_max = torch.where(valid, pos, none).max()
+    seg_min = torch.where(valid, seg, big).min()
+    seg_max = torch.where(valid, seg, none).max()
+    return torch.stack([pos_min, pos_max, seg_min, seg_max])
+
+
+def _block_relevant(q_meta, k_meta, *, causal: bool,
+                    window: int) -> torch.Tensor:
+    """Can ANY local query attend to ANY token of this KV block?"""
+    q_pos_min, q_pos_max, q_seg_min, q_seg_max = (q_meta[i] for i in range(4))
+    k_pos_min, k_pos_max, k_seg_min, k_seg_max = (k_meta[i] for i in range(4))
+    ok = (k_seg_min <= q_seg_max) & (q_seg_min <= k_seg_max)   # segment ranges overlap
+    ok &= k_seg_max >= 0                                       # block not all padding
+    ok &= q_seg_max >= 0
+    if causal:
+        ok &= k_pos_min <= q_pos_max                           # not entirely in the future
+    if window:
+        ok &= k_pos_max > q_pos_min - window                   # not entirely out of window
+    return ok
+
+
+def tile_liveness(q_seg, k_seg, q_pos, k_pos, *, causal: bool = True,
+                  window: int = 0, tile: int = 64) -> torch.Tensor:
+    """[ceil(T/tile), ceil(S/tile)] bool: `_block_relevant` of every pair of
+    ``tile``-row q and KV tiles (a ragged last tile holds its real rows
+    only) — the tiles the flash kernels visit."""
+    def metas(seg, pos):
+        return torch.stack([_block_meta(seg[a:a + tile], pos[a:a + tile])
+                            for a in range(0, seg.shape[0], tile)], dim=1)
+    return _block_relevant(metas(q_seg, q_pos)[:, :, None],
+                           metas(k_seg, k_pos)[:, None, :], causal=causal,
+                           window=window)
 
 
 def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,

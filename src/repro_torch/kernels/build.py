@@ -2,9 +2,12 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library under ``<checkout>/build/kernels/``, named by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one is reused.  The build happens at first use, inside the process that
-launches the kernel; nothing is built when a module is imported.
+the source, every header under ``csrc/`` and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  The kernels
+use no CUTLASS or CuTe headers (wgmma, cp.async and the descriptors are
+written as inline PTX), so no include path beyond ``csrc/`` is needed.
+The build happens at first use, inside the process that launches the
+kernel; nothing is built when a module is imported.
 `build_all` starts one ``nvcc`` per source at once and waits for all;
 `call` launches one entry point on the caller's stream.
 """
@@ -39,8 +42,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,49 +1,64 @@
 // Packed-segment flash attention backward for Hopper (sm_90a), bf16 in,
-// fp32 math.  Two deterministic kernels, no atomics:
+// fp32 math.  Two deterministic kernels, no atomics, launched in this order
+// on one stream:
 //
 //   flash_bwd_dq_kernel   replaces repro/kernels/flash_attention.py::
 //                         _bwd_dq_kernel (inside flash_attention_bwd): one
 //                         block per (g, h, 64-row q tile) loops over every KV
 //                         tile and keeps dq in registers;
-//                         dq = scale * sum_k ds * k.
+//                         dq = scale * sum_k ds * k.  It also writes
+//                         delta = rowsum(do * out) [G, Hg, T] fp32, once per
+//                         q row, for the dkv kernel.
 //   flash_bwd_dkv_kernel  replaces repro/kernels/flash_attention.py::
 //                         _bwd_dkv_kernel: one block per (g, 64-row KV tile)
-//                         loops over the Hg heads and every q tile;
+//                         loops over the Hg heads and the live q tiles;
 //                         dv = sum p^T do, dk = scale * sum ds^T q.
 //
 // Both recompute, per (q, k) pair: s = scale * q.k (softcap: s = c*tanh(s/c),
 // dcap = 1 - tanh^2), p = exp(s - lse) zeroed AFTER the exponential where the
 // mask is off (padding rows carry lse = -1e30, so exp(s - lse) is never used
-// unmasked), dp = do.v, delta = rowsum(do * out) (computed in the kernel, as
-// the Pallas kernels do), ds = p * (dp - delta) * dcap.  Mask = same segment,
+// unmasked), dp = do.v, ds = p * (dp - delta) * dcap.  Mask = same segment,
 // both segments > 0, k_pos <= q_pos (causal), q_pos - k_pos < window (when
-// set).  Products run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate).  The Pallas kernels keep p and ds in fp32; here each enters
-// its product (p for dv, ds for dk and dq) as two bf16 fragments,
+// set).  The Pallas kernels keep p and ds in fp32; here each enters its
+// product (p for dv, ds for dk and dq) as two bf16 fragments,
 // hi = bf16(x) and lo = bf16(x - hi), so x is carried to ~16 bits.  Rounded
 // once to bf16, as FlashAttention-2 does, p lost up to 0.036 absolute on dv
 // of a segment's first keys, where terms near 1 of both signs cancel.
 //
 // Design.  On the TPU the grid walks the reduction axis sequentially and
 // carries the accumulator in VMEM scratch; here one block owns an output
-// tile and loops over the reduction itself.  4 warps x 16 rows.  The dq
-// kernel holds dq [16 x Dk] per warp in registers (64 floats a thread at
-// Dk = 128).  The dkv kernel would need dk and dv both in registers (128
-// floats a thread at Dk = Dv = 128, on top of the scores), so it keeps the
-// two fp32 accumulators in shared memory instead (row stride D + 8 floats:
-// conflict-free float2 updates), each warp owning 16 KV rows, and adds one
-// product fragment at a time.  Ragged tails (T % 64, S % 64) load as zeros
-// with segment 0 and are never stored.
+// tile and loops over the reduction itself.
+//  * dq: 4 warps x 16 q rows on mma.sync m16n8k16, dq [16 x Dk] per warp in
+//    registers (64 floats a thread at Dk = 128); every KV tile is visited.
+//  * dkv: one warpgroup (128 threads) owns 64 KV rows.  A prologue reduces
+//    its KV tile and every q tile to their seg/pos ranges and keeps a bitmask
+//    of the q tiles that `tile_relevant` (flash_tiles.cuh, the reference's
+//    _block_relevant per tile) cannot rule out; the (head, q tile) steps of
+//    dead tiles are skipped, which adds exact zeros, and tiles `tile_full`
+//    proves visible whole skip the element-wise mask.  K and V load once, as
+//    wgmma A operands in shared memory.  Q, dO, q_seg, q_pos, lse and delta
+//    of the next live step come in through a two-stage cp.async ring while
+//    the tensor cores work on this one.  Per step: S^T = K Q^T and
+//    dP^T = V dO^T (m64n64k16, both operands in shared memory); p^T and ds^T
+//    in registers; dV += P^T dO and dK += dS^T Q (m64n{Dv,Dk}k16, P^T and
+//    dS^T as hi + lo register A fragments, dO and Q read MN-major from the
+//    same tiles).  dk and dv stay in registers (128 floats a thread at
+//    Dk = Dv = 128) for the whole block; two blocks share an SM.  Two
+//    warpgroups sharing each Q/dO tile (128 KV rows a block, a three-stage
+//    ring, one block per SM) gave the same bits but ran slower on an H100
+//    (PERF.md): the Q/dO loads do not bound this kernel.
+// Ragged tails (T % 64, S % 64) load as zeros with segment 0 and are never
+// stored.
 //
 // Bound on this card.  Per unmasked (q, k) pair and head the dq kernel does
 // 2*(2*Dk + Dv) flops and the dkv kernel 2*(2*Dk + 2*Dv) (the lo fragments
 // of p and ds add tensor-core work the bound does not count); at the training
 // slice's shape (G=8, Hg=3, T=S=4096, D=128, segments 3000/900/120) that is
 // ~0.09 and ~0.12 ms of bf16 tensor-core time, above the ~0.04 ms their bytes
-// take at 3.35 TB/s, so operations bound both.  This first version computes
-// every tile whatever the mask (about 3.4x the pairs the data needs at that
-// shape), loads tiles synchronously and uses mma.sync, not wgmma; those are
-// the known gaps to the bound.
+// take at 3.35 TB/s, so operations bound both.  dq still computes every
+// tile, loads synchronously and uses mma.sync; dkv's live tiles hold 3.4x
+// the visible pairs at that shape, and its element-wise pass does not yet
+// overlap the products of the next step.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py); plain C entry
@@ -53,13 +68,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
+using flash::pack_f2;
+
 constexpr int BQ = 64;            // q rows per tile (16 per warp in dq)
-constexpr int BK = 64;            // kv rows per tile (16 per warp in dkv)
+constexpr int BK = 64;            // kv rows per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr float NEG_INF = -1.0e30f;
 static_assert(NTHREADS == 2 * BQ, "delta uses two threads per q row");
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
@@ -70,12 +88,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two bf16 (lo in the low half)
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // two bf16 from shared memory -> one register (lo in the low half)
@@ -177,11 +189,12 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ out,
                     const float* __restrict__ lse,
                     const __nv_bfloat16* __restrict__ dout,
-                    __nv_bfloat16* __restrict__ dq, int Hg, int T, int S,
+                    __nv_bfloat16* __restrict__ dq,
+                    float* __restrict__ delta, int Hg, int T, int S,
                     float scale, int causal, int window, float softcap) {
   constexpr int QS = DK + 8;              // shared row strides (elements)
   constexpr int VS = DV + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sdO = sQ + BQ * QS;
   __nv_bfloat16* sK = sdO + BQ * VS;
@@ -221,7 +234,10 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (half == 0) sDelta[r] = d;
+    if (half == 0) {
+      sDelta[r] = d;
+      if (q0 + r < T) delta[head * T + q0 + r] = d;
+    }
   }
   __syncthreads();
 
@@ -333,8 +349,26 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 // dk, dv
 // ---------------------------------------------------------------------------
 
+constexpr int DKV_NSTAGE = 2;             // q-tile ring depth
+
+// shared memory of the dkv kernel: the K and V tiles, DKV_NSTAGE x (Q tile,
+// dO tile, q_seg, q_pos, lse, delta), then the live-tile and full-tile
+// bitmasks
 template <int DK, int DV>
-__global__ void __launch_bounds__(NTHREADS)
+struct DkvSmem {
+  static constexpr int K = flash::TILE * DK * 2;
+  static constexpr int V = flash::TILE * DV * 2;
+  static constexpr int Q = flash::TILE * DK * 2;
+  static constexpr int DO = flash::TILE * DV * 2;
+  static constexpr int STAGE = Q + DO + 4 * flash::TILE * 4;
+  static constexpr int MASK = K + V + DKV_NSTAGE * STAGE;
+  static size_t bytes(int n_tiles) {
+    return MASK + (size_t)((n_tiles + 31) / 32) * 8;
+  }
+};
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(NTHREADS, 2)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -342,37 +376,33 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const int* __restrict__ k_seg,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ k_pos,
-                     const __nv_bfloat16* __restrict__ out,
+                     const float* __restrict__ delta,
                      const float* __restrict__ lse,
                      const __nv_bfloat16* __restrict__ dout,
                      __nv_bfloat16* __restrict__ dk,
                      __nv_bfloat16* __restrict__ dv, int Hg, int T, int S,
                      float scale, int causal, int window, float softcap) {
-  constexpr int QS = DK + 8;              // bf16 tile row strides
-  constexpr int VS = DV + 8;
-  constexpr int AKS = DK + 8;             // fp32 accumulator row strides
-  constexpr int AVS = DV + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sdK = reinterpret_cast<float*>(smem_raw);
-  float* sdV = sdK + BK * AKS;
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(sdV + BK * AVS);
-  __nv_bfloat16* sV = sK + BK * QS;
-  __nv_bfloat16* sQ = sV + BK * VS;
-  __nv_bfloat16* sdO = sQ + BQ * QS;
-  int* sQseg = reinterpret_cast<int*>(sdO + BQ * VS);
-  int* sQpos = sQseg + BQ;
-  float* sLse = reinterpret_cast<float*>(sQpos + BQ);
-  float* sDelta = sLse + BQ;
+  using namespace flash;
+  using L = DkvSmem<DK, DV>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int n_q = (T + TILE - 1) / TILE;
+  const int words = (n_q + 31) / 32;
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem_raw + L::MASK);
+  uint32_t* full = live + words;
+  const uint32_t sK = smem_u32(smem_raw);
+  const uint32_t sV = sK + L::K;
+  const uint32_t sStage = sV + L::V;
 
   const int g = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * TILE;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
 
-  for (int i = threadIdx.x; i < BK * AKS; i += NTHREADS) sdK[i] = 0.f;
-  for (int i = threadIdx.x; i < BK * AVS; i += NTHREADS) sdV[i] = 0.f;
-  load_tile<DK>(sK, k + (size_t)g * S * DK, k0, S, BK);
-  load_tile<DV>(sV, v + (size_t)g * S * DV, k0, S, BK);
+  // the q tiles whose queries can see any key of this KV tile (the same for
+  // every head of the group), and those that see it whole
+  const TileMeta mine = warp_tile_meta(k_seg, k_pos, S, blockIdx.x, lane);
+  build_live_masks<NTHREADS, 1>(live, words, n_q, q_seg, q_pos, T, &mine,
+                                false, causal, window);
 
   // this thread's two kv rows within the tile, and their metadata
   const int r_lo = warp * 16 + gid, r_hi = r_lo + 8;
@@ -382,162 +412,147 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const int kpos_lo = j_lo < S ? k_pos[j_lo] : 0;
   const int kpos_hi = j_hi < S ? k_pos[j_hi] : 0;
 
-  const int n_q = (T + BQ - 1) / BQ;
-  for (int h = 0; h < Hg; ++h) {
+  // dk / scale and dv for this warp's 16 kv rows (wgmma accumulator layout)
+  float acc_k[DK / 2], acc_v[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) acc_k[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc_v[i] = 0.f;
+
+  // steps: (h, qt) over the heads and, within each, the live q tiles
+  auto issue = [&](int h, int qt, int stage) {
     const size_t head = (size_t)g * Hg + h;
-    const __nv_bfloat16* oh = out + head * T * DV;
-    for (int qt = 0; qt < n_q; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();                    // previous q tile fully consumed
-      load_tile<DK>(sQ, q + head * T * DK, q0, T, BQ);
-      load_tile<DV>(sdO, dout + head * T * DV, q0, T, BQ);
-      if (threadIdx.x < BQ) {
-        const int t = q0 + threadIdx.x;
-        sQseg[threadIdx.x] = t < T ? q_seg[t] : 0;
-        sQpos[threadIdx.x] = t < T ? q_pos[t] : 0;
-        sLse[threadIdx.x] = t < T ? lse[head * T + t] : 0.f;
-      }
-      __syncthreads();
-      {                                   // delta, two threads per q row
-        const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-        float d = 0.f;
-        if (q0 + r < T) {
-          const __nv_bfloat16* orow = oh + (size_t)(q0 + r) * DV;
-          for (int c = half * (DV / 2); c < (half + 1) * (DV / 2); c += 8) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(orow + c);
-            const __nv_bfloat16* ov =
-                reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-            for (int e = 0; e < 8; ++e)
-              d += __bfloat162float(ov[e]) *
-                   __bfloat162float(sdO[r * VS + c + e]);
-          }
-        }
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        if (half == 0) sDelta[r] = d;
-      }
-      __syncthreads();
+    const int q0 = qt * TILE;
+    const uint32_t st = sStage + stage * L::STAGE;
+    load_tile_async<DK, NTHREADS>(st, q + head * T * DK, q0, T);
+    load_tile_async<DV, NTHREADS>(st + L::Q, dout + head * T * DV, q0, T);
+    const uint32_t sv = st + L::Q + L::DO;
+    load_vec_async(sv, q_seg, q0, T);
+    load_vec_async(sv + TILE * 4, q_pos, q0, T);
+    load_vec_async(sv + 2 * TILE * 4, lse + head * T, q0, T);
+    load_vec_async(sv + 3 * TILE * 4, delta + head * T, q0, T);
+  };
 
-      // s^T = K Q^T and dp^T = V dO^T: this warp's 16 kv rows x 64 q rows
-      float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-        st[nt][0] = st[nt][1] = st[nt][2] = st[nt][3] = 0.f;
-        dpt[nt][0] = dpt[nt][1] = dpt[nt][2] = dpt[nt][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < DK / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, sK, QS, r_lo, kk * 16, tig);
-#pragma unroll
-        for (int nt = 0; nt < BQ / 8; ++nt) {
-          const __nv_bfloat16* qrow = sQ + (nt * 8 + gid) * QS + kk * 16 + 2 * tig;
-          mma_bf16_16816(st[nt], a, ld32(qrow), ld32(qrow + 8));
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < DV / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, sV, VS, r_lo, kk * 16, tig);
-#pragma unroll
-        for (int nt = 0; nt < BQ / 8; ++nt) {
-          const __nv_bfloat16* orow = sdO + (nt * 8 + gid) * VS + kk * 16 + 2 * tig;
-          mma_bf16_16816(dpt[nt], a, ld32(orow), ld32(orow + 8));
-        }
-      }
-
-      // p^T into st, ds^T into dpt
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * tig + (e & 1);
-          const bool hi = e >= 2;
-          const bool ok = visible(sQseg[col], sQpos[col],
-                                  hi ? kseg_hi : kseg_lo,
-                                  hi ? kpos_hi : kpos_lo, causal, window);
-          float p, ds;
-          pair_grad(st[nt][e], dpt[nt][e], ok, sLse[col], sDelta[col], scale,
-                    softcap, p, ds);
-          st[nt][e] = p;
-          dpt[nt][e] = ds;
-        }
-      }
-      uint32_t pa[BQ / 16][4], pl[BQ / 16][4];
-      uint32_t sa[BQ / 16][4], sl[BQ / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        frag_to_a(pa[kk], pl[kk], st, kk);
-        frag_to_a(sa[kk], sl[kk], dpt, kk);
-      }
-
-      // dv += P^T dO, dk += dS^T Q, one 16 x 8 fragment at a time into the
-      // shared accumulators (each warp owns its 16 rows: no races)
-#pragma unroll
-      for (int nt = 0; nt < DV / 8; ++nt) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          const __nv_bfloat16* op = sdO + (kk * 16 + 2 * tig) * VS + nt * 8 + gid;
-          const uint32_t b0 = pack_h2(op[0], op[VS]);
-          const uint32_t b1 = pack_h2(op[8 * VS], op[9 * VS]);
-          mma_bf16_16816(c, pa[kk], b0, b1);
-          mma_bf16_16816(c, pl[kk], b0, b1);
-        }
-        float2* lo = reinterpret_cast<float2*>(sdV + r_lo * AVS + nt * 8 + 2 * tig);
-        float2* hi = reinterpret_cast<float2*>(sdV + r_hi * AVS + nt * 8 + 2 * tig);
-        lo->x += c[0]; lo->y += c[1];
-        hi->x += c[2]; hi->y += c[3];
-      }
-#pragma unroll
-      for (int nt = 0; nt < DK / 8; ++nt) {
-        float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          const __nv_bfloat16* qp = sQ + (kk * 16 + 2 * tig) * QS + nt * 8 + gid;
-          const uint32_t b0 = pack_h2(qp[0], qp[QS]);
-          const uint32_t b1 = pack_h2(qp[8 * QS], qp[9 * QS]);
-          mma_bf16_16816(c, sa[kk], b0, b1);
-          mma_bf16_16816(c, sl[kk], b0, b1);
-        }
-        float2* lo = reinterpret_cast<float2*>(sdK + r_lo * AKS + nt * 8 + 2 * tig);
-        float2* hi = reinterpret_cast<float2*>(sdK + r_hi * AKS + nt * 8 + 2 * tig);
-        lo->x += c[0]; lo->y += c[1];
-        hi->x += c[2]; hi->y += c[3];
-      }
-    }
+  const int first = next_live(live, 0, n_q);
+  int h = 0, qt = first;
+  if (first < n_q) {                      // K, V and the first step
+    load_tile_async<DK, NTHREADS>(sK, k + (size_t)g * S * DK, k0, S);
+    load_tile_async<DV, NTHREADS>(sV, v + (size_t)g * S * DV, k0, S);
+    issue(h, qt, 0);
+  } else {
+    h = Hg;                               // no q row sees this tile
   }
-  __syncthreads();
+  cp_async_commit();
+  int stage = 0;
+  while (h < Hg) {
+    int nh = h, nqt = next_live(live, qt + 1, n_q);
+    if (nqt == n_q) { ++nh; nqt = first; }
+    if (nh < Hg) issue(nh, nqt, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                   // this step (and K, V) landed
+    fence_async_smem();
+    __syncthreads();
 
-  // epilogue: rows < S, 8 values per thread per step, dk scaled
+    const uint32_t sQ = sStage + stage * L::STAGE;
+    const uint32_t sdO = sQ + L::Q;
+    const unsigned char* sv =
+        smem_raw + L::K + L::V + stage * L::STAGE + L::Q + L::DO;
+    const int* sQseg = reinterpret_cast<const int*>(sv);
+    const int* sQpos = sQseg + TILE;
+    const float* sLse = reinterpret_cast<const float*>(sQpos + TILE);
+    const float* sDelta = sLse + TILE;
+
+    // s^T = K Q^T and dp^T = V dO^T: this warp's 16 kv rows x 64 q columns
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n64(st, desc_k<DK>(sK, kk), desc_k<DK>(sQ, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk)
+      wgmma_ss_n64(dpt, desc_k<DV>(sV, kk), desc_k<DV>(sdO, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(st);
+    reg_fence(dpt);
+
+    // p^T into st, ds^T into dpt (no element-wise mask on a full tile)
+    const bool whole = bit(full, qt);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = (i >> 2) * 8 + 2 * tig + (i & 1);
+      const bool hi = (i & 2) != 0;
+      const bool ok = whole || visible(sQseg[col], sQpos[col],
+                                       hi ? kseg_hi : kseg_lo,
+                                       hi ? kpos_hi : kpos_lo, causal, window);
+      float p, ds;
+      pair_grad(st[i], dpt[i], ok, sLse[col], sDelta[col], scale, softcap, p,
+                ds);
+      st[i] = p;
+      dpt[i] = ds;
+    }
+    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a_split(ph[kk], pl[kk], st, kk);
+      acc_to_a_split(sh[kk], sl[kk], dpt, kk);
+    }
+
+    // dv += P^T dO, dk += dS^T Q: hi and lo fragments, dO and Q MN-major
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<DV>(acc_v, ph[kk], desc_mn<DV>(sdO, kk), 1);
+      wgmma_rs<DV>(acc_v, pl[kk], desc_mn<DV>(sdO, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<DK>(acc_k, sh[kk], desc_mn<DK>(sQ, kk), 1);
+      wgmma_rs<DK>(acc_k, sl[kk], desc_mn<DK>(sQ, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    __syncthreads();                      // this stage may be refilled
+    h = nh;
+    qt = nqt;
+    stage ^= 1;
+  }
+
+  // epilogue: rows < S, dk scaled; a tile no q row sees writes zeros
   __nv_bfloat16* dk_g = dk + (size_t)g * S * DK;
   __nv_bfloat16* dv_g = dv + (size_t)g * S * DV;
-  for (int i = threadIdx.x; i < BK * (DK / 8); i += NTHREADS) {
-    const int r = i / (DK / 8), c = (i % (DK / 8)) * 8;
-    if (k0 + r >= S) continue;
-    const float* src = sdK + r * AKS + c;
-    uint4 val;
-    val.x = pack_f2(src[0] * scale, src[1] * scale);
-    val.y = pack_f2(src[2] * scale, src[3] * scale);
-    val.z = pack_f2(src[4] * scale, src[5] * scale);
-    val.w = pack_f2(src[6] * scale, src[7] * scale);
-    *reinterpret_cast<uint4*>(dk_g + (size_t)(k0 + r) * DK + c) = val;
+  const bool in_lo = j_lo < S, in_hi = j_hi < S;
+#pragma unroll
+  for (int nt = 0; nt < DK / 8; ++nt) {
+    const int c = nt * 8 + 2 * tig;
+    if (in_lo)
+      *reinterpret_cast<uint32_t*>(dk_g + (size_t)j_lo * DK + c) =
+          pack_f2(acc_k[4 * nt] * scale, acc_k[4 * nt + 1] * scale);
+    if (in_hi)
+      *reinterpret_cast<uint32_t*>(dk_g + (size_t)j_hi * DK + c) =
+          pack_f2(acc_k[4 * nt + 2] * scale, acc_k[4 * nt + 3] * scale);
   }
-  for (int i = threadIdx.x; i < BK * (DV / 8); i += NTHREADS) {
-    const int r = i / (DV / 8), c = (i % (DV / 8)) * 8;
-    if (k0 + r >= S) continue;
-    const float* src = sdV + r * AVS + c;
-    uint4 val;
-    val.x = pack_f2(src[0], src[1]);
-    val.y = pack_f2(src[2], src[3]);
-    val.z = pack_f2(src[4], src[5]);
-    val.w = pack_f2(src[6], src[7]);
-    *reinterpret_cast<uint4*>(dv_g + (size_t)(k0 + r) * DV + c) = val;
+#pragma unroll
+  for (int nt = 0; nt < DV / 8; ++nt) {
+    const int c = nt * 8 + 2 * tig;
+    if (in_lo)
+      *reinterpret_cast<uint32_t*>(dv_g + (size_t)j_lo * DV + c) =
+          pack_f2(acc_v[4 * nt], acc_v[4 * nt + 1]);
+    if (in_hi)
+      *reinterpret_cast<uint32_t*>(dv_g + (size_t)j_hi * DV + c) =
+          pack_f2(acc_v[4 * nt + 2], acc_v[4 * nt + 3]);
   }
 }
 
 struct Args {
   const void *q, *k, *v, *q_seg, *k_seg, *q_pos, *k_pos, *out, *lse, *dout;
+  void* delta;                            // written by dq, read by dkv
   void *d0, *d1;                          // dq | (dk, dv)
   int G, Hg, T, S;
   float scale;
@@ -546,15 +561,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-#define FLASH_BWD_PARAMS(a)                                                  \
+#define FLASH_BWD_INPUTS(a)                                                  \
   static_cast<const __nv_bfloat16*>(a.q),                                    \
       static_cast<const __nv_bfloat16*>(a.k),                                \
       static_cast<const __nv_bfloat16*>(a.v),                                \
       static_cast<const int*>(a.q_seg), static_cast<const int*>(a.k_seg),    \
-      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.k_pos),    \
-      static_cast<const __nv_bfloat16*>(a.out),                              \
-      static_cast<const float*>(a.lse),                                      \
-      static_cast<const __nv_bfloat16*>(a.dout)
+      static_cast<const int*>(a.q_pos), static_cast<const int*>(a.k_pos)
 
 template <int DK, int DV>
 cudaError_t launch_dq(const Args& a) {
@@ -568,27 +580,29 @@ cudaError_t launch_dq(const Args& a) {
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T + BQ - 1) / BQ, a.Hg, a.G);
   kern<<<grid, NTHREADS, smem, a.stream>>>(
-      FLASH_BWD_PARAMS(a), static_cast<__nv_bfloat16*>(a.d0), a.Hg, a.T, a.S,
-      a.scale, a.causal, a.window, a.softcap);
+      FLASH_BWD_INPUTS(a), static_cast<const __nv_bfloat16*>(a.out),
+      static_cast<const float*>(a.lse),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<__nv_bfloat16*>(a.d0), static_cast<float*>(a.delta), a.Hg,
+      a.T, a.S, a.scale, a.causal, a.window, a.softcap);
   return cudaGetLastError();
 }
 
 template <int DK, int DV>
 cudaError_t launch_dkv(const Args& a) {
   const size_t smem =
-      (size_t)(BK * (DK + 8) + BK * (DV + 8)) * sizeof(float) +
-      (size_t)(BK * (DK + 8) + BK * (DV + 8) + BQ * (DK + 8) + BQ * (DV + 8)) *
-          sizeof(__nv_bfloat16) +
-      2 * BQ * sizeof(int) + 2 * BQ * sizeof(float);
+      DkvSmem<DK, DV>::bytes((a.T + flash::TILE - 1) / flash::TILE);
   auto kern = flash_bwd_dkv_kernel<DK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + BK - 1) / BK, a.G);
+  const dim3 grid((a.S + flash::TILE - 1) / flash::TILE, a.G);
   kern<<<grid, NTHREADS, smem, a.stream>>>(
-      FLASH_BWD_PARAMS(a), static_cast<__nv_bfloat16*>(a.d0),
-      static_cast<__nv_bfloat16*>(a.d1), a.Hg, a.T, a.S, a.scale, a.causal,
-      a.window, a.softcap);
+      FLASH_BWD_INPUTS(a), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.lse),
+      static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<__nv_bfloat16*>(a.d0), static_cast<__nv_bfloat16*>(a.d1),
+      a.Hg, a.T, a.S, a.scale, a.causal, a.window, a.softcap);
   return cudaGetLastError();
 }
 
@@ -624,36 +638,36 @@ cudaError_t dispatch(int dk, int dv, int which, const Args& a) {
 }  // namespace
 
 // Plain C entry points (ctypes).  q [G,Hg,T,Dk], k [G,S,Dk], v [G,S,Dv],
-// out and dout [G,Hg,T,Dv] bf16; lse [G,Hg,T] fp32; seg/pos int32 [T] and
-// [S]; all contiguous.  Each returns the launch's cudaError_t (0 on
+// out and dout [G,Hg,T,Dv] bf16; lse and delta [G,Hg,T] fp32; seg/pos int32
+// [T] and [S]; all contiguous.  Each returns the launch's cudaError_t (0 on
 // success).
 
-// dq [G,Hg,T,Dk] bf16
+// dq [G,Hg,T,Dk] bf16, and delta = rowsum(do * out) written for dkv
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* q_seg, const void* k_seg,
                                  const void* q_pos, const void* k_pos,
                                  const void* out, const void* lse,
-                                 const void* dout, void* dq, int G, int Hg,
-                                 int T, int S, int dk, int dv, float scale,
-                                 int causal, int window, float softcap,
-                                 void* stream) {
-  const Args a{q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, dout, dq,
-               nullptr, G, Hg, T, S, scale, causal, window, softcap,
+                                 const void* dout, void* dq, void* delta,
+                                 int G, int Hg, int T, int S, int dk, int dv,
+                                 float scale, int causal, int window,
+                                 float softcap, void* stream) {
+  const Args a{q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, dout, delta,
+               dq, nullptr, G, Hg, T, S, scale, causal, window, softcap,
                static_cast<cudaStream_t>(stream)};
   return dispatch(dk, dv, 0, a);
 }
 
-// dk [G,S,Dk] and dv [G,S,Dv] bf16
+// dk [G,S,Dk] and dv [G,S,Dv] bf16 from dq's delta
 extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                   const void* q_seg, const void* k_seg,
                                   const void* q_pos, const void* k_pos,
-                                  const void* out, const void* lse,
+                                  const void* delta, const void* lse,
                                   const void* dout, void* dk_out,
                                   void* dv_out, int G, int Hg, int T, int S,
                                   int dk, int dv, float scale, int causal,
                                   int window, float softcap, void* stream) {
-  const Args a{q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, dout, dk_out,
-               dv_out, G, Hg, T, S, scale, causal, window, softcap,
-               static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, q_seg, k_seg, q_pos, k_pos, nullptr, lse, dout,
+               const_cast<void*>(delta), dk_out, dv_out, G, Hg, T, S, scale,
+               causal, window, softcap, static_cast<cudaStream_t>(stream)};
   return dispatch(dk, dv, 1, a);
 }

@@ -3,9 +3,10 @@
 //
 //   CARRY = true   replaces repro/kernels/flash_attention.py::_fwd_carry_kernel
 //                  (via flash_attention_fwd_carry): reads the carried
-//                  unnormalised state (acc, m, l), folds every KV tile into
-//                  it and writes it back IN PLACE.  Every prefill layer of the
-//                  serving path runs this as ring step 0 from zero stats.
+//                  unnormalised state (acc, m, l), folds every live KV tile
+//                  into it and writes it back IN PLACE.  Every prefill layer
+//                  of the serving path and every training forward (and its
+//                  recomputation) runs this as ring step 0 from zero stats.
 //   CARRY = false  replaces repro/kernels/flash_attention.py::_fwd_kernel
 //                  (via flash_attention_fwd): starts from empty stats and
 //                  writes out = acc / l (zero rows where l == 0) and
@@ -18,27 +19,46 @@
 // sentinel -1e30 (never -inf) and p is zeroed AFTER the exponential, so a
 // fully masked row keeps m = -1e30, l = 0, alpha = exp(0) = 1 and no NaN.
 // p is rounded to bf16 (v's type) before the PV product, as the Pallas
-// kernel casts it.
+// kernel casts it.  The exponentials use the hardware ex2 (__expf, ~1e-6
+// relative error, far below p's bf16 rounding), as FlashAttention kernels
+// do: the accurate expf cost ~15% of the kernel on an H100 (PERF.md).
 //
 // Design.  The TPU kernel walks the KV axis as the innermost "arbitrary"
 // grid dimension and carries (acc, m, l) in VMEM scratch between grid
-// steps.  On Hopper blocks run in no order, so one thread block owns one
-// (g, h, 64-row q tile) and loops over ALL KV tiles itself, keeping the
-// state in registers.  4 warps x 16 q rows; scores and PV run on the
-// tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate); the
-// score fragment is reused in registers as the A operand of the PV
-// product (the FA2 layout identity), so P never touches shared memory.
-// Ragged tails (T % 64, S % 64) are masked: rows past T load as zeros with
-// segment 0 and are never stored, columns past S load as segment 0.
+// steps.  On Hopper blocks run in no order, so one block owns one (g, h,
+// 192 q rows): three warpgroups of 128 threads, each with its own 64-row q
+// tile, keep the state in registers and loop over the KV tiles together,
+// sharing each K/V tile they load (a third of the K/V traffic of one q tile
+// per block; on an H100 three warpgroups beat two, PERF.md):
+//  * Tile skipping.  A prologue reduces each warpgroup's q tile and every KV
+//    tile to their seg/pos ranges and keeps a bitmask of the KV tiles that
+//    `tile_relevant` (flash_tiles.cuh, the reference's _block_relevant per
+//    tile) cannot rule out; the loop visits those only.  A dead tile would
+//    add p = 0 with alpha = 1, so skipping it changes no bit.  Inside a live
+//    tile the per-element mask stays, except on tiles `tile_full` proves
+//    visible whole (most tiles below a segment's diagonal).
+//  * Asynchronous loads.  K, V and the KV tile's seg/pos go through a
+//    three-stage cp.async ring, two tiles ahead of the one in use, with one
+//    barrier per tile.  The block loads the tiles live for either q tile; a
+//    warpgroup skips the products of a tile live only for the other.
+//  * wgmma.  S = Q K^T is m64n64k16 with Q and K in shared memory; O += P V
+//    is m64n{Dv}k16 with P (bf16) taken from the score accumulator in
+//    registers and V read MN-major from shared memory, so P never touches
+//    shared memory.  Every Dk, Dv in {32, 64, 128} uses wgmma.
+// Ragged tails (T % 64, S % 64) load as zeros with segment 0 (masked) and
+// are never stored.
 //
-// Bound on this card.  At the serving slice's shape (G=8, Hg=3, T=S=4096,
-// D=128) one launch computes every tile: 2*G*Hg*T*S*(Dk+Dv) = 206 GFLOP,
-// 0.21 ms at 989 TFLOP/s bf16; its bytes (q, k, v read once, the fp32
-// carry read and written, about 125 MB) take 37 us at 3.35 TB/s.  So the
-// tensor cores bound it.  This first version does not skip tiles that
-// the segment/position metadata proves empty, loads K/V synchronously
-// (no cp.async / TMA pipeline) and uses mma.sync rather than wgmma; those
-// are the known gaps to the bound.
+// Bound on this card.  At the slice's shape (G=8, Hg=3, T=S=4096, D=128,
+// segments 3000/900/120 + 76 padding rows) the visible pairs cost
+// 2*G*Hg*pairs*(Dk+Dv) = 60 GFLOP, 0.061 ms at 989 TFLOP/s bf16; the bytes
+// (q, k, v read once, the fp32 carry read and written, ~125 MB) take
+// ~0.037 ms at 3.35 TB/s.  So the tensor cores bound it.  The gaps left to
+// the bound: the live tiles hold 3.4x the visible pairs (1327 of 4096 64x64
+// tiles at that shape); each block re-reads every live K/V tile through
+// cp.async, and with neither products nor softmax that loop alone took most
+// of the kernel's time on an H100 (PERF.md); the softmax does not
+// overlap the products of the next tile (no ping-pong between warpgroups).
+// TMA loads are the next step.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py); plain C entry
@@ -48,59 +68,63 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
-constexpr int BQ = 64;            // q rows per block (16 per warp)
-constexpr int BK = 64;            // kv rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
+using namespace flash;
+
+constexpr int NWG = 3;                    // consumer warpgroups per block
+constexpr int NTHREADS = 128 * NWG;       // each: 4 warps x 16 q rows
+constexpr int NSTAGE = 3;                 // K/V ring depth (2 tiles ahead)
 constexpr float NEG_INF = -1.0e30f;
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> one register of two bf16 (lo in the low half)
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two bf16 from shared memory -> one register (lo in the low half)
-__device__ __forceinline__ uint32_t pack_h2(__nv_bfloat16 lo,
-                                            __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + BQ or BK) of a [n, D] bf16 matrix into shared memory
-// with row stride D + 8; rows >= n are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n, int rows) {
-  constexpr int VEC = D / 8;              // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * VEC; i += NTHREADS) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
+// shared memory: NWG q tiles, NSTAGE x (K tile, V tile, k_seg, k_pos), then
+// per warpgroup the live-tile and full-tile bitmasks and their union
+template <int DK, int DV>
+struct FwdSmem {
+  static constexpr int Q = TILE * DK * 2;
+  static constexpr int K = TILE * DK * 2;
+  static constexpr int V = TILE * DV * 2;
+  static constexpr int STAGE = K + V + 2 * TILE * 4;
+  static constexpr int MASK = NWG * Q + NSTAGE * STAGE;
+  static size_t bytes(int n_tiles) {
+    return MASK + (size_t)((n_tiles + 31) / 32) * 4 * (2 * NWG + 1);
   }
+};
+
+// scale and softcap the scores of one tile in place and, unless every pair
+// of the tile is visible (FULL), mask them (-1e30); returns bit i set where
+// s[i] is unmasked
+template <bool FULL>
+__device__ __forceinline__ uint32_t mask_scores(
+    float (&s)[32], const int* sKseg, const int* sKpos, int tig, int qseg_lo,
+    int qseg_hi, int qpos_lo, int qpos_hi, float scale, int causal,
+    int window, float softcap) {
+  uint32_t ok_bits = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    bool ok = true;
+    if (!FULL) {
+      const int col = (i >> 2) * 8 + 2 * tig + (i & 1);
+      const bool hi = (i & 2) != 0;
+      const int qs = hi ? qseg_hi : qseg_lo;
+      const int qp = hi ? qpos_hi : qpos_lo;
+      const int ks = sKseg[col], kp = sKpos[col];
+      ok = (qs == ks) && (qs > 0) && (ks > 0);
+      if (causal) ok = ok && (kp <= qp);
+      if (window) ok = ok && (qp - kp < window);
+    }
+    float x = s[i] * scale;
+    if (softcap != 0.f) x = softcap * tanhf(x / softcap);
+    s[i] = ok ? x : NEG_INF;
+    if (ok) ok_bits |= 1u << i;
+  }
+  return ok_bits;
 }
 
 template <int DK, int DV, bool CARRY>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -110,24 +134,38 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                  int Hg, int T, int S, float scale, int causal, int window,
                  float softcap) {
-  constexpr int QS = DK + 8;              // shared row strides (elements)
-  constexpr int VS = DV + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * QS;
-  __nv_bfloat16* sV = sK + BK * QS;
-  int* sKseg = reinterpret_cast<int*>(sV + BK * VS);
-  int* sKpos = sKseg + BK;
+  using L = FwdSmem<DK, DV>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int n_kv = (S + TILE - 1) / TILE;
+  const int words = (n_kv + 31) / 32;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(smem_raw + L::MASK);
+  __shared__ TileMeta mines[NWG];
 
   const int g = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;   // mma row group / thread in group
+  const int wg = threadIdx.x >> 7;        // this warpgroup's q tile
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;   // row group / thread in group
+  const int q0 = (blockIdx.x * NWG + wg) * TILE;
+  const uint32_t sQ = smem_u32(smem_raw) + wg * L::Q;
+  const uint32_t sStage = smem_u32(smem_raw) + NWG * L::Q;
 
   const size_t head = (size_t)g * Hg + h;
   const __nv_bfloat16* qh = q + head * T * DK;
   const __nv_bfloat16* kg = k + (size_t)g * S * DK;
   const __nv_bfloat16* vg = v + (size_t)g * S * DV;
+
+  // the KV tiles any query of each q tile can see, those all its queries
+  // see whole, and the union the block loads
+  if ((threadIdx.x & 127) < 32) {
+    const TileMeta m = warp_tile_meta(q_seg, q_pos, T, q0 / TILE, lane);
+    if (lane == 0) mines[wg] = m;
+  }
+  __syncthreads();
+  build_live_masks<NTHREADS, NWG>(masks, words, n_kv, k_seg, k_pos, S, mines,
+                                  true, causal, window);
+  const uint32_t* live = masks + 2 * wg * words;
+  const uint32_t* full = live + words;
+  const uint32_t* any = masks + 2 * NWG * words;
 
   // this thread's two q rows within the tile, and their metadata
   const int r_lo = warp * 16 + gid, r_hi = r_lo + 8;
@@ -138,37 +176,24 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const int qpos_lo = in_lo ? q_pos[t_lo] : 0;
   const int qpos_hi = in_hi ? q_pos[t_hi] : 0;
 
-  load_tile<DK>(sQ, qh, q0, T, BQ);
-  __syncthreads();
-
-  // Q as mma A fragments, held for the whole KV loop
-  uint32_t qa[DK / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk) {
-    const int c = kk * 16 + 2 * tig;
-    qa[kk][0] = ld32(sQ + r_lo * QS + c);
-    qa[kk][1] = ld32(sQ + r_hi * QS + c);
-    qa[kk][2] = ld32(sQ + r_lo * QS + c + 8);
-    qa[kk][3] = ld32(sQ + r_hi * QS + c + 8);
-  }
-
-  // online-softmax state: o[nt] holds acc[row][nt*8 + 2*tig + {0,1}] for
-  // rows lo (elements 0, 1) and hi (elements 2, 3)
-  float o[DV / 8][4];
+  // online-softmax state: o[4 nt + {0,1}] holds acc[row lo][8 nt + 2 tig +
+  // {0,1}], o[4 nt + {2,3}] the same columns of row hi (the wgmma
+  // accumulator layout)
+  float o[DV / 2];
   float m_lo = NEG_INF, m_hi = NEG_INF, l_lo = 0.f, l_hi = 0.f;
   float* acc_h = acc + head * T * DV;
 #pragma unroll
   for (int nt = 0; nt < DV / 8; ++nt) {
-    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+    o[4 * nt] = o[4 * nt + 1] = o[4 * nt + 2] = o[4 * nt + 3] = 0.f;
     if (CARRY) {
       const int c = nt * 8 + 2 * tig;
       if (in_lo) {
         const float2 a = *reinterpret_cast<const float2*>(acc_h + (size_t)t_lo * DV + c);
-        o[nt][0] = a.x; o[nt][1] = a.y;
+        o[4 * nt] = a.x; o[4 * nt + 1] = a.y;
       }
       if (in_hi) {
         const float2 a = *reinterpret_cast<const float2*>(acc_h + (size_t)t_hi * DV + c);
-        o[nt][2] = a.x; o[nt][3] = a.y;
+        o[4 * nt + 2] = a.x; o[4 * nt + 3] = a.y;
       }
     }
   }
@@ -177,104 +202,121 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     if (in_hi) { m_hi = m_io[head * T + t_hi]; l_hi = l_io[head * T + t_hi]; }
   }
 
-  const int n_kv = (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                      // previous tile fully consumed
-    load_tile<DK>(sK, kg, k0, S, BK);
-    load_tile<DV>(sV, vg, k0, S, BK);
-    if (threadIdx.x < BK) {
-      const int j = k0 + threadIdx.x;
-      sKseg[threadIdx.x] = j < S ? k_seg[j] : 0;
-      sKpos[threadIdx.x] = j < S ? k_pos[j] : 0;
-    }
-    __syncthreads();
+  auto issue = [&](int kt, int stage) {
+    const uint32_t st = sStage + stage * L::STAGE;
+    load_tile_async<DK, NTHREADS>(st, kg, kt * TILE, S);
+    load_tile_async<DV, NTHREADS>(st + L::K, vg, kt * TILE, S);
+    load_vec_async(st + L::K + L::V, k_seg, kt * TILE, S);
+    load_vec_async(st + L::K + L::V + TILE * 4, k_pos, kt * TILE, S);
+  };
 
-    // scores S = Q K^T for this warp's 16 rows x 64 columns
-    float s[BK / 8][4];
+  // the ring: kts[0] is this step's tile, kts[1 ..] the tiles in flight
+  int kts[NSTAGE - 1];
+  kts[0] = next_live(any, 0, n_kv);
+  if (kts[0] < n_kv) {                    // the q tiles and the first tile
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = sK + (nt * 8 + gid) * QS + 2 * tig;
+    for (int w = 0; w < NWG; ++w)
+      load_tile_async<DK, NTHREADS>(smem_u32(smem_raw) + w * L::Q, qh,
+                                    (blockIdx.x * NWG + w) * TILE, T);
+    issue(kts[0], 0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int j = 1; j < NSTAGE - 1; ++j) {
+    kts[j] = next_live(any, kts[j - 1] + 1, n_kv);
+    if (kts[j] < n_kv) issue(kts[j], j);
+    cp_async_commit();
+  }
+  int stage = 0;
+  while (kts[0] < n_kv) {
+    const int kt = kts[0];
+    cp_async_wait<NSTAGE - 2>();          // tile kt (and the q tiles) landed
+    fence_async_smem();
+    __syncthreads();                      // ... for every thread; and every
+                                          // thread is done with tile kt - 1
+    const int nxt = next_live(any, kts[NSTAGE - 2] + 1, n_kv);
+    if (nxt < n_kv) issue(nxt, (stage + NSTAGE - 1) % NSTAGE);
+    cp_async_commit();
+
+    if (bit(live, kt)) {                  // warpgroup-uniform
+      const uint32_t sK = sStage + stage * L::STAGE;
+      const uint32_t sV = sK + L::K;
+      const int* sKseg = reinterpret_cast<const int*>(
+          smem_raw + NWG * L::Q + stage * L::STAGE + L::K + L::V);
+      const int* sKpos = sKseg + TILE;
+
+      // scores S = Q K^T: this warp's 16 rows x 64 columns
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DK / 16; ++kk)
-        mma_bf16_16816(s[nt], qa[kk], ld32(krow + kk * 16),
-                       ld32(krow + kk * 16 + 8));
-    }
+        wgmma_ss_n64(s, desc_k<DK>(sQ, kk), desc_k<DK>(sK, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s);
 
-    // scale, softcap, mask; row maxima
-    uint32_t ok_bits = 0;                 // bit nt*4 + e: element unmasked
-    float mx_lo = NEG_INF, mx_hi = NEG_INF;
+      // scale, softcap, mask; row maxima
+      const uint32_t ok_bits =
+          bit(full, kt)
+              ? mask_scores<true>(s, sKseg, sKpos, tig, qseg_lo, qseg_hi,
+                                  qpos_lo, qpos_hi, scale, causal, window,
+                                  softcap)
+              : mask_scores<false>(s, sKseg, sKpos, tig, qseg_lo, qseg_hi,
+                                   qpos_lo, qpos_hi, scale, causal, window,
+                                   softcap);
+      float mx_lo = NEG_INF, mx_hi = NEG_INF;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        const int qs = e < 2 ? qseg_lo : qseg_hi;
-        const int qp = e < 2 ? qpos_lo : qpos_hi;
-        const int ks = sKseg[col], kp = sKpos[col];
-        bool ok = (qs == ks) && (qs > 0) && (ks > 0);
-        if (causal) ok = ok && (kp <= qp);
-        if (window) ok = ok && (qp - kp < window);
-        float x = s[nt][e] * scale;
-        if (softcap != 0.f) x = softcap * tanhf(x / softcap);
-        x = ok ? x : NEG_INF;
-        s[nt][e] = x;
-        if (ok) ok_bits |= 1u << (nt * 4 + e);
-        if (e < 2) mx_lo = fmaxf(mx_lo, x); else mx_hi = fmaxf(mx_hi, x);
+      for (int i = 0; i < 32; ++i) {
+        if (i & 2) mx_hi = fmaxf(mx_hi, s[i]); else mx_lo = fmaxf(mx_lo, s[i]);
       }
-    }
-    // the four threads of a group share a row
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
+      // the four threads of a group share a row
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
 
-    float rs_lo = 0.f, rs_hi = 0.f;
+      float rs_lo = 0.f, rs_hi = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = (ok_bits >> (nt * 4 + e)) & 1u;
-        const float p = ok ? expf(s[nt][e] - (e < 2 ? mn_lo : mn_hi)) : 0.f;
-        s[nt][e] = p;
-        if (e < 2) rs_lo += p; else rs_hi += p;
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i & 2) != 0;
+        const float p = ((ok_bits >> i) & 1u)
+                            ? __expf(s[i] - (hi ? mn_hi : mn_lo)) : 0.f;
+        s[i] = p;
+        if (hi) rs_hi += p; else rs_lo += p;
       }
-    }
-    rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, 1);
-    rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, 2);
-    rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, 1);
-    rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, 2);
+      rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, 1);
+      rs_lo += __shfl_xor_sync(0xffffffffu, rs_lo, 2);
+      rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, 1);
+      rs_hi += __shfl_xor_sync(0xffffffffu, rs_hi, 2);
 
-    const float al_lo = expf(m_lo - mn_lo), al_hi = expf(m_hi - mn_hi);
-    l_lo = l_lo * al_lo + rs_lo;
-    l_hi = l_hi * al_hi + rs_hi;
-    m_lo = mn_lo;
-    m_hi = mn_hi;
+      const float al_lo = __expf(m_lo - mn_lo), al_hi = __expf(m_hi - mn_hi);
+      l_lo = l_lo * al_lo + rs_lo;
+      l_hi = l_hi * al_hi + rs_hi;
+      m_lo = mn_lo;
+      m_hi = mn_hi;
 #pragma unroll
-    for (int nt = 0; nt < DV / 8; ++nt) {
-      o[nt][0] *= al_lo; o[nt][1] *= al_lo;
-      o[nt][2] *= al_hi; o[nt][3] *= al_hi;
-    }
+      for (int i = 0; i < DV / 2; ++i) o[i] *= (i & 2) ? al_hi : al_lo;
 
-    // O += P V: P (bf16) straight from the score registers as A fragments
+      // O += P V: P (bf16) straight from the score registers as A fragments
+      uint32_t pa[4][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* v0 = sV + (kk * 16 + 2 * tig) * VS + gid;
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], s, kk);
+      reg_fence(o);
+      wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < DV / 8; ++nt) {
-        const __nv_bfloat16* vp = v0 + nt * 8;
-        const uint32_t b0 = pack_h2(vp[0], vp[VS]);
-        const uint32_t b1 = pack_h2(vp[8 * VS], vp[9 * VS]);
-        mma_bf16_16816(o[nt], pa, b0, b1);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DV>(o, pa[kk], desc_mn<DV>(sV, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(o);
     }
+#pragma unroll
+    for (int j = 0; j < NSTAGE - 2; ++j) kts[j] = kts[j + 1];
+    kts[NSTAGE - 2] = nxt;
+    stage = (stage + 1) % NSTAGE;
   }
 
   // epilogue
@@ -284,10 +326,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       const int c = nt * 8 + 2 * tig;
       if (in_lo)
         *reinterpret_cast<float2*>(acc_h + (size_t)t_lo * DV + c) =
-            make_float2(o[nt][0], o[nt][1]);
+            make_float2(o[4 * nt], o[4 * nt + 1]);
       if (in_hi)
         *reinterpret_cast<float2*>(acc_h + (size_t)t_hi * DV + c) =
-            make_float2(o[nt][2], o[nt][3]);
+            make_float2(o[4 * nt + 2], o[4 * nt + 3]);
     }
     if (tig == 0) {
       if (in_lo) { m_io[head * T + t_lo] = m_lo; l_io[head * T + t_lo] = l_lo; }
@@ -302,10 +344,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       const int c = nt * 8 + 2 * tig;
       if (in_lo)
         *reinterpret_cast<uint32_t*>(out_h + (size_t)t_lo * DV + c) =
-            live_lo ? pack_f2(o[nt][0] / d_lo, o[nt][1] / d_lo) : 0u;
+            live_lo ? pack_f2(o[4 * nt] / d_lo, o[4 * nt + 1] / d_lo) : 0u;
       if (in_hi)
         *reinterpret_cast<uint32_t*>(out_h + (size_t)t_hi * DV + c) =
-            live_hi ? pack_f2(o[nt][2] / d_hi, o[nt][3] / d_hi) : 0u;
+            live_hi ? pack_f2(o[4 * nt + 2] / d_hi, o[4 * nt + 3] / d_hi) : 0u;
     }
     if (tig == 0) {
       if (in_lo) lse[head * T + t_lo] = live_lo ? m_lo + logf(l_lo) : NEG_INF;
@@ -321,15 +363,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* lse, int G, int Hg, int T, int S, float scale,
                    int causal, int window, float softcap,
                    cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(BQ * (DK + 8) + BK * (DK + 8) + BK * (DV + 8)) *
-          sizeof(__nv_bfloat16) +
-      2 * BK * sizeof(int);
+  const size_t smem = FwdSmem<DK, DV>::bytes((S + TILE - 1) / TILE);
   auto kern = flash_fwd_kernel<DK, DV, CARRY>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + BQ - 1) / BQ, Hg, G);
+  const dim3 grid((T + NWG * TILE - 1) / (NWG * TILE), Hg, G);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_seg),

@@ -11,8 +11,9 @@ Layout (the reference's kernel layout):
 state (acc [G,Hg,T,Dv], m/l [G,Hg,T], fp32) and `flash_attention_fwd`
 finalises to (out [G,Hg,T,Dv] in q's dtype, lse [G,Hg,T] fp32).
 `flash_attention_bwd` takes the forward's (out, lse) and the output
-gradient do and returns (dq, dk, dv) through two kernels,
-`flash_attention_bwd_dq` and `flash_attention_bwd_dkv`.  On a CUDA tensor
+gradient do and returns (dq, dk, dv) through two kernels:
+`flash_attention_bwd_dq` returns dq and delta = rowsum(do·out) [G,Hg,T]
+fp32, which `flash_attention_bwd_dkv` then takes.  On a CUDA tensor
 each wrapper launches its Hopper kernel (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``; bf16, Dk/Dv in {32, 64, 128}) or raises; on a CPU
 tensor it runs the plain version, which repeats the Pallas kernels'
@@ -163,7 +164,8 @@ def _check(q, k, v, q_seg, k_seg, q_pos, k_pos, state=None):
     return tensors
 
 
-def _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do):
+def _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
+               delta=None):
     _check(q, k, v, q_seg, k_seg, q_pos, k_pos)
     g, hg, t, _ = q.shape
     want = (g, hg, t, v.shape[-1])
@@ -173,9 +175,12 @@ def _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do):
     if out.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"out/do dtypes {out.dtype}, {do.dtype} differ from "
                          f"q's {q.dtype}")
-    if tuple(lse.shape) != (g, hg, t) or lse.dtype != torch.float32:
-        raise ValueError("lse must be float32 [G,Hg,T]")
-    if any(x.device != q.device for x in (out, lse, do)):
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x is not None and (tuple(x.shape) != (g, hg, t)
+                              or x.dtype != torch.float32):
+            raise ValueError(f"{name} must be float32 [G,Hg,T]")
+    if any(x.device != q.device for x in (out, lse, do, delta)
+           if x is not None):
         raise ValueError("all inputs must be on one device")
 
 
@@ -280,41 +285,51 @@ def flash_attention_fwd(q, k, v, q_seg, k_seg, q_pos, k_pos, *, scale,
 flash_attention_fwd.launches = 0
 
 
+def _delta(out, do):
+    """delta = rowsum(do·out) [G,Hg,T] in fp32, as the backward uses it."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
 def flash_attention_bwd_dq(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
                            *, scale, causal=True, window=0, softcap=0.0,
                            block_q=BLOCK_Q, block_k=BLOCK_K):
-    """dq [G,Hg,T,Dk] in q's dtype (the dq kernel of the backward)."""
+    """(dq [G,Hg,T,Dk] in q's dtype, delta [G,Hg,T] fp32): the dq kernel of
+    the backward, which also writes delta = rowsum(do·out) once per q row
+    for `flash_attention_bwd_dkv`."""
     _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
-            block_k=block_k, **kw)[0]
+            block_k=block_k, **kw)[0], _delta(out, do)
     dq = torch.empty_like(q)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     args = _bwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
-                     [dq], **kw)
+                     [dq, delta], **kw)
     _launch("flash_bwd", "flash_bwd_dq_bf16", q, k, v, args,
             block_q=block_q, block_k=block_k)
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse,
-                            do, *, scale, causal=True, window=0, softcap=0.0,
-                            block_q=BLOCK_Q, block_k=BLOCK_K):
+                            do, delta, *, scale, causal=True, window=0,
+                            softcap=0.0, block_q=BLOCK_Q, block_k=BLOCK_K):
     """(dk [G,S,Dk], dv [G,S,Dv]) in k's dtype (the dkv kernel of the
-    backward), summed over the Hg heads of each group."""
-    _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do)
+    backward), summed over the Hg heads of each group.  ``delta`` is the
+    one `flash_attention_bwd_dq` returned for the same inputs; the kernel
+    reads it in place of ``out``, and the plain version recomputes it."""
+    _check_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do, delta)
     kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
             block_k=block_k, **kw)[1:]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    args = _bwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do,
+    args = _bwd_args(q, k, v, q_seg, k_seg, q_pos, k_pos, delta, lse, do,
                      [dk, dv], **kw)
     _launch("flash_bwd", "flash_bwd_dkv_bf16", q, k, v, args,
             block_q=block_q, block_k=block_k)
@@ -337,5 +352,6 @@ def flash_attention_bwd(q, k, v, q_seg, k_seg, q_pos, k_pos, out, lse, do, *,
     if q.device.type == "cpu":
         _check_bwd(*args)
         return flash_attention_bwd_plain(*args, **kw)
-    return (flash_attention_bwd_dq(*args, block_q=block_q, **kw),
-            *flash_attention_bwd_dkv(*args, block_q=block_q, **kw))
+    dq, delta = flash_attention_bwd_dq(*args, block_q=block_q, **kw)
+    return (dq, *flash_attention_bwd_dkv(*args, delta, block_q=block_q,
+                                         **kw))

@@ -131,26 +131,77 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
                                        for c in carry), scale=1.0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("t,dk,dv", [(4096, 128, 128), (1000, 128, 64),
-                                     (200, 32, 32)])
-def test_cuda_kernels_match_plain(t, dk, dv):
-    """On a card: both CUDA kernels against their plain versions (bf16,
-    2e-2), each launch counted."""
+def _layout(name, t):
+    """(q_seg, k_seg, q_pos, k_pos) numpy int32 [t] of a named packing:
+    "diag64" 64-token segments (only diagonal 64x64 tiles live), "offedge"
+    segment edges off the 64-row tile edges then padding, "padtiles" a
+    64-row tile of padding only between two segments, "dead" queries and
+    keys in different segments (every tile dead)."""
+    rows = np.arange(t)
+    if name == "diag64":
+        seg, pos = rows // 64 + 1, rows % 64
+    elif name == "offedge":
+        lens = [100, 37, 300, 1, 63, 65, 200]
+        seg, pos = np.zeros(t, np.int64), np.zeros(t, np.int64)
+        cur = 0
+        for i, n in enumerate(lens):
+            seg[cur:cur + n], pos[cur:cur + n] = i + 1, np.arange(n)
+            cur += n
+    elif name == "padtiles":
+        seg = np.where(rows < 128, 1, np.where(rows < 192, 0, 2))
+        pos = np.where(rows < 128, rows, np.where(rows < 192, 0, rows - 192))
+    elif name == "dead":
+        return tuple(x.astype(np.int32) for x in (
+            np.ones(t), np.full(t, 2), rows, rows))
+    else:
+        raise ValueError(name)
+    seg, pos = seg.astype(np.int32), pos.astype(np.int32)
+    return seg, seg, pos, pos
+
+
+def _cuda_inputs(layout, t, dk, dv):
+    """On the card: random bf16 (q, k, v) and the carry-in of `_inputs`
+    with the metadata of `_inputs` ("random") or of `_layout`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     _, tt, carry, pad = _inputs(5, 2, 3, t, t, dk, dv, "bfloat16")
-    tt = [x.cuda() for x in tt]
-    kw = dict(scale=dk ** -0.5, causal=True, window=16, softcap=30.0)
+    if layout != "random":
+        meta = _layout(layout, t)
+        tt = tt[:3] + [torch.tensor(x) for x in meta]
+        pad = meta[0] == 0
+    return ([x.cuda() for x in tt], [torch.tensor(c).cuda() for c in carry],
+            torch.tensor(pad).cuda())
+
+
+CUDA_CASES = [  # t, dk, dv, layout, window, softcap
+    (4096, 128, 128, "random", 16, 30.0), (1000, 128, 64, "random", 16, 30.0),
+    (200, 32, 32, "random", 16, 30.0), (4096, 128, 128, "diag64", 0, 0.0),
+    (1000, 64, 64, "offedge", 0, 0.0), (512, 128, 128, "padtiles", 0, 0.0),
+    (512, 128, 64, "dead", 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,dk,dv,layout,window,softcap", CUDA_CASES)
+def test_cuda_kernels_match_plain(t, dk, dv, layout, window, softcap):
+    """On a card: both CUDA kernels against their plain versions (bf16,
+    2e-2), each launch counted; padding rows exactly 0 / -1e30, and where
+    every tile is dead the carry comes back bit-identical."""
+    tt, state, pad = _cuda_inputs(layout, t, dk, dv)
+    kw = dict(scale=dk ** -0.5, causal=True, window=window, softcap=softcap)
     n0 = FA.flash_attention_fwd.launches
     out, lse = FA.flash_attention_fwd(*tt, **kw)
     out_p, lse_p = FA.flash_attention_fwd_plain(*tt, **kw)
     assert FA.flash_attention_fwd.launches == n0 + 1
     torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2,
                                rtol=2e-2)
-    assert (out[:, :, pad] == 0).all()
-    state = [torch.tensor(c).cuda() for c in carry]
+    torch.testing.assert_close(lse, lse_p, atol=2e-2, rtol=2e-2)
+    assert (out[:, :, pad] == 0).all() and (lse[:, :, pad] == NEG_INF).all()
+    before = [x.clone() for x in state]
     want = FA.flash_attention_fwd_carry_plain(*tt, *state, **kw)
     FA.flash_attention_fwd_carry(*tt, *state, **kw)
     for got, w in zip(state, want):
         torch.testing.assert_close(got, w, atol=2e-2, rtol=2e-2)
+    for got, b in zip(state, before):
+        assert torch.equal(got[:, :, pad], b[:, :, pad])
+        if layout == "dead":
+            assert torch.equal(got, b)

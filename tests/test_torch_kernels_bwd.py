@@ -18,7 +18,7 @@ from repro_torch.kernels import fused_ce as CE
 from repro_torch.kernels import ops
 from repro_torch.kernels import ring_flash as RF
 
-from test_torch_flash import MASKS, SHAPES, _inputs
+from test_torch_flash import MASKS, SHAPES, _cuda_inputs, _inputs
 
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}    # tests/test_kernels.py:70
 CE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}      # tests/test_kernels.py:82
@@ -64,9 +64,11 @@ def test_flash_bwd_matches_pallas(g, hg, t, s, dk, dv, dtype, window,
     # padding query rows: exactly zero dq
     assert (got[0][:, :, pad] == 0).all()
     # the two kernel wrappers give the same as the joint call on the CPU
-    torch.testing.assert_close(FA.flash_attention_bwd_dq(*tt, **kw), got[0],
-                               atol=0, rtol=0)
-    for a, b in zip(FA.flash_attention_bwd_dkv(*tt, **kw), got[1:]):
+    dq, delta = FA.flash_attention_bwd_dq(*tt, **kw)
+    torch.testing.assert_close(dq, got[0], atol=0, rtol=0)
+    torch.testing.assert_close(
+        delta, (tt[9].float() * tt[7].float()).sum(-1), atol=0, rtol=0)
+    for a, b in zip(FA.flash_attention_bwd_dkv(*tt, delta, **kw), got[1:]):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
@@ -79,6 +81,9 @@ def test_flash_bwd_rejects_mismatched_residuals():
     with pytest.raises(ValueError, match="out and do"):
         FA.flash_attention_bwd(q, k, v, qs, ks, qp, kp, out, lse,
                                do[..., :16].contiguous(), **kw)
+    with pytest.raises(ValueError, match="delta"):
+        FA.flash_attention_bwd_dkv(q, k, v, qs, ks, qp, kp, out, lse, do,
+                                   lse[..., :8].contiguous(), **kw)
 
 
 def _ring_case(gather):
@@ -224,13 +229,11 @@ def test_fused_softmax_xent_grad_is_the_bwd_kernel():
 # on the card: each new kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _cuda_bwd_case(t, dk, dv, window, softcap):
-    """Ragged T on the card: (out, lse) from the plain forward (the Pallas
-    kernel needs T to be a multiple of its tile)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    _, tt, _, pad = _inputs(5, 2, 3, t, t, dk, dv, "bfloat16")
-    tt = [x.cuda() for x in tt]
+def _cuda_bwd_case(t, dk, dv, layout, window, softcap):
+    """On the card, metadata as in `test_torch_flash._cuda_inputs`: (out,
+    lse) from the plain forward (the Pallas kernel needs T to be a multiple
+    of its tile)."""
+    tt, _, pad = _cuda_inputs(layout, t, dk, dv)
     kw = dict(scale=dk ** -0.5, causal=True, window=window, softcap=softcap)
     out, lse = FA.flash_attention_fwd_plain(*tt, **kw)
     do = torch.tensor(np.random.RandomState(6).randn(2, 3, t, dv),
@@ -244,32 +247,47 @@ def _rel_l2(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+CUDA_BWD_CASES = [  # t, dk, dv, layout, window, softcap
+    (1000, 128, 128, "random", 0, 0.0), (200, 64, 64, "random", 16, 30.0),
+    (256, 128, 64, "random", 0, 0.0), (4096, 128, 128, "diag64", 0, 0.0),
+    (1000, 64, 64, "offedge", 0, 0.0), (512, 128, 128, "padtiles", 0, 0.0),
+    (4096, 128, 128, "random", 16, 0.0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,dk,dv,window,softcap", [
-    (1000, 128, 128, 0, 0.0), (200, 64, 64, 16, 30.0), (256, 128, 64, 0, 0.0)])
-def test_cuda_flash_bwd_dq_matches_plain(t, dk, dv, window, softcap):
-    tt, kw, pad, want = _cuda_bwd_case(t, dk, dv, window, softcap)
+@pytest.mark.parametrize("t,dk,dv,layout,window,softcap", CUDA_BWD_CASES)
+def test_cuda_flash_bwd_dq_matches_plain(t, dk, dv, layout, window, softcap):
+    tt, kw, pad, want = _cuda_bwd_case(t, dk, dv, layout, window, softcap)
     n0 = FA.flash_attention_bwd_dq.launches
-    dq = FA.flash_attention_bwd_dq(*tt, **kw)
+    dq, delta = FA.flash_attention_bwd_dq(*tt, **kw)
     assert FA.flash_attention_bwd_dq.launches == n0 + 1
     torch.testing.assert_close(dq.float(), want[0].float(), atol=2e-2,
                                rtol=2e-2)
     assert _rel_l2(dq, want[0]) <= 2e-2
-    assert (dq[:, :, torch.tensor(pad).cuda()] == 0).all()
+    assert (dq[:, :, pad] == 0).all()
+    torch.testing.assert_close(delta, FA._delta(tt[7], tt[9]), atol=1e-4,
+                               rtol=1e-4)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,dk,dv,window,softcap", [
-    (1000, 128, 128, 0, 0.0), (200, 64, 64, 16, 30.0), (256, 128, 64, 0, 0.0)])
-def test_cuda_flash_bwd_dkv_matches_plain(t, dk, dv, window, softcap):
-    tt, kw, _, want = _cuda_bwd_case(t, dk, dv, window, softcap)
+@pytest.mark.parametrize("t,dk,dv,layout,window,softcap", CUDA_BWD_CASES)
+def test_cuda_flash_bwd_dkv_matches_plain(t, dk, dv, layout, window,
+                                          softcap):
+    """Against the plain version; padding keys exactly 0; a second run
+    gives bit-identical dk and dv (no atomics)."""
+    tt, kw, _, want = _cuda_bwd_case(t, dk, dv, layout, window, softcap)
+    k_pad = tt[4] == 0
+    _, delta = FA.flash_attention_bwd_dq(*tt, **kw)
     n0 = FA.flash_attention_bwd_dkv.launches
-    dk_, dv_ = FA.flash_attention_bwd_dkv(*tt, **kw)
+    dk_, dv_ = FA.flash_attention_bwd_dkv(*tt, delta, **kw)
     assert FA.flash_attention_bwd_dkv.launches == n0 + 1
     for got, w in zip((dk_, dv_), want[1:]):
         torch.testing.assert_close(got.float(), w.float(), atol=2e-2,
                                    rtol=2e-2)
         assert _rel_l2(got, w) <= 2e-2
+        assert (got[:, k_pad] == 0).all()
+    again = FA.flash_attention_bwd_dkv(*tt, delta, **kw)
+    assert torch.equal(again[0], dk_) and torch.equal(again[1], dv_)
 
 
 def _cuda_ce_case(t, v):
