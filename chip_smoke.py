@@ -9,16 +9,20 @@ Phases (any failure raises and exits non-zero before the result line):
    versions; TF32 switched off for matmuls and cuDNN.
 2. build   — compiles every CUDA kernel of the port from the checkout's
    sources (flash_fwd, flash_bwd, fused_ce: one nvcc per source, all
-   started together) and prints ptxas' registers and spills per kernel.
+   started together) and prints ptxas' registers and spills per kernel;
+   fails if any instantiation of the dq kernel spills.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card.  Flash forward: the slice's shape [8,3,4096,128] bf16 with packed
    segments (3000/900/120), padding rows and a non-zero carry-in; the
    skip-heavy case, 64 segments of 64 tokens at the same shape (only the
    diagonal tiles live); a ragged T=S=4000; a window=16/softcap=30 case;
    Dv=64 != Dk=128.  Flash backward (dq, then dkv from dq's delta): the
-   same five cases from the forward kernel's (out, lse).  Each attention
-   case prints the fraction of 64x64 tiles the kernels visit, from the
-   port's tile predicate (`core/ring.py::tile_liveness`).  Fused
+   same five cases from the forward kernel's (out, lse); dq's delta is
+   held to rowsum(do * out) within 1e-4, and the Dk=128 Dv=64 case has
+   Hg = 4, which the dq kernel's three heads per block do not divide.
+   Each attention case prints the fraction of 64x64 tiles the kernels
+   visit, from the port's tile predicate (`core/ring.py::tile_liveness`),
+   and each backward row its instantiation's ptxas registers and spills.  Fused
    cross-entropy forward and backward: [4096,128256] bf16 with padding
    rows (label 0, g = 0) and V=4096.  Tolerance 2e-2 element-wise (bf16,
    the reference's kernel-test tolerance) and 2e-2 relative L2 per output;
@@ -155,56 +159,25 @@ def phase_device(torch) -> str:
 # 2. build
 # ---------------------------------------------------------------------------
 
-def kernel_name(mangled: str) -> str:
-    """'_ZN..20flash_bwd_dkv_kernelILi128ELi128EEEv..' ->
-    'flash_bwd_dkv_kernel<128,128>' (the last name of a mangled symbol and
-    its integer template arguments)."""
-    import re
-    i = 3 if mangled.startswith("_ZN") else 2
-    name = mangled
-    while i < len(mangled) and mangled[i].isdigit():
-        j = i
-        while mangled[j].isdigit():
-            j += 1
-        n = int(mangled[i:j])
-        name, i = mangled[j:j + n], j + n
-    if mangled[i:i + 1] != "I":
-        return name
-    args = re.findall(r"L[ib](\d+)E", mangled[i:].split("EE")[0] + "E")
-    return f"{name}<{','.join(args)}>"
-
-
-def ptxas_report(text: str):
-    """[(kernel<template args>, registers, spill stores, spill loads)] from
-    nvcc's -Xptxas -v output."""
-    import re
-    rows, name, spills = [], None, (0, 0)
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = kernel_name(m.group(1))
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            spills = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            rows.append((name, int(m.group(1)), *spills))
-            name = None
-    return rows
-
-
-def phase_build() -> None:
+def phase_build() -> dict:
+    """-> {kernel<template args>: (registers, spill stores, spill loads)};
+    raises if an instantiation of the dq kernel spills."""
     from repro_torch.kernels import build
     names = sorted({Path(src).stem for _, src, _, _, _ in KERNELS})
     t0 = time.perf_counter()
     libs = build.build_all(names)
     log(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    report = {}
     for name in names:
-        for kern, regs, st, ld in ptxas_report(build.build_log(name)):
+        for kern, regs, st, ld in build.ptxas_report(build.build_log(name)):
             log(f"[build] {name}: {kern} registers {regs} spill stores "
                 f"{st} B, spill loads {ld} B")
+            report[kern] = (regs, st, ld)
+    spills = {k: r for k, r in report.items()
+              if k.startswith("flash_bwd_dq_kernel<") and (r[1] or r[2])}
+    if spills:
+        raise AssertionError(f"the dq kernel spills: {spills}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +353,17 @@ def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
     return rows
 
 
-def bwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
+def ptxas_of(ptxas, kernel, dk, dv) -> dict:
+    """Registers and spill bytes of the instantiation of ``kernel`` for
+    (dk, dv) in the build report."""
+    hits = [r for k, r in ptxas.items() if k.startswith(f"{kernel}<{dk},{dv}")]
+    if len(hits) != 1:
+        return {}
+    regs, st, ld = hits[0]
+    return {"registers": regs, "spill_bytes": st + ld}
+
+
+def bwd_case(torch, FA, ptxas, name, *, g, hg, t, dk, dv, lens, window=0,
              softcap=0.0, seed=0):
     """Both backward kernels from the forward kernel's (out, lse)."""
     rng, args, seg_np, pos_np = attn_inputs(torch, g, hg, t, dk, dv, lens,
@@ -401,6 +384,10 @@ def bwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
     err_q, rl2_q = hold(torch, f"{name} dq", dq, dq_p)
     err_k, rl2_k = hold(torch, f"{name} dk", dk_, dk_p)
     err_v, rl2_v = hold(torch, f"{name} dv", dv_, dv_p)
+    want_delta = FA._delta(out, do)
+    if not torch.allclose(delta, want_delta, atol=1e-4, rtol=1e-4):
+        raise AssertionError(f"{name}: delta off rowsum(do * out) by "
+                             f"{(delta - want_delta).abs().max().item()}")
     if bool((dq[:, :, pad] != 0).any()) or bool((dk_[:, pad] != 0).any()) \
             or bool((dv_[:, pad] != 0).any()):
         raise AssertionError(f"{name}: padding rows' dq / dk / dv not "
@@ -448,7 +435,8 @@ def bwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
              "live_tiles": live_fraction(torch, seg_np, pos_np, window)}
     for key, row in rows.items():
         log(f"[kernels] {name} {key}: "
-            f"{fmt({**row, 'bound': row['bound'][0], **extra})}")
+            f"{fmt({**row, 'bound': row['bound'][0], **extra})} "
+            f"{fmt(ptxas_of(ptxas, f'{key}_kernel', dk, dv))}")
     return rows
 
 
@@ -512,7 +500,7 @@ def ce_case(torch, CE, name, *, t, v, n_pad, seed=0):
     return rows
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, ptxas):
     """-> list of cases, each {kernel name: row}; the first case of each
     kernel is at the slice's shape."""
     from repro_torch.kernels import flash_attention as FA
@@ -531,7 +519,7 @@ def phase_kernels(torch):
                               lens=[300, 150, 33], seed=3)),
     ]
     cases = [fwd_case(torch, FA, name, **kw) for name, kw in attn]
-    cases += [bwd_case(torch, FA, name, **kw) for name, kw in attn]
+    cases += [bwd_case(torch, FA, ptxas, name, **kw) for name, kw in attn]
     cases.append(ce_case(torch, CE, "CE [4096,128256]", t=4096, v=128256,
                          n_pad=76))
     cases.append(ce_case(torch, CE, "CE [512,4096]", t=512, v=4096,
@@ -861,8 +849,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
     phase_device(torch)
-    phase_build()
-    cases = phase_kernels(torch)
+    ptxas = phase_build()
+    cases = phase_kernels(torch, ptxas)
     log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
     serve_launches = phase_serve(torch)
     log(f"[serve] done at {time.perf_counter() - t0:.1f} s")

@@ -2,8 +2,11 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library under ``<checkout>/build/kernels/``, named by a hash of
-the source, every header under ``csrc/`` and the flags, so an edited
-source or header rebuilds and an unchanged one is reused.  The kernels
+the source, every header under ``csrc/``, the flags and any ``-D``
+defines, so an edited source or header rebuilds and an unchanged one is
+reused.  The port builds every source without defines; a source's
+compile-time settings (``FLASH_DQ_*`` in ``flash_bwd.cu``) are overridden
+only to time alternatives (``launch/bench_dq.py``).  The kernels
 use no CUTLASS or CuTe headers (wgmma, cp.async and the descriptors are
 written as inline PTX), so no include path beyond ``csrc/`` is needed.
 The build happens at first use, inside the process that launches the
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -41,27 +45,34 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def _flags(defines: Sequence[str]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _target(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str]) -> Dict[str, Path]:
+def build_all(names: Iterable[str],
+              defines: Sequence[str] = ()) -> Dict[str, Path]:
     """Compile every named source whose library is missing, one ``nvcc``
-    process each, all started together.  Returns {name: library path}.
-    Raises RuntimeError with the compiler's output if a build fails."""
+    process each, all started together, each with ``-D`` of every entry of
+    ``defines`` ("NAME=value").  Returns {name: library path}.  Raises
+    RuntimeError with the compiler's output if a build fails."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {n: _target(n, defines) for n in names}
     procs = {}
     for n, so in targets.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, so)
@@ -78,30 +89,33 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     return targets
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Sequence[str] = ()) -> str:
     """The compiler's output (ptxas register/shared-memory report) of the
     library `load` uses for ``name``, or "" if it was built elsewhere."""
-    log = _target(name).with_suffix(".log")
+    log = _target(name, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed (once per process)."""
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` built with ``defines``,
+    building it first if needed (once per process)."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all([name])[name]))
-            _loaded[name] = lib
+            lib = ctypes.CDLL(str(build_all([name], defines)[name]))
+            _loaded[key] = lib
         return lib
 
 
-def call(name: str, symbol: str, args: Sequence, device) -> None:
-    """Call ``symbol`` of ``csrc/<name>.cu`` on the current stream of
-    ``device``.  Tensors pass as pointers, None as a null pointer, Python
-    floats as C floats and ints as C ints; the stream goes last.  Raises
-    RuntimeError on a non-zero cudaError (a refused launch never runs)."""
-    fn = getattr(load(name), symbol)
+def call(name: str, symbol: str, args: Sequence, device,
+         defines: Sequence[str] = ()) -> None:
+    """Call ``symbol`` of ``csrc/<name>.cu`` (built with ``defines``) on
+    the current stream of ``device``.  Tensors pass as pointers, None as a
+    null pointer, Python floats as C floats and ints as C ints; the stream
+    goes last.  Raises RuntimeError on a non-zero cudaError (a refused
+    launch never runs)."""
+    fn = getattr(load(name, defines), symbol)
     fn.argtypes = [ctypes.c_float if isinstance(a, float)
                    else ctypes.c_int if isinstance(a, int)
                    else ctypes.c_void_p for a in args] + [ctypes.c_void_p]
@@ -112,3 +126,41 @@ def call(name: str, symbol: str, args: Sequence, device) -> None:
         err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+
+
+def kernel_name(mangled: str) -> str:
+    """'_ZN..20flash_bwd_dkv_kernelILi128ELi128EEEv..' ->
+    'flash_bwd_dkv_kernel<128,128>' (the last name of a mangled symbol and
+    its integer template arguments)."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    if mangled[i:i + 1] != "I":
+        return name
+    args = re.findall(r"L[ib](\d+)E", mangled[i:].split("EE")[0] + "E")
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_report(text: str):
+    """[(kernel<template args>, registers, spill stores, spill loads)] from
+    nvcc's -Xptxas -v output."""
+    rows, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return rows

@@ -4,11 +4,11 @@
 //
 //   flash_bwd_dq_kernel   replaces repro/kernels/flash_attention.py::
 //                         _bwd_dq_kernel (inside flash_attention_bwd): one
-//                         block per (g, h, 64-row q tile) loops over every KV
-//                         tile and keeps dq in registers;
-//                         dq = scale * sum_k ds * k.  It also writes
-//                         delta = rowsum(do * out) [G, Hg, T] fp32, once per
-//                         q row, for the dkv kernel.
+//                         block per (g, 64-row q tile, NW heads of the
+//                         group) loops over the live KV tiles and keeps dq
+//                         in registers; dq = scale * sum_k ds * k.  It also
+//                         writes delta = rowsum(do * out) [G, Hg, T] fp32,
+//                         once per q row, for the dkv kernel.
 //   flash_bwd_dkv_kernel  replaces repro/kernels/flash_attention.py::
 //                         _bwd_dkv_kernel: one block per (g, 64-row KV tile)
 //                         loops over the Hg heads and the live q tiles;
@@ -27,42 +27,66 @@
 //
 // Design.  On the TPU the grid walks the reduction axis sequentially and
 // carries the accumulator in VMEM scratch; here one block owns an output
-// tile and loops over the reduction itself.
-//  * dq: 4 warps x 16 q rows on mma.sync m16n8k16, dq [16 x Dk] per warp in
-//    registers (64 floats a thread at Dk = 128); every KV tile is visited.
-//  * dkv: one warpgroup (128 threads) owns 64 KV rows.  A prologue reduces
-//    its KV tile and every q tile to their seg/pos ranges and keeps a bitmask
-//    of the q tiles that `tile_relevant` (flash_tiles.cuh, the reference's
-//    _block_relevant per tile) cannot rule out; the (head, q tile) steps of
-//    dead tiles are skipped, which adds exact zeros, and tiles `tile_full`
-//    proves visible whole skip the element-wise mask.  K and V load once, as
-//    wgmma A operands in shared memory.  Q, dO, q_seg, q_pos, lse and delta
-//    of the next live step come in through a two-stage cp.async ring while
-//    the tensor cores work on this one.  Per step: S^T = K Q^T and
-//    dP^T = V dO^T (m64n64k16, both operands in shared memory); p^T and ds^T
-//    in registers; dV += P^T dO and dK += dS^T Q (m64n{Dv,Dk}k16, P^T and
-//    dS^T as hi + lo register A fragments, dO and Q read MN-major from the
-//    same tiles).  dk and dv stay in registers (128 floats a thread at
-//    Dk = Dv = 128) for the whole block; two blocks share an SM.  Two
-//    warpgroups sharing each Q/dO tile (128 KV rows a block, a three-stage
-//    ring, one block per SM) gave the same bits but ran slower on an H100
-//    (PERF.md): the Q/dO loads do not bound this kernel.
-// Ragged tails (T % 64, S % 64) load as zeros with segment 0 and are never
-// stored.
+// tile and loops over the reduction itself.  Both kernels visit only the
+// tiles that `tile_relevant` (flash_tiles.cuh, the reference's
+// _block_relevant per tile) cannot rule out, which drops exact zeros only,
+// and skip the element-wise mask on tiles `tile_full` proves visible whole.
+// Tiles sit in shared memory in the core-matrix layout, and every product
+// is a wgmma.
+//  * dq: NW warpgroups (FLASH_DQ_NW) share one 64-row q tile, each for one
+//    head of the group, so the block's one bitmask of live KV tiles serves
+//    every head and each K/V tile it loads serves NW heads.  K, V, k_seg and
+//    k_pos come in through a cp.async ring (FLASH_DQ_NSTAGE stages: the
+//    next live tile loads while this one is in use); Q and dO of each head
+//    load once, with the first stage, while the block computes delta.  Per
+//    live tile and head: S = Q K^T and dP = dO V^T (m64n64k16, both
+//    operands in shared memory); ds in registers; dQ += dS K (m64n{Dk}k16,
+//    dS as hi + lo register A fragments, K read MN-major from the tile S
+//    used).  dq
+//    stays in registers (64 floats a thread at Dk = 128).  A warpgroup whose
+//    head is past Hg skips the products and stores but reaches every
+//    barrier.  With FLASH_DQ_HEAVY_FIRST the blocks of the last q tiles,
+//    which see the most KV tiles under a causal mask, start first.  On an
+//    H100 three heads a block beat two and one, two stages beat three, and
+//    the heavy tiles first beat the grid's order (launch/bench_dq.py,
+//    PERF.md).  The per-row metadata sits in shared memory and the copies
+//    are split evenly over 256 threads that compute their addresses at
+//    each copy, which keeps three warpgroups within 168 registers a thread
+//    without a spill.
+//  * dkv: one warpgroup (128 threads) owns 64 KV rows and keeps a bitmask
+//    of the live q tiles; the (head, q tile) steps of dead tiles are
+//    skipped.  K and V load once, as wgmma A operands in shared memory.
+//    Q, dO, q_seg, q_pos, lse and delta of the next live step come in
+//    through a two-stage cp.async ring while the tensor cores work on this
+//    one.  Per step: S^T = K Q^T and dP^T = V dO^T (m64n64k16, both
+//    operands in shared memory); p^T and ds^T in registers; dV += P^T dO
+//    and dK += dS^T Q (m64n{Dv,Dk}k16, P^T and dS^T as hi + lo register A
+//    fragments, dO and Q read MN-major from the same tiles).  dk and dv
+//    stay in registers (128 floats a thread at Dk = Dv = 128) for the whole
+//    block; two blocks share an SM.  Two warpgroups sharing each Q/dO tile
+//    (128 KV rows a block, a three-stage ring, one block per SM) gave the
+//    same bits but ran slower on an H100 (PERF.md): the Q/dO loads do not
+//    bound this kernel.
+// Ragged tails (T % 64, S % 64) load as zeros with segment 0.  dq writes
+// every row < T of its tile (zeros where no key is visible), dkv every
+// row < S of its tile.
 //
-// Bound on this card.  Per unmasked (q, k) pair and head the dq kernel does
+// Bound on this card.  Per visible (q, k) pair and head the dq kernel does
 // 2*(2*Dk + Dv) flops and the dkv kernel 2*(2*Dk + 2*Dv) (the lo fragments
 // of p and ds add tensor-core work the bound does not count); at the training
 // slice's shape (G=8, Hg=3, T=S=4096, D=128, segments 3000/900/120) that is
 // ~0.09 and ~0.12 ms of bf16 tensor-core time, above the ~0.04 ms their bytes
-// take at 3.35 TB/s, so operations bound both.  dq still computes every
-// tile, loads synchronously and uses mma.sync; dkv's live tiles hold 3.4x
-// the visible pairs at that shape, and its element-wise pass does not yet
-// overlap the products of the next step.
+// take at 3.35 TB/s, so operations bound both.  The gaps left to the bound:
+// the live tiles hold 3.4x the visible pairs at that shape; the lo
+// fragments double the products that take p or ds; and the element-wise
+// pass of a tile does not overlap the products of the next.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py); plain C entry
-// points, loaded with ctypes, launched on the caller's stream.
+// points, loaded with ctypes, launched on the caller's stream.  The dq
+// kernel's FLASH_DQ_* settings may be overridden with -D, as
+// repro_torch/launch/bench_dq.py does to time the alternatives; the
+// defaults are the fastest it measured.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,86 +94,21 @@
 
 #include "flash_tiles.cuh"
 
+#ifndef FLASH_DQ_NW
+#define FLASH_DQ_NW 3                     // heads (warpgroups) per dq block
+#endif
+#ifndef FLASH_DQ_NSTAGE
+#define FLASH_DQ_NSTAGE 2                 // dq's K/V ring depth
+#endif
+#ifndef FLASH_DQ_HEAVY_FIRST
+#define FLASH_DQ_HEAVY_FIRST 1            // last q tiles start first
+#endif
+
 namespace {
 
-using flash::pack_f2;
+using namespace flash;
 
-constexpr int BQ = 64;            // q rows per tile (16 per warp in dq)
-constexpr int BK = 64;            // kv rows per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-static_assert(NTHREADS == 2 * BQ, "delta uses two threads per q row");
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 from shared memory -> one register (lo in the low half)
-__device__ __forceinline__ uint32_t pack_h2(__nv_bfloat16 lo,
-                                            __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + rows) of a [n, D] bf16 matrix into shared memory with
-// row stride D + 8; rows >= n are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n, int rows) {
-  constexpr int VEC = D / 8;              // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * VEC; i += NTHREADS) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
-  }
-}
-
-// A fragment (16 x 16, rows r_lo / r_lo + 8) of a bf16 tile in shared
-// memory with row stride `ld`, k columns [k0, k0 + 16)
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* base, int ld,
-                                       int r_lo, int k0, int tig) {
-  const int c = k0 + 2 * tig;
-  a[0] = ld32(base + r_lo * ld + c);
-  a[1] = ld32(base + (r_lo + 8) * ld + c);
-  a[2] = ld32(base + r_lo * ld + c + 8);
-  a[3] = ld32(base + (r_lo + 8) * ld + c + 8);
-}
-
-// two floats -> bf16 pair hi and the bf16 pair of what hi leaves out
-__device__ __forceinline__ void split_f2(float x, float y, uint32_t& hi,
-                                         uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_f2(x - hf.x, y - hf.y);
-}
-
-// the mma C fragment of 16 x 64 scores, reused as A fragments (k = 16-wide
-// slice kk of the 64 columns; the FlashAttention-2 layout identity), split
-// into bf16 hi and lo fragments: c ~= hi + lo to ~16 bits
-__device__ __forceinline__ void frag_to_a(uint32_t (&hi)[4],
-                                          uint32_t (&lo)[4],
-                                          const float (&c)[BK / 8][4],
-                                          int kk) {
-  split_f2(c[2 * kk][0], c[2 * kk][1], hi[0], lo[0]);
-  split_f2(c[2 * kk][2], c[2 * kk][3], hi[1], lo[1]);
-  split_f2(c[2 * kk + 1][0], c[2 * kk + 1][1], hi[2], lo[2]);
-  split_f2(c[2 * kk + 1][2], c[2 * kk + 1][3], hi[3], lo[3]);
-}
+constexpr int NTHREADS = 128;             // dkv: one warpgroup a block
 
 __device__ __forceinline__ bool visible(int qs, int qp, int ks, int kp,
                                         int causal, int window) {
@@ -177,8 +136,30 @@ __device__ __forceinline__ void pair_grad(float raw, float dp, bool ok,
 // dq
 // ---------------------------------------------------------------------------
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(NTHREADS)
+constexpr int DQ_NSTAGE = FLASH_DQ_NSTAGE;
+static_assert(DQ_NSTAGE >= 2, "the ring holds this tile and the next");
+
+// shared memory of the dq kernel: per warpgroup its Q and dO tiles, then
+// DQ_NSTAGE x (K tile, V tile, k_seg, k_pos), per warpgroup the delta and
+// lse of its 64 rows, the q tile's q_seg and q_pos, then the live-tile and
+// full-tile bitmasks
+template <int DK, int DV, int NW>
+struct DqSmem {
+  static constexpr int Q = TILE * DK * 2;
+  static constexpr int DO = TILE * DV * 2;
+  static constexpr int HEAD = Q + DO;
+  static constexpr int K = TILE * DK * 2;
+  static constexpr int V = TILE * DV * 2;
+  static constexpr int STAGE = K + V + 2 * TILE * 4;
+  static constexpr int ROWS = NW * HEAD + DQ_NSTAGE * STAGE;
+  static constexpr int MASK = ROWS + (2 * NW + 2) * TILE * 4;
+  static size_t bytes(int n_tiles) {
+    return MASK + (size_t)((n_tiles + 31) / 32) * 8;
+  }
+};
+
+template <int DK, int DV, int NW>
+__global__ void __launch_bounds__(128 * NW, 1)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -192,156 +173,221 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ dq,
                     float* __restrict__ delta, int Hg, int T, int S,
                     float scale, int causal, int window, float softcap) {
-  constexpr int QS = DK + 8;              // shared row strides (elements)
-  constexpr int VS = DV + 8;
+  constexpr int NT = 128 * NW;
+  using L = DqSmem<DK, DV, NW>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + BQ * QS;
-  __nv_bfloat16* sK = sdO + BQ * VS;
-  __nv_bfloat16* sV = sK + BK * QS;
-  int* sKseg = reinterpret_cast<int*>(sV + BK * VS);
-  int* sKpos = sKseg + BK;
-  float* sDelta = reinterpret_cast<float*>(sKpos + BK);
+  const int n_kv = (S + TILE - 1) / TILE;
+  const int words = (n_kv + 31) / 32;
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem_raw + L::MASK);
+  const uint32_t* full = live + words;
+  float* sDelta = reinterpret_cast<float*>(smem_raw + L::ROWS);
+  float* sLse = sDelta + NW * TILE;
+  int* sQseg = reinterpret_cast<int*>(sLse + NW * TILE);
+  int* sQpos = sQseg + TILE;
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sStage = base + NW * L::HEAD;
 
-  const int g = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // (q tile, head block, g) of this block: blocks start in the order of
+  // their linear index, so with the grid (G, head blocks, q tiles) the last
+  // q tiles go first
+#if FLASH_DQ_HEAVY_FIRST
+  const int g = blockIdx.x, hb = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
+#else
+  const int g = blockIdx.z, hb = blockIdx.y, qt = blockIdx.x;
+#endif
+  const int q0 = qt * TILE;
+  const int wg = threadIdx.x >> 7;        // this warpgroup's head
+  const int h = hb * NW + wg;
+  const bool active = h < Hg;             // warpgroup-uniform
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
-
-  const size_t head = (size_t)g * Hg + h;
-  const __nv_bfloat16* qh = q + head * T * DK;
-  const __nv_bfloat16* oh = out + head * T * DV;
-  const __nv_bfloat16* doh = dout + head * T * DV;
+  const uint32_t sQ = base + wg * L::HEAD;
+  const uint32_t sdO = sQ + L::Q;
+  const size_t head = (size_t)g * Hg + (active ? h : 0);
   const __nv_bfloat16* kg = k + (size_t)g * S * DK;
   const __nv_bfloat16* vg = v + (size_t)g * S * DV;
 
-  load_tile<DK>(sQ, qh, q0, T, BQ);
-  load_tile<DV>(sdO, doh, q0, T, BQ);
-  __syncthreads();
+  // the KV tiles any query of this q tile can see (the same for every
+  // head), and those all its queries see whole
+  const TileMeta mine = warp_tile_meta(q_seg, q_pos, T, qt, lane);
+  build_live_masks<NT, 1>(live, words, n_kv, k_seg, k_pos, S, &mine, true,
+                          causal, window);
 
-  // delta = rowsum(do * out) in fp32, two threads per row
-  {
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    float d = 0.f;
-    if (q0 + r < T) {
-      const __nv_bfloat16* orow = oh + (size_t)(q0 + r) * DV;
-      for (int c = half * (DV / 2); c < (half + 1) * (DV / 2); c += 8) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(orow + c);
-        const __nv_bfloat16* ov = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  // K and V are copied by the first NLOAD threads, which split every tile
+  // evenly, from a thread index read at each copy: the copy's addresses
+  // hold no registers across the products
+  constexpr int NLOAD = NT < 256 ? NT : 256;
+  auto issue = [&](int kt, int stage) {
+    const uint32_t st = sStage + stage * L::STAGE;
+    const int tid = tid_here();
+    if (tid < NLOAD) {
+      load_tile_async<DK, NLOAD>(st, kg, kt * TILE, S, tid);
+      load_tile_async<DV, NLOAD>(st + L::K, vg, kt * TILE, S, tid);
+    }
+    load_vec_async(st + L::K + L::V, k_seg, kt * TILE, S);
+    load_vec_async(st + L::K + L::V + TILE * 4, k_pos, kt * TILE, S);
+  };
+
+  // the ring: kts[0] is this step's tile, kts[1 ..] the tiles in flight
+  int kts[DQ_NSTAGE - 1];
+  kts[0] = next_live(live, 0, n_kv);
+  if (kts[0] < n_kv) {                    // Q, dO and the first tile
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          d += __bfloat162float(ov[e]) * __bfloat162float(sdO[r * VS + c + e]);
+    for (int w = 0; w < NW; ++w) {
+      const int hw = hb * NW + w;
+      if (hw < Hg) {
+        const size_t hd = (size_t)g * Hg + hw;
+        load_tile_async<DK, NT>(base + w * L::HEAD, q + hd * T * DK, q0, T);
+        load_tile_async<DV, NT>(base + w * L::HEAD + L::Q,
+                                dout + hd * T * DV, q0, T);
+      }
+    }
+    issue(kts[0], 0);
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int j = 1; j < DQ_NSTAGE - 1; ++j) {
+    kts[j] = next_live(live, kts[j - 1] + 1, n_kv);
+    if (kts[j] < n_kv) issue(kts[j], j);
+    cp_async_commit();
+  }
+
+  // per q row, into shared memory while the loads are in flight: delta =
+  // rowsum(do * out) in fp32 (two threads per row), lse, q_seg and q_pos
+  const int r = (threadIdx.x & 127) >> 1, half = threadIdx.x & 1;
+  const bool row_in = q0 + r < T;
+  if (active) {
+    float d = 0.f;
+    if (row_in) {
+      const size_t row = (head * T + q0 + r) * DV;
+#pragma unroll
+      for (int c = half * (DV / 2); c < (half + 1) * (DV / 2); c += 8) {
+        const uint4 ro = *reinterpret_cast<const uint4*>(out + row + c);
+        const uint4 rd = *reinterpret_cast<const uint4*>(dout + row + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ro);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&rd);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          d += of.x * df.x;
+          d += of.y * df.y;
+        }
       }
     }
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (half == 0) {
-      sDelta[r] = d;
-      if (q0 + r < T) delta[head * T + q0 + r] = d;
+      sDelta[wg * TILE + r] = d;
+      sLse[wg * TILE + r] = row_in ? lse[head * T + q0 + r] : 0.f;
+      if (row_in) delta[head * T + q0 + r] = d;
     }
+  }
+  if (wg == 0 && half == 0) {
+    sQseg[r] = row_in ? q_seg[q0 + r] : 0;
+    sQpos[r] = row_in ? q_pos[q0 + r] : 0;
   }
   __syncthreads();
 
-  // this thread's two q rows within the tile, and their metadata
+  // this thread's two q rows within the tile (their metadata is read from
+  // shared memory per tile, which keeps it out of the registers the
+  // products hold)
   const int r_lo = warp * 16 + gid, r_hi = r_lo + 8;
   const int t_lo = q0 + r_lo, t_hi = q0 + r_hi;
-  const bool in_lo = t_lo < T, in_hi = t_hi < T;
-  const int qseg_lo = in_lo ? q_seg[t_lo] : 0;
-  const int qseg_hi = in_hi ? q_seg[t_hi] : 0;
-  const int qpos_lo = in_lo ? q_pos[t_lo] : 0;
-  const int qpos_hi = in_hi ? q_pos[t_hi] : 0;
-  const float lse_lo = in_lo ? lse[head * T + t_lo] : 0.f;
-  const float lse_hi = in_hi ? lse[head * T + t_hi] : 0.f;
-  const float dl_lo = sDelta[r_lo], dl_hi = sDelta[r_hi];
+  const bool in_lo = active && t_lo < T, in_hi = active && t_hi < T;
+  const float* sLseW = sLse + wg * TILE;
+  const float* sDeltaW = sDelta + wg * TILE;
 
-  float acc[DK / 8][4];                   // dq / scale for rows lo, hi
+  // dq / scale for this warp's 16 q rows (wgmma accumulator layout)
+  float acc[DK / 2];
 #pragma unroll
-  for (int nt = 0; nt < DK / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
 
-  const int n_kv = (S + BK - 1) / BK;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();                      // previous tile fully consumed
-    load_tile<DK>(sK, kg, k0, S, BK);
-    load_tile<DV>(sV, vg, k0, S, BK);
-    if (threadIdx.x < BK) {
-      const int j = k0 + threadIdx.x;
-      sKseg[threadIdx.x] = j < S ? k_seg[j] : 0;
-      sKpos[threadIdx.x] = j < S ? k_pos[j] : 0;
-    }
-    __syncthreads();
+  int stage = 0;
+  while (kts[0] < n_kv) {
+    const int kt = kts[0];
+    cp_async_wait<DQ_NSTAGE - 2>();       // tile kt (and Q, dO) landed
+    fence_async_smem();
+    __syncthreads();                      // ... for every thread; and every
+                                          // thread is done with tile kt - 1
+    const int nxt = next_live(live, kts[DQ_NSTAGE - 2] + 1, n_kv);
+    if (nxt < n_kv) issue(nxt, (stage + DQ_NSTAGE - 1) % DQ_NSTAGE);
+    cp_async_commit();
 
-    // dp = dO V^T and s = Q K^T for this warp's 16 rows x 64 columns
-    float dp[BK / 8][4], s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sdO, VS, warp * 16 + gid, kk * 16, tig);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* vrow = sV + (nt * 8 + gid) * VS + kk * 16 + 2 * tig;
-        mma_bf16_16816(dp[nt], a, ld32(vrow), ld32(vrow + 8));
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < DK / 16; ++kk) {
-      uint32_t a[4];
-      load_a(a, sQ, QS, warp * 16 + gid, kk * 16, tig);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* krow = sK + (nt * 8 + gid) * QS + kk * 16 + 2 * tig;
-        mma_bf16_16816(s[nt], a, ld32(krow), ld32(krow + 8));
-      }
-    }
+    if (active) {                         // warpgroup-uniform
+      const uint32_t sK = sStage + stage * L::STAGE;
+      const uint32_t sV = sK + L::K;
+      const int* sKseg = reinterpret_cast<const int*>(
+          smem_raw + NW * L::HEAD + stage * L::STAGE + L::K + L::V);
+      const int* sKpos = sKseg + TILE;
 
-    // ds into s
+      // s = Q K^T and dp = dO V^T: this warp's 16 q rows x 64 kv columns
+      float s[32], dp[32];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        const bool hi = e >= 2;
-        const bool ok = visible(hi ? qseg_hi : qseg_lo, hi ? qpos_hi : qpos_lo,
-                                sKseg[col], sKpos[col], causal, window);
+      for (int kk = 0; kk < DK / 16; ++kk)
+        wgmma_ss_n64(s, desc_k<DK>(sQ, kk), desc_k<DK>(sK, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<DV>(sdO, kk), desc_k<DV>(sV, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
+
+      // ds into s (no element-wise mask on a full tile)
+      const bool whole = bit(full, kt);
+      const int qseg_lo = sQseg[r_lo], qseg_hi = sQseg[r_hi];
+      const int qpos_lo = sQpos[r_lo], qpos_hi = sQpos[r_hi];
+      const float lse_lo = sLseW[r_lo], lse_hi = sLseW[r_hi];
+      const float dl_lo = sDeltaW[r_lo], dl_hi = sDeltaW[r_hi];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = (i >> 2) * 8 + 2 * tig + (i & 1);
+        const bool hi = (i & 2) != 0;
+        const bool ok = whole || visible(hi ? qseg_hi : qseg_lo,
+                                         hi ? qpos_hi : qpos_lo, sKseg[col],
+                                         sKpos[col], causal, window);
         float p, ds;
-        pair_grad(s[nt][e], dp[nt][e], ok, hi ? lse_hi : lse_lo,
-                  hi ? dl_hi : dl_lo, scale, softcap, p, ds);
-        s[nt][e] = ds;
+        pair_grad(s[i], dp[i], ok, hi ? lse_hi : lse_lo, hi ? dl_hi : dl_lo,
+                  scale, softcap, p, ds);
+        s[i] = ds;
       }
-    }
+      uint32_t sh[4][4], sl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a_split(sh[kk], sl[kk], s, kk);
 
-    // dq += dS K: dS straight from registers as hi + lo A fragments
+      // dq += dS K: hi and lo fragments, K MN-major
+      reg_fence(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t ahi[4], alo[4];
-      frag_to_a(ahi, alo, s, kk);
-      const __nv_bfloat16* k0p = sK + (kk * 16 + 2 * tig) * QS + gid;
-#pragma unroll
-      for (int nt = 0; nt < DK / 8; ++nt) {
-        const __nv_bfloat16* kp = k0p + nt * 8;
-        const uint32_t b0 = pack_h2(kp[0], kp[QS]);
-        const uint32_t b1 = pack_h2(kp[8 * QS], kp[9 * QS]);
-        mma_bf16_16816(acc[nt], ahi, b0, b1);
-        mma_bf16_16816(acc[nt], alo, b0, b1);
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<DK>(acc, sh[kk], desc_mn<DK>(sK, kk), 1);
+        wgmma_rs<DK>(acc, sl[kk], desc_mn<DK>(sK, kk), 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
     }
+#pragma unroll
+    for (int j = 0; j < DQ_NSTAGE - 2; ++j) kts[j] = kts[j + 1];
+    kts[DQ_NSTAGE - 2] = nxt;
+    stage = (stage + 1) % DQ_NSTAGE;
   }
 
+  // epilogue: every row < T, scaled; a tile no key is visible to writes
+  // zeros (the wrapper's dq is uninitialised)
   __nv_bfloat16* dq_h = dq + head * T * DK;
 #pragma unroll
   for (int nt = 0; nt < DK / 8; ++nt) {
     const int c = nt * 8 + 2 * tig;
     if (in_lo)
       *reinterpret_cast<uint32_t*>(dq_h + (size_t)t_lo * DK + c) =
-          pack_f2(acc[nt][0] * scale, acc[nt][1] * scale);
+          pack_f2(acc[4 * nt] * scale, acc[4 * nt + 1] * scale);
     if (in_hi)
       *reinterpret_cast<uint32_t*>(dq_h + (size_t)t_hi * DK + c) =
-          pack_f2(acc[nt][2] * scale, acc[nt][3] * scale);
+          pack_f2(acc[4 * nt + 2] * scale, acc[4 * nt + 3] * scale);
   }
 }
 
@@ -570,16 +616,18 @@ struct Args {
 
 template <int DK, int DV>
 cudaError_t launch_dq(const Args& a) {
-  const size_t smem =
-      (size_t)(BQ * (DK + 8) + BQ * (DV + 8) + BK * (DK + 8) + BK * (DV + 8)) *
-          sizeof(__nv_bfloat16) +
-      2 * BK * sizeof(int) + BQ * sizeof(float);
-  auto kern = flash_bwd_dq_kernel<DK, DV>;
+  constexpr int NW = FLASH_DQ_NW;
+  const size_t smem = DqSmem<DK, DV, NW>::bytes((a.S + TILE - 1) / TILE);
+  auto kern = flash_bwd_dq_kernel<DK, DV, NW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + BQ - 1) / BQ, a.Hg, a.G);
-  kern<<<grid, NTHREADS, smem, a.stream>>>(
+  // heavy first puts the q tiles on z: at most 65535 (T up to 4M rows), a
+  // larger T fails the launch and the wrapper raises
+  const int n_q = (a.T + TILE - 1) / TILE, n_hb = (a.Hg + NW - 1) / NW;
+  const dim3 grid = FLASH_DQ_HEAVY_FIRST ? dim3(a.G, n_hb, n_q)
+                                         : dim3(n_q, n_hb, a.G);
+  kern<<<grid, 128 * NW, smem, a.stream>>>(
       FLASH_BWD_INPUTS(a), static_cast<const __nv_bfloat16*>(a.out),
       static_cast<const float*>(a.lse),
       static_cast<const __nv_bfloat16*>(a.dout),

@@ -211,15 +211,16 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [row0, row0 + 64) of a row-major [n, D] bf16 matrix into a core-layout
-// tile at shared address dst (rows >= n zero-filled).  Eight neighbouring
-// threads fill one core matrix, so the shared stores are conflict-free.
+// tile at shared address dst (rows >= n zero-filled), copied by threads
+// tid = 0 .. NTHREADS - 1.  Eight neighbouring threads fill one core matrix,
+// so the shared stores are conflict-free.
 template <int D, int NTHREADS>
 __device__ __forceinline__ void load_tile_async(uint32_t dst,
                                                 const __nv_bfloat16* src,
-                                                int row0, int n) {
+                                                int row0, int n, int tid) {
   constexpr int CH = D / 8;               // 16-byte chunks per row
 #pragma unroll
-  for (int i = threadIdx.x; i < TILE * CH; i += NTHREADS) {
+  for (int i = tid; i < TILE * CH; i += NTHREADS) {
     const int r8 = i & 7, rest = i >> 3;
     const int grp = rest / CH, c = rest % CH;
     const int r = row0 + grp * 8 + r8;
@@ -227,6 +228,21 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst,
     cp_async16(dst + grp * (16 * D) + c * 128 + r8 * 16,
                src + (size_t)(ok ? r : row0) * D + c * 8, ok);
   }
+}
+
+template <int D, int NTHREADS>
+__device__ __forceinline__ void load_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                int row0, int n) {
+  load_tile_async<D, NTHREADS>(dst, src, row0, n, threadIdx.x);
+}
+
+// threadIdx.x, read where it is used: the compiler cannot hoist the read
+// out of a loop, so addresses derived from it hold no register across it
+__device__ __forceinline__ int tid_here() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
 }
 
 // rows [row0, row0 + 64) of a 4-byte vector [n] into shared memory (rows >= n

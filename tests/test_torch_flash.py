@@ -159,12 +159,13 @@ def _layout(name, t):
     return seg, seg, pos, pos
 
 
-def _cuda_inputs(layout, t, dk, dv):
-    """On the card: random bf16 (q, k, v) and the carry-in of `_inputs`
-    with the metadata of `_inputs` ("random") or of `_layout`."""
+def _cuda_inputs(layout, t, dk, dv, hg=3):
+    """On the card: random bf16 (q, k, v) of G = 2 groups of ``hg`` heads
+    and the carry-in of `_inputs` with the metadata of `_inputs` ("random")
+    or of `_layout`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _, tt, carry, pad = _inputs(5, 2, 3, t, t, dk, dv, "bfloat16")
+    _, tt, carry, pad = _inputs(5, 2, hg, t, t, dk, dv, "bfloat16")
     if layout != "random":
         meta = _layout(layout, t)
         tt = tt[:3] + [torch.tensor(x) for x in meta]

@@ -229,14 +229,14 @@ def test_fused_softmax_xent_grad_is_the_bwd_kernel():
 # on the card: each new kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _cuda_bwd_case(t, dk, dv, layout, window, softcap):
+def _cuda_bwd_case(t, dk, dv, layout, window, softcap, hg=3):
     """On the card, metadata as in `test_torch_flash._cuda_inputs`: (out,
     lse) from the plain forward (the Pallas kernel needs T to be a multiple
     of its tile)."""
-    tt, _, pad = _cuda_inputs(layout, t, dk, dv)
+    tt, _, pad = _cuda_inputs(layout, t, dk, dv, hg)
     kw = dict(scale=dk ** -0.5, causal=True, window=window, softcap=softcap)
     out, lse = FA.flash_attention_fwd_plain(*tt, **kw)
-    do = torch.tensor(np.random.RandomState(6).randn(2, 3, t, dv),
+    do = torch.tensor(np.random.RandomState(6).randn(2, hg, t, dv),
                       dtype=torch.bfloat16, device="cuda")
     tt = tt + [out, lse, do]
     return tt, kw, pad, FA.flash_attention_bwd_plain(*tt, **kw)
@@ -257,6 +257,8 @@ CUDA_BWD_CASES = [  # t, dk, dv, layout, window, softcap
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,dk,dv,layout,window,softcap", CUDA_BWD_CASES)
 def test_cuda_flash_bwd_dq_matches_plain(t, dk, dv, layout, window, softcap):
+    """Against the plain version; padding rows exactly 0; a second run
+    gives bit-identical dq and delta (no atomics)."""
     tt, kw, pad, want = _cuda_bwd_case(t, dk, dv, layout, window, softcap)
     n0 = FA.flash_attention_bwd_dq.launches
     dq, delta = FA.flash_attention_bwd_dq(*tt, **kw)
@@ -267,6 +269,47 @@ def test_cuda_flash_bwd_dq_matches_plain(t, dk, dv, layout, window, softcap):
     assert (dq[:, :, pad] == 0).all()
     torch.testing.assert_close(delta, FA._delta(tt[7], tt[9]), atol=1e-4,
                                rtol=1e-4)
+    again = FA.flash_attention_bwd_dq(*tt, **kw)
+    assert torch.equal(again[0], dq) and torch.equal(again[1], delta)
+
+
+# Hg = 1 and Hg = 4: a dq block holds fewer heads than it has warpgroups
+CUDA_DQ_HEAD_CASES = [  # hg, t, dk, dv, layout
+    (1, 1000, 128, 128, "random"), (4, 512, 128, 64, "random"),
+    (4, 1000, 64, 64, "offedge"), (1, 512, 32, 32, "padtiles")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hg,t,dk,dv,layout", CUDA_DQ_HEAD_CASES)
+def test_cuda_flash_bwd_head_counts_match_plain(hg, t, dk, dv, layout):
+    """dq, delta and then dkv from that delta against the plain version
+    where the heads of a group do not fill the dq kernel's last block."""
+    tt, kw, pad, want = _cuda_bwd_case(t, dk, dv, layout, 0, 0.0, hg)
+    dq, delta = FA.flash_attention_bwd_dq(*tt, **kw)
+    dk_, dv_ = FA.flash_attention_bwd_dkv(*tt, delta, **kw)
+    for got, w in zip((dq, dk_, dv_), want):
+        torch.testing.assert_close(got.float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert _rel_l2(got, w) <= 2e-2
+    assert (dq[:, :, pad] == 0).all()
+    torch.testing.assert_close(delta, FA._delta(tt[7], tt[9]), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_dq_writes_every_row():
+    """dq comes from an uninitialised allocation: with a NaN-filled block
+    of its size freed just before the call, the padding-only q tile (rows
+    128-191 of "padtiles") and every padding row still come out exactly
+    0, and nothing is left NaN."""
+    tt, kw, pad, want = _cuda_bwd_case(512, 128, 128, "padtiles", 0, 0.0)
+    poison = torch.full_like(tt[0], float("nan"))
+    del poison
+    dq, _ = FA.flash_attention_bwd_dq(*tt, **kw)
+    assert not dq.isnan().any()
+    assert (dq[:, :, 128:192] == 0).all() and (dq[:, :, pad] == 0).all()
+    torch.testing.assert_close(dq.float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.cuda
