@@ -10,7 +10,8 @@ Phases (any failure raises and exits non-zero before the result line):
 2. build   — compiles every CUDA kernel of the port from the checkout's
    sources (flash_fwd, flash_bwd, fused_ce: one nvcc per source, all
    started together) and prints ptxas' registers and spills per kernel;
-   fails if any instantiation of the dq kernel spills.
+   fails unless the report holds all nine instantiations of the dq
+   kernel (Dk, Dv in 32, 64, 128) and none of them spills.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card.  Flash forward: the slice's shape [8,3,4096,128] bf16 with packed
    segments (3000/900/120), padding rows and a non-zero carry-in; the
@@ -159,9 +160,14 @@ def phase_device(torch) -> str:
 # 2. build
 # ---------------------------------------------------------------------------
 
+DQ_KERNELS = {f"flash_bwd_dq_kernel<{dk},{dv}>"
+              for dk in (32, 64, 128) for dv in (32, 64, 128)}
+
+
 def phase_build() -> dict:
     """-> {kernel<template args>: (registers, spill stores, spill loads)};
-    raises if an instantiation of the dq kernel spills."""
+    raises if an instantiation of the dq kernel is missing from the report
+    or spills."""
     from repro_torch.kernels import build
     names = sorted({Path(src).stem for _, src, _, _, _ in KERNELS})
     t0 = time.perf_counter()
@@ -173,8 +179,10 @@ def phase_build() -> dict:
             log(f"[build] {name}: {kern} registers {regs} spill stores "
                 f"{st} B, spill loads {ld} B")
             report[kern] = (regs, st, ld)
-    spills = {k: r for k, r in report.items()
-              if k.startswith("flash_bwd_dq_kernel<") and (r[1] or r[2])}
+    missing = DQ_KERNELS - set(report)
+    if missing:
+        raise AssertionError(f"no ptxas report for {sorted(missing)}")
+    spills = {k: report[k] for k in DQ_KERNELS if report[k][1] or report[k][2]}
     if spills:
         raise AssertionError(f"the dq kernel spills: {spills}")
     return report
@@ -355,11 +363,8 @@ def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
 
 def ptxas_of(ptxas, kernel, dk, dv) -> dict:
     """Registers and spill bytes of the instantiation of ``kernel`` for
-    (dk, dv) in the build report."""
-    hits = [r for k, r in ptxas.items() if k.startswith(f"{kernel}<{dk},{dv}")]
-    if len(hits) != 1:
-        return {}
-    regs, st, ld = hits[0]
+    (dk, dv) in the build report; raises if the report lacks it."""
+    regs, st, ld = ptxas[f"{kernel}<{dk},{dv}>"]
     return {"registers": regs, "spill_bytes": st + ld}
 
 

@@ -2,17 +2,15 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library under ``<checkout>/build/kernels/``, named by a hash of
-the source, every header under ``csrc/``, the flags and any ``-D``
-defines, so an edited source or header rebuilds and an unchanged one is
-reused.  The port builds every source without defines; a source's
-compile-time settings (``FLASH_DQ_*`` in ``flash_bwd.cu``) are overridden
-only to time alternatives (``launch/bench_dq.py``).  The kernels
+the source, every header under ``csrc/`` and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  The kernels
 use no CUTLASS or CuTe headers (wgmma, cp.async and the descriptors are
 written as inline PTX), so no include path beyond ``csrc/`` is needed.
 The build happens at first use, inside the process that launches the
 kernel; nothing is built when a module is imported.
 `build_all` starts one ``nvcc`` per source at once and waits for all;
-`call` launches one entry point on the caller's stream.
+`call` launches one entry point on the caller's stream; `ptxas_report`
+reads a build's registers and spills.
 """
 from __future__ import annotations
 
@@ -34,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: Dict[tuple, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -45,34 +43,27 @@ def _nvcc() -> str:
     return path
 
 
-def _flags(defines: Sequence[str]) -> list:
-    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-
-
-def _target(name: str, defines: Sequence[str] = ()) -> Path:
+def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(_flags(defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str],
-              defines: Sequence[str] = ()) -> Dict[str, Path]:
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every named source whose library is missing, one ``nvcc``
-    process each, all started together, each with ``-D`` of every entry of
-    ``defines`` ("NAME=value").  Returns {name: library path}.  Raises
-    RuntimeError with the compiler's output if a build fails."""
+    process each, all started together.  Returns {name: library path}.
+    Raises RuntimeError with the compiler's output if a build fails."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n, defines) for n in names}
+    targets = {n: _target(n) for n in names}
     procs = {}
     for n, so in targets.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
-               str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, so)
@@ -89,33 +80,30 @@ def build_all(names: Iterable[str],
     return targets
 
 
-def build_log(name: str, defines: Sequence[str] = ()) -> str:
+def build_log(name: str) -> str:
     """The compiler's output (ptxas register/shared-memory report) of the
     library `load` uses for ``name``, or "" if it was built elsewhere."""
-    log = _target(name, defines).with_suffix(".log")
+    log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` built with ``defines``,
-    building it first if needed (once per process)."""
-    key = (name, tuple(defines))
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first if
+    needed (once per process)."""
     with _lock:
-        lib = _loaded.get(key)
+        lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all([name], defines)[name]))
-            _loaded[key] = lib
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            _loaded[name] = lib
         return lib
 
 
-def call(name: str, symbol: str, args: Sequence, device,
-         defines: Sequence[str] = ()) -> None:
-    """Call ``symbol`` of ``csrc/<name>.cu`` (built with ``defines``) on
-    the current stream of ``device``.  Tensors pass as pointers, None as a
-    null pointer, Python floats as C floats and ints as C ints; the stream
-    goes last.  Raises RuntimeError on a non-zero cudaError (a refused
-    launch never runs)."""
-    fn = getattr(load(name, defines), symbol)
+def call(name: str, symbol: str, args: Sequence, device) -> None:
+    """Call ``symbol`` of ``csrc/<name>.cu`` on the current stream of
+    ``device``.  Tensors pass as pointers, None as a null pointer, Python
+    floats as C floats and ints as C ints; the stream goes last.  Raises
+    RuntimeError on a non-zero cudaError (a refused launch never runs)."""
+    fn = getattr(load(name), symbol)
     fn.argtypes = [ctypes.c_float if isinstance(a, float)
                    else ctypes.c_int if isinstance(a, int)
                    else ctypes.c_void_p for a in args] + [ctypes.c_void_p]

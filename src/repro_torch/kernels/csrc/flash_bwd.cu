@@ -4,7 +4,7 @@
 //
 //   flash_bwd_dq_kernel   replaces repro/kernels/flash_attention.py::
 //                         _bwd_dq_kernel (inside flash_attention_bwd): one
-//                         block per (g, 64-row q tile, NW heads of the
+//                         block per (g, 64-row q tile, 3 heads of the
 //                         group) loops over the live KV tiles and keeps dq
 //                         in registers; dq = scale * sum_k ds * k.  It also
 //                         writes delta = rowsum(do * out) [G, Hg, T] fp32,
@@ -33,26 +33,24 @@
 // and skip the element-wise mask on tiles `tile_full` proves visible whole.
 // Tiles sit in shared memory in the core-matrix layout, and every product
 // is a wgmma.
-//  * dq: NW warpgroups (FLASH_DQ_NW) share one 64-row q tile, each for one
+//  * dq: three warpgroups (DQ_NW) share one 64-row q tile, each for one
 //    head of the group, so the block's one bitmask of live KV tiles serves
-//    every head and each K/V tile it loads serves NW heads.  K, V, k_seg and
-//    k_pos come in through a cp.async ring (FLASH_DQ_NSTAGE stages: the
-//    next live tile loads while this one is in use); Q and dO of each head
-//    load once, with the first stage, while the block computes delta.  Per
-//    live tile and head: S = Q K^T and dP = dO V^T (m64n64k16, both
-//    operands in shared memory); ds in registers; dQ += dS K (m64n{Dk}k16,
-//    dS as hi + lo register A fragments, K read MN-major from the tile S
-//    used).  dq
-//    stays in registers (64 floats a thread at Dk = 128).  A warpgroup whose
-//    head is past Hg skips the products and stores but reaches every
-//    barrier.  With FLASH_DQ_HEAVY_FIRST the blocks of the last q tiles,
-//    which see the most KV tiles under a causal mask, start first.  On an
-//    H100 three heads a block beat two and one, two stages beat three, and
-//    the heavy tiles first beat the grid's order (launch/bench_dq.py,
-//    PERF.md).  The per-row metadata sits in shared memory and the copies
-//    are split evenly over 256 threads that compute their addresses at
-//    each copy, which keeps three warpgroups within 168 registers a thread
-//    without a spill.
+//    every head and each K/V tile it loads serves three heads.  K, V, k_seg
+//    and k_pos come in through a two-stage cp.async ring (the next live
+//    tile loads while this one is in use); Q and dO of each head load
+//    once, with the first stage, while the block computes delta.  Per live
+//    tile and head: S = Q K^T and dP = dO V^T (m64n64k16, both operands in
+//    shared memory); ds in registers; dQ += dS K (m64n{Dk}k16, dS as hi +
+//    lo register A fragments, K read MN-major from the tile S used).  dq
+//    stays in registers (64 floats a thread at Dk = 128).  A warpgroup
+//    whose head is past Hg skips the products and stores but reaches every
+//    barrier.  The blocks of the last q tiles, which see the most KV tiles
+//    under a causal mask, start first.  On an H100 three heads a block beat
+//    two and one, two stages beat three, and the heavy tiles first beat the
+//    grid's natural order (PERF.md).  The per-row metadata sits in shared
+//    memory and the copies are split evenly over 256 threads that compute
+//    their addresses at each copy, which keeps three warpgroups within 168
+//    registers a thread without a spill.
 //  * dkv: one warpgroup (128 threads) owns 64 KV rows and keeps a bitmask
 //    of the live q tiles; the (head, q tile) steps of dead tiles are
 //    skipped.  K and V load once, as wgmma A operands in shared memory.
@@ -83,26 +81,13 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (repro_torch/kernels/build.py); plain C entry
-// points, loaded with ctypes, launched on the caller's stream.  The dq
-// kernel's FLASH_DQ_* settings may be overridden with -D, as
-// repro_torch/launch/bench_dq.py does to time the alternatives; the
-// defaults are the fastest it measured.
+// points, loaded with ctypes, launched on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "flash_tiles.cuh"
-
-#ifndef FLASH_DQ_NW
-#define FLASH_DQ_NW 3                     // heads (warpgroups) per dq block
-#endif
-#ifndef FLASH_DQ_NSTAGE
-#define FLASH_DQ_NSTAGE 2                 // dq's K/V ring depth
-#endif
-#ifndef FLASH_DQ_HEAVY_FIRST
-#define FLASH_DQ_HEAVY_FIRST 1            // last q tiles start first
-#endif
 
 namespace {
 
@@ -136,14 +121,15 @@ __device__ __forceinline__ void pair_grad(float raw, float dp, bool ok,
 // dq
 // ---------------------------------------------------------------------------
 
-constexpr int DQ_NSTAGE = FLASH_DQ_NSTAGE;
-static_assert(DQ_NSTAGE >= 2, "the ring holds this tile and the next");
+constexpr int DQ_NW = 3;                  // heads (warpgroups) per block
+constexpr int DQ_NT = 128 * DQ_NW;        // threads per block
+constexpr int DQ_NSTAGE = 2;              // K/V ring depth
 
 // shared memory of the dq kernel: per warpgroup its Q and dO tiles, then
 // DQ_NSTAGE x (K tile, V tile, k_seg, k_pos), per warpgroup the delta and
 // lse of its 64 rows, the q tile's q_seg and q_pos, then the live-tile and
 // full-tile bitmasks
-template <int DK, int DV, int NW>
+template <int DK, int DV>
 struct DqSmem {
   static constexpr int Q = TILE * DK * 2;
   static constexpr int DO = TILE * DV * 2;
@@ -151,15 +137,15 @@ struct DqSmem {
   static constexpr int K = TILE * DK * 2;
   static constexpr int V = TILE * DV * 2;
   static constexpr int STAGE = K + V + 2 * TILE * 4;
-  static constexpr int ROWS = NW * HEAD + DQ_NSTAGE * STAGE;
-  static constexpr int MASK = ROWS + (2 * NW + 2) * TILE * 4;
+  static constexpr int ROWS = DQ_NW * HEAD + DQ_NSTAGE * STAGE;
+  static constexpr int MASK = ROWS + (2 * DQ_NW + 2) * TILE * 4;
   static size_t bytes(int n_tiles) {
     return MASK + (size_t)((n_tiles + 31) / 32) * 8;
   }
 };
 
-template <int DK, int DV, int NW>
-__global__ void __launch_bounds__(128 * NW, 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(DQ_NT, 1)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -173,31 +159,26 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ dq,
                     float* __restrict__ delta, int Hg, int T, int S,
                     float scale, int causal, int window, float softcap) {
-  constexpr int NT = 128 * NW;
-  using L = DqSmem<DK, DV, NW>;
+  using L = DqSmem<DK, DV>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int n_kv = (S + TILE - 1) / TILE;
   const int words = (n_kv + 31) / 32;
   uint32_t* live = reinterpret_cast<uint32_t*>(smem_raw + L::MASK);
   const uint32_t* full = live + words;
   float* sDelta = reinterpret_cast<float*>(smem_raw + L::ROWS);
-  float* sLse = sDelta + NW * TILE;
-  int* sQseg = reinterpret_cast<int*>(sLse + NW * TILE);
+  float* sLse = sDelta + DQ_NW * TILE;
+  int* sQseg = reinterpret_cast<int*>(sLse + DQ_NW * TILE);
   int* sQpos = sQseg + TILE;
   const uint32_t base = smem_u32(smem_raw);
-  const uint32_t sStage = base + NW * L::HEAD;
+  const uint32_t sStage = base + DQ_NW * L::HEAD;
 
   // (q tile, head block, g) of this block: blocks start in the order of
   // their linear index, so with the grid (G, head blocks, q tiles) the last
   // q tiles go first
-#if FLASH_DQ_HEAVY_FIRST
   const int g = blockIdx.x, hb = blockIdx.y, qt = gridDim.z - 1 - blockIdx.z;
-#else
-  const int g = blockIdx.z, hb = blockIdx.y, qt = blockIdx.x;
-#endif
   const int q0 = qt * TILE;
   const int wg = threadIdx.x >> 7;        // this warpgroup's head
-  const int h = hb * NW + wg;
+  const int h = hb * DQ_NW + wg;
   const bool active = h < Hg;             // warpgroup-uniform
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -210,13 +191,13 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   // the KV tiles any query of this q tile can see (the same for every
   // head), and those all its queries see whole
   const TileMeta mine = warp_tile_meta(q_seg, q_pos, T, qt, lane);
-  build_live_masks<NT, 1>(live, words, n_kv, k_seg, k_pos, S, &mine, true,
-                          causal, window);
+  build_live_masks<DQ_NT, 1>(live, words, n_kv, k_seg, k_pos, S, &mine,
+                             true, causal, window);
 
   // K and V are copied by the first NLOAD threads, which split every tile
   // evenly, from a thread index read at each copy: the copy's addresses
   // hold no registers across the products
-  constexpr int NLOAD = NT < 256 ? NT : 256;
+  constexpr int NLOAD = 256;
   auto issue = [&](int kt, int stage) {
     const uint32_t st = sStage + stage * L::STAGE;
     const int tid = tid_here();
@@ -233,12 +214,13 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   kts[0] = next_live(live, 0, n_kv);
   if (kts[0] < n_kv) {                    // Q, dO and the first tile
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const int hw = hb * NW + w;
+    for (int w = 0; w < DQ_NW; ++w) {
+      const int hw = hb * DQ_NW + w;
       if (hw < Hg) {
         const size_t hd = (size_t)g * Hg + hw;
-        load_tile_async<DK, NT>(base + w * L::HEAD, q + hd * T * DK, q0, T);
-        load_tile_async<DV, NT>(base + w * L::HEAD + L::Q,
+        load_tile_async<DK, DQ_NT>(base + w * L::HEAD, q + hd * T * DK, q0,
+                                   T);
+        load_tile_async<DV, DQ_NT>(base + w * L::HEAD + L::Q,
                                 dout + hd * T * DV, q0, T);
       }
     }
@@ -317,7 +299,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       const uint32_t sK = sStage + stage * L::STAGE;
       const uint32_t sV = sK + L::K;
       const int* sKseg = reinterpret_cast<const int*>(
-          smem_raw + NW * L::HEAD + stage * L::STAGE + L::K + L::V);
+          smem_raw + DQ_NW * L::HEAD + stage * L::STAGE + L::K + L::V);
       const int* sKpos = sKseg + TILE;
 
       // s = Q K^T and dp = dO V^T: this warp's 16 q rows x 64 kv columns
@@ -616,18 +598,17 @@ struct Args {
 
 template <int DK, int DV>
 cudaError_t launch_dq(const Args& a) {
-  constexpr int NW = FLASH_DQ_NW;
-  const size_t smem = DqSmem<DK, DV, NW>::bytes((a.S + TILE - 1) / TILE);
-  auto kern = flash_bwd_dq_kernel<DK, DV, NW>;
+  const size_t smem = DqSmem<DK, DV>::bytes((a.S + TILE - 1) / TILE);
+  auto kern = flash_bwd_dq_kernel<DK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // heavy first puts the q tiles on z: at most 65535 (T up to 4M rows), a
-  // larger T fails the launch and the wrapper raises
-  const int n_q = (a.T + TILE - 1) / TILE, n_hb = (a.Hg + NW - 1) / NW;
-  const dim3 grid = FLASH_DQ_HEAVY_FIRST ? dim3(a.G, n_hb, n_q)
-                                         : dim3(n_q, n_hb, a.G);
-  kern<<<grid, 128 * NW, smem, a.stream>>>(
+  // the q tiles go on z, which starts the last ones first: at most 65535
+  // (T up to 4M rows), a larger T fails the launch and the wrapper raises
+  const int n_q = (a.T + TILE - 1) / TILE;
+  const int n_hb = (a.Hg + DQ_NW - 1) / DQ_NW;
+  const dim3 grid(a.G, n_hb, n_q);
+  kern<<<grid, DQ_NT, smem, a.stream>>>(
       FLASH_BWD_INPUTS(a), static_cast<const __nv_bfloat16*>(a.out),
       static_cast<const float*>(a.lse),
       static_cast<const __nv_bfloat16*>(a.dout),
