@@ -50,9 +50,28 @@ Phases (any failure raises and exits non-zero before the result line):
    float32 plain route (weights upcast, attn_impl="ref", plain CE), loss
    within 1e-2 relative and every gradient leaf within 5e-2 relative L2,
    with the bf16 plain route's errors printed beside them.
-6. report  — one JSON line of every kernel (launches on the path that runs
-   it: serve for the forward kernels, train for the rest; errors, times,
-   bounds), then the result line.
+6. ring    — the HDP ring at hdp = 4 on the one card through
+   `ThreadRanks(4)` (four ranks as threads, the one-device stand-in for
+   a process group).  The waves are step 1 of the port's planner at hdp =
+   4 (github, context 16384, 65536 tokens a step, capacity 4096, balance):
+   its (4,), (2, 2) and (1, 2, 1) waves and the (1, 1, 1, 1) control, 4096
+   tokens a rank.  For each, q/kv/do in bf16 at llama3.2-3b's attention
+   widths (24 q heads, 8 kv heads, head_dim 128) from a seeded generator
+   go through the forward and backward ring (direct calls, no autograd);
+   out, dq, dk and dv are held (2e-2 element-wise and relative L2) to the
+   single-rank flash route over each group's concatenated slices; carry,
+   dq and dkv launches equal the sum over ranks of 1 + the visiting blocks
+   `_block_relevant` keeps, and the ring's own per-rank table equals that
+   count (the helpers of `repro_torch.launch.ring_check`, which runs the
+   same checks over NCCL on several cards).  Prints the ring's ms beside
+   the single-rank ms of the same groups and the card.  Then llama3.2-3b
+   at full width and depth (seed 0): the forward loss of the (2, 2) wave
+   at hdp = 4 (each rank its slice, shares summed) within 1e-2 relative
+   of the hdp = 1 forward of the same tokens, with 28 x (1 + live
+   visiting blocks) carry launches.
+7. report  — one JSON line of every kernel (launches on the paths that
+   run it: serve for the forward kernels, train for the rest, plus the
+   ring's; errors, times, bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -81,6 +100,8 @@ PROMPT_LENS = [3000, 1800, 900, 400, 200, 120, 64, 33]
 NEW_TOKENS = 16
 SLICE_LENS = [3000, 900, 120]   # a packed wave of the slices + padding
 DEVICE = "cuda"
+RING_HDP = 4                    # phase 6: ranks (threads on the one card)
+RING_KERNELS = ("flash_fwd_carry", "flash_bwd_dq", "flash_bwd_dkv")
 
 CSRC = "src/repro_torch/kernels/csrc"
 # every TPU kernel's counterpart: (name, source, replaced Pallas kernel,
@@ -822,10 +843,134 @@ def phase_train(torch):
 
 
 # ---------------------------------------------------------------------------
-# 6. report
+# 6. ring
 # ---------------------------------------------------------------------------
 
-def kernels_line(cases, serve_launches, train_launches):
+def ring_case(torch, RC, card, comp, lw, seed):
+    """The forward and backward ring at llama3.2-3b's attention widths
+    through ThreadRanks(4), direct calls, against the single-rank flash
+    route over each group's concatenated slices."""
+    from repro_torch.parallel.comm import ThreadRanks
+    x = RC.ring_inputs(lw, seed, DEVICE)
+    want_live = RC.expected_launches(comp, lw.batch["seg"], lw.batch["pos"])
+    zero_counts()
+    got = ThreadRanks(RING_HDP).run(lambda c: RC.rank_ring(c, comp, x))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    table = [g[3] for g in got]
+    if table != want_live:
+        raise AssertionError(f"{comp}: the ring's live steps per rank "
+                             f"{table}, the Python count {want_live}")
+    for name in RING_KERNELS:
+        if launches[name] != sum(want_live):
+            raise AssertionError(f"{comp}: {name} launched "
+                                 f"{launches[name]} times, want "
+                                 f"{sum(want_live)} ({want_live} per rank)")
+    if any(launches[n] for n in launches if n not in RING_KERNELS):
+        raise AssertionError(f"{comp}: the ring launched {launches}")
+
+    def single_rank():
+        return {(st, g): RC.group_reference(comp, x, st, g)
+                for st, g in {(st, g) for _, st, g in RC.groups(comp)}}
+
+    errs = {}
+    refs = single_rank()
+    for r, start, g in RC.groups(comp):
+        held = RC.hold_rank(f"{comp} rank {r}", got[r], refs[(start, g)],
+                            r - start)
+        for key, (err, rl2) in held.items():
+            e = errs.setdefault(key, [0.0, 0.0])
+            e[0], e[1] = max(e[0], err), max(e[1], rl2)
+    del refs
+    res = {"composition": list(comp), "live_per_rank": want_live,
+           "launches": {n: launches[n] for n in RING_KERNELS},
+           "ring_ms": time_ms(torch, lambda: ThreadRanks(RING_HDP).run(
+               lambda c: RC.rank_ring(c, comp, x)), 3),
+           "single_rank_ms": time_ms(torch, single_rank, 3),
+           **{f"{k}_max_abs_err": v[0] for k, v in errs.items()},
+           **{f"{k}_rel_l2": v[1] for k, v in errs.items()}}
+    log(f"[ring] {card}: {fmt(res)}")
+    return launches
+
+
+def ring_model(torch, RC, cfg, waves, denom):
+    """Full width and depth, random weights from seed 0: the forward loss
+    of the (2, 2) wave at hdp = 4 through ThreadRanks(4) (each rank its
+    slice; the shares summed) against the hdp = 1 forward of the same
+    tokens, under no_grad; carry launches gated per layer."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.comm import ThreadRanks
+    from repro_torch.parallel.sharding import Runtime
+    comp = (2, 2)
+    lw = waves[comp]
+    batch = {k: torch.tensor(v, device=DEVICE) for k, v in lw.batch.items()}
+    den = torch.tensor(float(denom), device=DEVICE)
+    params = init_params(cfg, seed=0, device=DEVICE)
+    c = RC.RING_CAP
+
+    def rank_fn(comm):
+        rt = Runtime(device=DEVICE, comm=comm, composition=comp)
+        return RC.model_loss(params, cfg, rt, batch,
+                             slice(comm.rank * c, (comm.rank + 1) * c), den)
+
+    live = RC.expected_launches(comp, lw.batch["seg"], lw.batch["pos"])
+    zero_counts()
+    t0 = time.perf_counter()
+    shares = ThreadRanks(RING_HDP).run(rank_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = cfg.num_layers * sum(live)
+    if launches["flash_fwd_carry"] != want \
+            or launches["fused_ce_fwd"] != RING_HDP:
+        raise AssertionError(f"model ring: launches {launches}, want "
+                             f"{want} carry ({cfg.num_layers} layers x "
+                             f"{live}) and {RING_HDP} CE forward")
+    loss1 = RC.model_loss(params, cfg, Runtime(device=DEVICE), batch,
+                          slice(None), den)
+    total = sum(shares)
+    rel = abs(total - loss1) / abs(loss1)
+    res = {"composition": list(comp), "loss_shares": shares,
+           "loss_hdp4": total, "loss_hdp1": loss1, "rel_err": rel,
+           "carry_launches": launches["flash_fwd_carry"],
+           "wall_s_hdp4": wall}
+    log(f"[ring] model {cfg.name} {cfg.num_layers} layers: {fmt(res)}")
+    if not rel <= RC.LOSS_TOL:
+        raise AssertionError(f"hdp=4 loss {total} vs hdp=1 {loss1}: "
+                             f"relative error {rel}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ring(torch, card):
+    """-> launches of the ring path, summed over its runs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import ring_check as RC
+    cfg = get_config("llama3.2-3b")
+    waves, denom, comps = RC.planner_waves(cfg, RING_HDP)
+    log(f"[ring] planner step 1 at hdp={RING_HDP}: waves {comps}")
+    missing = set(RC.RING_COMPS) - set(waves)
+    if missing:
+        raise AssertionError(f"planner step 1 has no wave of {missing}")
+    totals = {name: 0 for name, *_ in KERNELS}
+    runs = [ring_case(torch, RC, card, comp, waves[comp], seed=10 + i)
+            for i, comp in enumerate(RC.RING_COMPS)]
+    runs.append(ring_model(torch, RC, cfg, waves, denom))
+    for counts in runs:
+        for name, n in counts.items():
+            totals[name] += n
+    log(f"[ring] launches {json.dumps(totals)}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# 7. report
+# ---------------------------------------------------------------------------
+
+def kernels_line(cases, serve_launches, train_launches, ring_launches):
+    """Launches: the serve path for the forward kernels, the train path for
+    the rest, plus the ring path's."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -835,7 +980,8 @@ def kernels_line(cases, serve_launches, train_launches):
             else train_launches
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + ring_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -853,7 +999,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
-    phase_device(torch)
+    card = phase_device(torch)
     ptxas = phase_build()
     cases = phase_kernels(torch, ptxas)
     log(f"[kernels] done at {time.perf_counter() - t0:.1f} s")
@@ -861,7 +1007,10 @@ def main() -> int:
     log(f"[serve] done at {time.perf_counter() - t0:.1f} s")
     train_launches = phase_train(torch)
     log(f"[train] done at {time.perf_counter() - t0:.1f} s")
-    log(json.dumps(kernels_line(cases, serve_launches, train_launches)))
+    ring_launches = phase_ring(torch, card)
+    log(f"[ring] done at {time.perf_counter() - t0:.1f} s")
+    log(json.dumps(kernels_line(cases, serve_launches, train_launches,
+                                ring_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,34 @@
-"""HDP dist-attention on one device: singleton compositions and decode.
+"""HDP dist-attention: subgroup ring attention over the ranks of a
+process group, and decode.
 
-Port of `repro/core/ring.py` for the serving slice.  A composition
-``(1, ..., 1)`` means every rank attends locally with zero collective
-traffic; on one device the composition is ``(1,)``.  Rings over groups
-larger than one come with the ``torch.distributed`` slice and raise
-`NotImplementedError` here.
+Port of `repro/core/ring.py`.  A composition ``(g1, g2, ...)`` summing to
+the HDP size describes disjoint contiguous rank groups; each group of size
+g runs a g-step ring in which the KV blocks of its ranks visit every rank
+of the group, and singleton groups attend locally with zero collective
+traffic.  The ranks are a `repro_torch.parallel.comm.HdpComm` (the
+reference's ``(mesh, hdp_axes)`` with ``ppermute``); ``comm=None`` is one
+rank, where every composition is ``(1,)``.
 
 `_block_meta` and `_block_relevant` are copies of the reference's ring
 block predicate (can any query of one block see any key of another, from
-their segment and position ranges); the flash kernels apply the same rule
-per 64-row tile (`kernels/csrc/flash_tiles.cuh`), and `tile_liveness`
-states it per tile in Python.
+their segment and position ranges).  The reference gates each ring step
+with it under ``lax.cond`` on the carried metadata; here `ring_liveness`
+all-gathers every rank's metadata once per ring call and decides every
+rank's steps on the host, so no step waits on the device.  The flash
+kernels apply the same rule per 64-row tile (`kernels/csrc/flash_tiles.cuh`),
+and `tile_liveness` states it per tile in Python.
 
 ``attn_impl`` selects the compute backend: ``"ref"`` runs the plain
-oracle (`core/attention.py`'s chunked stats, differentiated by autograd);
-``"flash"`` runs the ring-flash engine (`kernels/ring_flash.py` behind
+oracle ring (`core/attention.py`'s chunked stats merged step by step,
+differentiated by autograd through `_RingShift`); ``"flash"`` runs the
+ring-flash engine (`kernels/ring_flash.py` behind
 `kernels/ops.make_ring_flash`), whose carry kernel is the CUDA flash
 kernel on a CUDA device and its plain version on the CPU, and whose
-gradient runs the flash backward kernels.
+gradient runs the flash backward kernels in a reverse ring.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -30,11 +37,44 @@ from repro_torch.core import attention as att
 ATTN_IMPLS = ("ref", "flash")
 
 
-def _check_composition(composition: Tuple[int, ...]) -> None:
-    if max(composition) > 1:
-        raise NotImplementedError(
-            f"composition {tuple(composition)}: ring groups larger than one "
-            f"need the torch.distributed ring, a later slice of the port")
+# ---------------------------------------------------------------------------
+# compositions
+# ---------------------------------------------------------------------------
+
+def uniform_composition(hdp_size: int, group: int) -> Tuple[int, ...]:
+    assert hdp_size % group == 0, (hdp_size, group)
+    return (group,) * (hdp_size // group)
+
+
+def composition_tables(composition: Sequence[int]):
+    """Per-rank (group_size, group_start) arrays for a composition."""
+    sizes, starts = [], []
+    start = 0
+    for g in composition:
+        sizes += [g] * g
+        starts += [start] * g
+        start += g
+    return (torch.tensor(sizes, dtype=torch.int32),
+            torch.tensor(starts, dtype=torch.int32))
+
+
+def ring_perm(composition: Sequence[int]) -> list:
+    """Union of intra-group rings; singleton groups send nothing."""
+    perm = []
+    start = 0
+    for g in composition:
+        if g > 1:
+            for j in range(g):
+                perm.append((start + j, start + (j + 1) % g))
+        start += g
+    return perm
+
+
+def check_composition(composition: Sequence[int], size: int) -> None:
+    """A composition must cover the HDP ranks exactly."""
+    if not composition or min(composition) < 1 or sum(composition) != size:
+        raise ValueError(f"composition {tuple(composition)} does not sum to "
+                         f"the {size} HDP rank(s)")
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +122,105 @@ def tile_liveness(q_seg, k_seg, q_pos, k_pos, *, causal: bool = True,
                            window=window)
 
 
+def ring_liveness(comm, composition: Sequence[int], q_seg, q_pos, k_seg,
+                  k_pos, *, causal: bool, window: int,
+                  block_skip: bool = True) -> torch.Tensor:
+    """[size, steps + 1] bool on the host: whether rank r computes ring
+    step s.  At step s rank r (j-th of a group of g starting at rank
+    ``start``) holds the KV block of rank ``start + (j - s) mod g``; the
+    step is live when s < g and, under ``block_skip``, `_block_relevant`
+    holds for r's queries and that block — the reference's ``lax.cond``
+    gate, identical in the forward and the backward.  Step 0 (the local
+    block) is always live.  One ``all_gather`` of the eight metadata ints
+    of every rank and one host fetch per call; none when there is no
+    visiting block to judge."""
+    size = sum(composition)
+    steps = max(composition) - 1
+    sizes, starts = (x.tolist() for x in composition_tables(composition))
+    metas = None
+    if steps and block_skip:
+        meta = torch.cat([_block_meta(q_seg, q_pos),
+                          _block_meta(k_seg, k_pos)])
+        metas = (meta[None] if comm is None
+                 else comm.all_gather(meta)).tolist()
+    live = torch.zeros((size, steps + 1), dtype=torch.bool)
+    for r in range(size):
+        g, start = sizes[r], starts[r]
+        live[r, 0] = True
+        for s in range(1, g):
+            owner = start + (r - start - s) % g
+            live[r, s] = metas is None or bool(_block_relevant(
+                metas[r][:4], metas[owner][4:], causal=causal,
+                window=window))
+    return live
+
+
+class _RingShift(torch.autograd.Function):
+    """One rotation of the oracle ring's carried block, differentiable:
+    ``ppermute``'s transpose (the inverse permutation) carries the block's
+    gradient back.  The running stats pass through unchanged so that every
+    rank's backward reaches every rotation in the same order, whether or
+    not the rank used the block it received (a rank whose step is dead
+    would otherwise skip a collective the other ranks wait in)."""
+
+    @staticmethod
+    def forward(ctx, comm, perm, acc, m, l, kv, seg, pos):
+        ctx.comm, ctx.perm = comm, perm
+        kv_b, seg_b, pos_b = comm.ppermute([kv, seg, pos], perm)
+        ctx.mark_non_differentiable(seg_b, pos_b)
+        return acc, m, l, kv_b, seg_b, pos_b
+
+    @staticmethod
+    def backward(ctx, d_acc, d_m, d_l, d_kv, d_seg, d_pos):
+        inverse = [(b, a) for a, b in ctx.perm]
+        (d_kv,) = ctx.comm.ppermute([d_kv], inverse)
+        return None, None, d_acc, d_m, d_l, d_kv, None, None
+
+
+def _ring_attention_local(q, kv, q_seg, k_seg, q_pos, k_pos, *, comm,
+                          composition: Tuple[int, ...],
+                          kv_split: Tuple[int, int, int],    # (dk, v_off, dv)
+                          kv_group_index,       # [hpl] int64 or None
+                          scale: float, causal: bool, window: int,
+                          softcap: float, kv_chunk: int, block_skip: bool):
+    """Per-rank oracle ring.  Local shapes: q [C, hpl, D]; kv [C, G, Dk+Dv]
+    fused (or [C, G, Dk] when v is a slice of k)."""
+    dk, v_off, dv = kv_split
+    c = q.shape[0]
+    if kv_group_index is not None:
+        # replicated KV: gather the kv head for each local q head -> Hg=1
+        kq = q[:, :, None, :]                                # [C, hpl, 1, D]
+        gather = lambda a: a.index_select(1, kv_group_index)  # noqa: E731
+    else:
+        g_local = kv.shape[1]
+        kq = q.reshape(c, g_local, q.shape[1] // g_local, q.shape[2])
+        gather = lambda a: a                                  # noqa: E731
+
+    def compute_block(kv_blk, seg_blk, pos_blk):
+        k_blk, v_blk = kv_blk[..., :dk], kv_blk[..., v_off:v_off + dv]
+        return att.block_chunked_stats(
+            kq, gather(k_blk), gather(v_blk), q_seg, seg_blk, q_pos, pos_blk,
+            scale=scale, causal=causal, window=window, softcap=softcap,
+            kv_chunk=kv_chunk)
+
+    # step 0: the local block (always relevant: it holds our own diagonal)
+    stats = compute_block(kv, k_seg, k_pos)
+    steps = max(composition) - 1
+    if steps:
+        live = ring_liveness(comm, composition, q_seg, q_pos, k_seg, k_pos,
+                             causal=causal, window=window,
+                             block_skip=block_skip)[comm.rank]
+        perm = ring_perm(composition)
+        blk = (kv, k_seg, k_pos)
+        for s in range(1, steps + 1):
+            *stats, kv_b, seg_b, pos_b = _RingShift.apply(comm, perm, *stats,
+                                                         *blk)
+            blk = (kv_b, seg_b, pos_b)
+            if live[s]:
+                stats = att.merge_stats(stats, compute_block(*blk))
+    return att.finalize_stats(*stats, q.dtype).reshape(c, -1, dv)
+
+
 def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
                    composition: Tuple[int, ...], kv_sharded: bool,
                    kv_group_of_head=None, scale: float, causal: bool = True,
@@ -89,17 +228,19 @@ def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
                    kv_chunk: int = 1024, block_skip: bool = True,
                    attn_impl: str = "flash",
                    v_in_k: Optional[Tuple[int, int]] = None,
-                   block_q: int = 64, block_k: int = 64):
-    """q [T, h, D]; k [T, G, Dk], v [T, G, Dv]; metadata [T] int32
-    -> out [T, h, Dv].
+                   block_q: int = 64, block_k: int = 64, comm=None):
+    """This rank's slice: q [C, h, D]; k [C, G, Dk], v [C, G, Dv]; metadata
+    [C] int32 -> out [C, h, Dv].
 
-    ``kv_group_of_head`` (replicated KV) gathers the kv head of each q
-    head; otherwise q heads group as [G, h/G].  ``v_in_k=(offset, dv)``
-    declares v a slice of k.  ``block_skip`` prunes visiting ring blocks
-    and has nothing to prune with a singleton composition.
+    ``comm`` holds the HDP ranks (`parallel.comm.HdpComm`; None is one
+    rank) and ``composition`` must sum to its size; every rank calls with
+    the same composition and shapes.  ``kv_group_of_head`` (replicated KV)
+    gathers the kv head of each q head; otherwise q heads group as
+    [G, h/G].  ``v_in_k=(offset, dv)`` declares v a slice of k, and the
+    ring then carries only k.  ``block_skip`` prunes visiting ring blocks
+    that no local query can see.
     """
-    del block_skip
-    _check_composition(composition)
+    check_composition(composition, 1 if comm is None else comm.size)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
     use_group_gather = (not kv_sharded) and (kv_group_of_head is not None)
@@ -110,7 +251,7 @@ def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
     else:
         kv = torch.cat([k, v], dim=-1)
         kv_split = (k.shape[-1], k.shape[-1], v.shape[-1])
-    dk, v_off, dv = kv_split
+    kgi = kv_group_of_head if use_group_gather else None
 
     if attn_impl == "flash":
         # lazy import: the kernel modules import this package's attention
@@ -119,24 +260,14 @@ def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
         cfg = RingConfig(composition=tuple(composition), kv_split=kv_split,
                          gather=use_group_gather, scale=scale, causal=causal,
                          window=window, softcap=softcap, block_q=block_q,
-                         block_k=block_k)
-        kgi = kv_group_of_head if use_group_gather else None
+                         block_k=block_k, block_skip=block_skip)
         return kernel_ops.make_ring_flash(cfg)(q, kv, q_seg, k_seg, q_pos,
-                                               k_pos, kgi)
-
-    c = q.shape[0]
-    k_blk, v_blk = kv[..., :dk], kv[..., v_off:v_off + dv]
-    if use_group_gather:
-        kq = q[:, :, None, :]                                # [C, h, 1, D]
-        k_blk = k_blk.index_select(1, kv_group_of_head)
-        v_blk = v_blk.index_select(1, kv_group_of_head)
-    else:
-        g = kv.shape[1]
-        kq = q.reshape(c, g, q.shape[1] // g, q.shape[2])    # [C, G, Hg, D]
-    stats = att.block_chunked_stats(
-        kq, k_blk, v_blk, q_seg, k_seg, q_pos, k_pos, scale=scale,
-        causal=causal, window=window, softcap=softcap, kv_chunk=kv_chunk)
-    return att.finalize_stats(*stats, q.dtype).reshape(c, -1, dv)
+                                               k_pos, kgi, comm)
+    return _ring_attention_local(
+        q, kv, q_seg, k_seg, q_pos, k_pos, comm=comm,
+        composition=tuple(composition), kv_split=kv_split,
+        kv_group_index=kgi, scale=scale, causal=causal, window=window,
+        softcap=softcap, kv_chunk=kv_chunk, block_skip=block_skip)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float,

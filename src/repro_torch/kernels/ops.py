@@ -16,29 +16,31 @@ from repro_torch.kernels import ring_flash as RF
 
 class _RingFlash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, q, kv, q_seg, k_seg, q_pos, k_pos, kgi):
+    def forward(ctx, cfg, comm, q, kv, q_seg, k_seg, q_pos, k_pos, kgi):
         out, res = RF.ring_flash_fwd(cfg, q, kv, q_seg, k_seg, q_pos, k_pos,
-                                     kgi)
-        ctx.cfg = cfg
+                                     kgi, comm)
+        ctx.cfg, ctx.comm = cfg, comm
         ctx.save_for_backward(*res)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        dq, dkv = RF.ring_flash_bwd(ctx.cfg, ctx.saved_tensors, do)
-        return None, dq, dkv, None, None, None, None, None
+        dq, dkv = RF.ring_flash_bwd(ctx.cfg, ctx.saved_tensors, do, ctx.comm)
+        return None, None, dq, dkv, None, None, None, None, None
 
 
 @functools.lru_cache(maxsize=None)
 def make_ring_flash(cfg: RF.RingConfig):
     """The differentiable ring-flash call for one static ring
     configuration: ``fn(q [C, hpl, D], kv [C, G, Dk(+Dv)], q_seg, k_seg,
-    q_pos, k_pos, kgi) -> out [C, hpl, Dv]``.  Its backward runs
-    `ring_flash_bwd` (the flash backward kernels) on the saved (out, lse)
-    residuals."""
+    q_pos, k_pos, kgi, comm=None) -> out [C, hpl, Dv]``.  ``comm`` (the HDP
+    ranks, `parallel.comm.HdpComm`) travels beside the hashable config, not
+    in the cache key.  The backward runs `ring_flash_bwd` (the reverse ring
+    of the flash backward kernels) on the saved (out, lse) residuals."""
 
-    def ring_flash(q, kv, q_seg, k_seg, q_pos, k_pos, kgi):
-        return _RingFlash.apply(cfg, q, kv, q_seg, k_seg, q_pos, k_pos, kgi)
+    def ring_flash(q, kv, q_seg, k_seg, q_pos, k_pos, kgi, comm=None):
+        return _RingFlash.apply(cfg, comm, q, kv, q_seg, k_seg, q_pos, k_pos,
+                                kgi)
 
     return ring_flash
 

@@ -156,7 +156,7 @@ def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
         scale=dk ** -0.5, window=window, softcap=cfg.attn_softcap,
         kv_chunk=rt.kv_chunk, block_skip=rt.block_skip,
         attn_impl=rt.attn_impl, block_q=rt.attn_block_q,
-        block_k=rt.attn_block_k)
+        block_k=rt.attn_block_k, comm=rt.comm)
     if layout.pad_heads:
         out = out * layout.head_mask(x.device)[None, :, None].to(out.dtype)
     return out.reshape(t, -1) @ bp["w_o"]
@@ -261,7 +261,11 @@ def _index(tree, i: int):
 def forward_hidden(params, cfg: ModelConfig, rt: Runtime,
                    batch) -> torch.Tensor:
     """batch: {"tokens" [T], "seg" [T], "pos" [T]} (int32 tensors on the
-    runtime's device) -> final hidden [T, d]."""
+    runtime's device) -> final hidden [T, d].  Over several HDP ranks
+    (``rt.comm``) every rank calls it on its own slice of the wave, rows
+    [r·C, (r+1)·C) of `data.loader.WaveMaterializer`'s buffers, and the
+    attention rings exchange KV blocks within each group of
+    ``rt.composition``."""
     x = embed_frontend(params, cfg, rt, batch)
     x = apply_periods(params["blocks"], cfg, rt, x, batch["seg"],
                       batch["pos"])

@@ -1,10 +1,12 @@
 """The port's runtime: what model code needs to know about placement.
 
-Port of `repro/parallel/sharding.py::Runtime` for one device: there is no
-mesh, tensor parallelism is 1 and the HDP axis has one rank, so every
-composition is ``(1,)``.  The device defaults to ``cuda``; without a GPU
-the caller must ask for ``device="cpu"`` explicitly — a runtime never
-falls back to the CPU on its own.
+Port of `repro/parallel/sharding.py::Runtime`: there is no mesh and
+tensor parallelism is 1.  The HDP ranks are ``comm`` (a
+`parallel.comm.HdpComm`, the reference's ``(mesh, hdp_axes)``); ``None``
+is one rank, where every composition is ``(1,)``.  A composition must sum
+to the HDP size; left out, it is all singletons.  The device defaults to
+``cuda``; without a GPU the caller must ask for ``device="cpu"``
+explicitly — a runtime never falls back to the CPU on its own.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.ring import ATTN_IMPLS
+from repro_torch.core.ring import ATTN_IMPLS, check_composition
 from repro_torch.models.layers import gqa_layout
+from repro_torch.parallel.comm import HdpComm
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -36,7 +39,7 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
 @dataclass(frozen=True)
 class Runtime:
     device: Optional[Union[str, torch.device]] = None
-    composition: Tuple[int, ...] = (1,)
+    composition: Optional[Tuple[int, ...]] = None   # None: all singletons
     attn_impl: str = "flash"          # flash (the kernel; its plain version
                                       # on the CPU) | ref (plain oracle)
     attn_block_q: int = 64            # flash kernel tile rows
@@ -46,9 +49,14 @@ class Runtime:
     remat: str = "full"               # none | full: recompute each layer
                                       # period in the backward
                                       # (torch.utils.checkpoint)
+    comm: Optional[HdpComm] = None    # the HDP ranks; None: one rank
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
+        comp = (1,) * self.hdp_size if self.composition is None \
+            else tuple(self.composition)
+        check_composition(comp, self.hdp_size)
+        object.__setattr__(self, "composition", comp)
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{ATTN_IMPLS}")
@@ -65,9 +73,11 @@ class Runtime:
 
     @property
     def hdp_size(self) -> int:
-        return 1
+        return 1 if self.comm is None else self.comm.size
 
     def with_composition(self, comp: Tuple[int, ...]) -> "Runtime":
+        """The same runtime running ``comp`` (raises unless it sums to
+        the HDP size)."""
         return dataclasses.replace(self, composition=tuple(comp))
 
     def layout(self, cfg: ModelConfig):

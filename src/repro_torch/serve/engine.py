@@ -80,6 +80,10 @@ class ServeEngine:
         is present and none was asked for."""
         check_supported(cfg)
         rt = Runtime(device=device) if rt is None else rt
+        if rt.hdp_size > 1:
+            raise NotImplementedError(
+                "serving over several HDP ranks comes with ROADMAP queue 1 "
+                "item 10")
         scfg = ServeConfig() if scfg is None else scfg
         if params["embed"].device != rt.device:
             raise ValueError(f"parameters live on {params['embed'].device}, "

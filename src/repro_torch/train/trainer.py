@@ -84,6 +84,10 @@ class Trainer:
                 "offload execution comes with ROADMAP queue 1 item 4")
         self.cfg = cfg
         self.rt = rt if rt is not None else Runtime()
+        if self.rt.hdp_size > 1:
+            raise NotImplementedError(
+                "the multi-rank trainer (each rank its slice of every wave, "
+                "gradients all-reduced) comes with ROADMAP queue 1 item 3")
         self.opt_cfg = opt_cfg
         self.sched = scheduler
         self.tcfg = tcfg

@@ -145,10 +145,12 @@ def test_make_ring_flash_is_cached_and_needs_no_grad():
         out = ops.make_ring_flash(cfg)(torch.tensor(q), kv, *meta, None)
     want, _ = RF.ring_flash_fwd(cfg, torch.tensor(q), kv, *meta, None)
     torch.testing.assert_close(out, want, atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        RF.ring_flash_bwd(RF.RingConfig(composition=(2,),
+    # one rank (no comm): a ring group of two has no second rank
+    with pytest.raises(ValueError, match="does not sum"):
+        RF.ring_flash_fwd(RF.RingConfig(composition=(2,),
                                         kv_split=(16, 16, 16), gather=False,
-                                        scale=0.25), (None,) * 9, None)
+                                        scale=0.25), torch.tensor(q), kv,
+                          *meta, None)
 
 
 def _ce_inputs(t, v, dtype, seed):
