@@ -39,7 +39,9 @@ Phases (any failure raises and exits non-zero before the result line):
    float32 teacher-forced forward (rms within 0.08: element-wise, bf16
    noise at this depth and vocabulary reaches 0.1); then the same width
    cut to 2 layers, every request held element-wise to its teacher-forced
-   forward at test_serve's atol = rtol = 0.08.
+   forward at test_serve's atol = rtol = 0.08, and its greedy tokens to
+   that forward's argmax (`tests/test_serve.py`) but where its top-two
+   logits are within 0.08 (a near-tie, printed).
 5. train   — llama3.2-3b at full width and depth in bf16 through
    `Trainer.train_step`: github lengths, 16384 tokens per step, context
    and wave capacity 4096, strategy balance, AdamW lr 3e-4 without warmup,
@@ -69,9 +71,34 @@ Phases (any failure raises and exits non-zero before the result line):
    at hdp = 4 (each rank its slice, shares summed) within 1e-2 relative
    of the hdp = 1 forward of the same tokens, with 28 x (1 + live
    visiting blocks) carry launches.
-7. report  — one JSON line of every kernel (launches on the paths that
+7. hdp_train — the multi-rank `Trainer` under ZeRO-1 at hdp = 4:
+   llama3.2-3b at full width cut to 2 layers (random weights from seed
+   0), the planner's hdp = 4 steps 0 and 1 (as phase 6: github, context
+   16384, 65536 tokens a step, capacity 4096, balance; step 1 holds the
+   (4,), (1, 1, 1, 1), (2, 2) and (1, 2, 1) waves), calibration off.  Four
+   processes share the card (rank 0 is this one): NCCL refuses two ranks
+   on one GPU and threads cannot exchange inside an autograd backward,
+   so the ranks form a gloo group through
+   `parallel/comm.py::HostStagedComm`; every kernel runs on the card and
+   only the bytes between ranks cross host memory, so the phase's times
+   measure no card-to-card transfer.  Fails unless the card's compute
+   mode is Default.  Rank 0 also runs the hdp = 1 route over each global
+   wave from the same parameters: each wave's loss (summed over the
+   ranks) and the grad norm within 1e-2 relative of it, the step-1
+   reduced gradients within 5e-2 relative L2 per leaf; the ZeRO-1 apply
+   against the unsharded apply on those same gradients (fp32 master, m
+   and v within 1e-6; bf16 parameters within one ulp, or within 1e-6 for
+   values under 2.4e-4, whose ulp is finer than the masters' hold and
+   where the clip factor's last bit, summed from shards, shows); every
+   rank's
+   parameters equal to rank 0's after each step; per rank exactly layers
+   x (1 + its live visiting blocks) carry launches in the forward and as
+   many in the remat recompute, as many dq and dkv, one CE each way, per
+   wave; applied == 1.  Prints per-rank peak memory and step wall.
+8. report  — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
-   ring's; errors, times, bounds), then the result line.
+   ring's and the hdp = 4 trainer's; errors, times, bounds), then the
+   result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -96,6 +123,10 @@ TOL = 2e-2                      # bf16, tests/test_kernels.py
 SERVE_TOL = 0.08                # tests/test_serve.py
 TRAIN_LOSS_TOL = 1e-2           # 2-layer kernel route vs float32 plain
 TRAIN_GRAD_TOL = 5e-2           # per gradient leaf, relative L2
+APPLY_TOL = 1e-6                # ZeRO-1 vs unsharded apply: fp32 state; a
+                                # bf16 parameter within one ulp, or this
+                                # much where one ulp is finer (the masters'
+                                # own hold admits more there)
 PROMPT_LENS = [3000, 1800, 900, 400, 200, 120, 64, 33]
 NEW_TOKENS = 16
 SLICE_LENS = [3000, 900, 120]   # a packed wave of the slices + padding
@@ -684,6 +715,7 @@ def phase_serve(torch):
     params2 = init_params(cfg2, seed=0, device="cuda")
     eng2, reqs2, launches2, _ = serve_pool(torch, cfg2, params2, rt)
     err2 = 0.0
+    near_ties = 0
     for r in reqs2:
         ref2 = teacher_forced(torch, params2, cfg2, rt, r)
         got2 = np.stack(r.logits)
@@ -691,7 +723,24 @@ def phase_serve(torch):
         if not np.allclose(got2, ref2, atol=SERVE_TOL, rtol=SERVE_TOL):
             raise AssertionError(f"2-layer request {r.rid}: engine vs "
                                  f"teacher-forced logits differ by {err2}")
+        # greedy tokens: the teacher-forced argmax (tests/test_serve.py),
+        # but for near-ties that the logit hold above already covers
+        for j, (tok, want) in enumerate(zip(r.generated, ref2.argmax(-1))):
+            if tok == want:
+                continue
+            top2 = np.sort(ref2[j])[-2:]
+            gap = float(top2[1] - top2[0])
+            log(f"[serve] 2-layer request {r.rid} position {j}: engine "
+                f"token {tok}, teacher-forced argmax {int(want)}, top-two "
+                f"gap {gap}")
+            if not gap < SERVE_TOL:
+                raise AssertionError(
+                    f"2-layer request {r.rid} position {j}: greedy token "
+                    f"{tok} is not the teacher-forced argmax {int(want)} "
+                    f"and the top-two gap {gap} is no near-tie")
+            near_ties += 1
     res["layers2_max_abs_err"] = err2
+    res["layers2_token_near_ties"] = near_ties
     res["layers2_carry_launches"] = launches2["flash_fwd_carry"]
     log(f"[serve] {fmt(res)}")
     return launches
@@ -965,12 +1014,352 @@ def phase_ring(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 7. report
+# 7. hdp_train
 # ---------------------------------------------------------------------------
 
-def kernels_line(cases, serve_launches, train_launches, ring_launches):
+HDP_LAYERS = 2                  # phase 7: llama3.2-3b's width, 2 layers
+HDP_STEPS = 2
+HDP_TOKENS, HDP_CONTEXT = 65536, 16384   # a step, as phase 6's planner
+HDP_COMPS = [(4,), (1, 1, 1, 1), (2, 2), (1, 2, 1)]   # step 1 holds them
+HDP_TIMEOUT_S = 240             # a rank left waiting in a collective fails
+
+
+def hdp_rank(rank: int, store: str):
+    """One rank of phase 7, a process of its own on the one card (rank 0
+    is this script's process, the others are spawned): a gloo group
+    through `HostStagedComm`.  Returns rank 0's results."""
+    import datetime
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import HostStagedComm
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", world_size=RING_HDP,
+        rank=rank, timeout=datetime.timedelta(seconds=HDP_TIMEOUT_S))
+    try:
+        return hdp_train_rank(torch, HostStagedComm())
+    finally:
+        dist.destroy_process_group()
+
+
+def set_counts(counts: dict) -> None:
+    for name, w in wrappers().items():
+        w.launches = counts[name]
+
+
+def hdp_reference(torch, tr, plan, step):
+    """The hdp = 1 route (one rank, composition (1,), the same kernels)
+    over every global wave of ``plan`` from the trainer's current
+    parameters -> (wave losses, fp32 gradient sum, grad norm).  Its
+    launches are not the path's: the counts are put back."""
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train import train_step as TS
+    saved = read_counts()
+    rt1 = Runtime(device=DEVICE)
+    grad_step, _ = TS.make_accum_steps(tr.cfg, rt1, tr.opt_cfg)
+    acc = TS.zeros_accum(tr.params)
+    losses = []
+    for wave in plan.waves:
+        lw = tr.loader.materialize(step, wave)
+        batch = {k: torch.tensor(v, device=DEVICE)
+                 for k, v in lw.batch.items()}
+        batch["denom"] = torch.tensor(float(plan.denom), device=DEVICE)
+        acc, m = grad_step(tr.params, acc, batch, rt1)
+        losses.append(m["loss"].item())
+    gnorm = global_norm(acc).item()
+    set_counts(saved)
+    return losses, acc, gnorm
+
+
+def bf16_ulp(torch, x):
+    """One bf16 unit in the last place at the magnitude of ``x``."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def hdp_train_rank(torch, comm):
+    """Phase 7 on one rank: the port's `Trainer` at hdp = 4 under ZeRO-1,
+    2 steps; on rank 0 every step also runs the hdp = 1 route over the same
+    global waves (`hdp_reference`).  At step 1 the reduced gradients are
+    held to the reference's and the ZeRO-1 apply to the unsharded apply on
+    those same gradients.  Returns rank 0's numbers (None elsewhere)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    from repro_torch.launch import ring_check as RC
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel import zero1
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, tree_map
+
+    rank, hdp = comm.rank, comm.size
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=HDP_LAYERS)
+    ds = SyntheticDataset("github", cfg.vocab_size,
+                          tokens_per_step=HDP_TOKENS, context=HDP_CONTEXT)
+    sched = GlobalScheduler(ds, cfg, capacity=RC.RING_CAP, hdp=hdp,
+                            strategy="balance", use_offload=False)
+    plans = []
+    plan_step = sched.plan_step
+
+    def recorded(step):
+        plans.append(plan_step(step))
+        return plans[-1]
+    sched.plan_step = recorded
+    opt = AdamWConfig(lr=3e-4, warmup_steps=0)
+    tr = Trainer(cfg, Runtime(device=DEVICE, comm=comm), opt, sched,
+                 TrainerConfig(capacity=RC.RING_CAP, calibrate=False),
+                 seed=0)
+    held = {"ref_wave_losses": [], "ref_grad_norm": [], "grad_rel_l2": [],
+            "apply_bf16_over_hold": 0, "apply_bf16_past_one_ulp": 0,
+            "apply_bf16_past_one_ulp_max_abs": 0.0,
+            "apply_state_max_err": 0.0}
+
+    def gather_full(x, shape):
+        """A fresh whole copy of leaf ``x`` (this rank's shard of a leaf of
+        ``shape``, or the whole of a replicated one) on every rank."""
+        dim = zero1.zero1_dim(shape, hdp)
+        if dim is None:
+            return x.clone()
+        whole = torch.empty(shape, dtype=x.dtype, device=x.device)
+        zero1.gather_leaf(whole, x, dim, comm)
+        return whole
+
+    def apply_step(params, state, acc):
+        step = tr.step
+        if rank == 0:
+            losses, ref_acc, gnorm = hdp_reference(torch, tr, plans[-1],
+                                                   step)
+            held["ref_wave_losses"].append(losses)
+            held["ref_grad_norm"].append(gnorm)
+            torch.cuda.empty_cache()
+        grads = TS.reduce_grads(acc, comm)
+        if step != 1:
+            return TS.apply_reduced(params, state, grads, opt, comm=comm,
+                                    guard=True)
+        # step 1: the reduced gradients, the state and the params before
+        # the apply, gathered whole; rank 0 keeps them for the unsharded
+        # apply and holds the gradients to the reference's
+        full = {"grads": [], "master": [], "m": [], "v": []}
+        for i, p in enumerate(leaves(params)):
+            g = gather_full(leaves(grads)[i], p.shape)
+            if rank == 0:
+                held["grad_rel_l2"].append(rel_l2(g, leaves(ref_acc)[i]))
+                full["grads"].append(g)
+            for k in ("master", "m", "v"):
+                x = gather_full(leaves(state[k])[i], p.shape)
+                if rank == 0:
+                    full[k].append(x)
+        before = tree_map(lambda p: p.clone(), params) if rank == 0 \
+            else None
+        if rank == 0:
+            del ref_acc
+        out = TS.apply_reduced(params, state, grads, opt, comm=comm,
+                               guard=True)
+        if rank == 0:
+            def tree(xs):
+                it = iter(xs)
+                return tree_map(lambda _: next(it), params)
+            state1 = {"step": state["step"] - 1,
+                      **{k: tree(full[k]) for k in ("master", "m", "v")}}
+            TS.apply_reduced(before, state1, tree(full["grads"]), opt,
+                             guard=True)
+        for i, p in enumerate(leaves(params)):
+            if rank == 0:
+                want = leaves(before)[i].float()
+                diff = (p.float() - want).abs()
+                ulp = bf16_ulp(torch, want)
+                held["apply_bf16_over_hold"] += int(
+                    (diff > torch.clamp(ulp, min=APPLY_TOL)).sum())
+                past = diff > ulp
+                if bool(past.any()):
+                    held["apply_bf16_past_one_ulp"] += int(past.sum())
+                    held["apply_bf16_past_one_ulp_max_abs"] = max(
+                        held["apply_bf16_past_one_ulp_max_abs"],
+                        float(want[past].abs().max()))
+            for k in ("master", "m", "v"):
+                x = gather_full(leaves(state[k])[i], p.shape)
+                if rank == 0:
+                    want = leaves(state1[k])[i]
+                    if not torch.allclose(x, want, atol=APPLY_TOL,
+                                          rtol=APPLY_TOL):
+                        held["apply_state_max_err"] = max(
+                            held["apply_state_max_err"],
+                            float((x - want).abs().max()))
+        del before, full
+        torch.cuda.empty_cache()
+        return out
+
+    tr.apply_step = apply_step
+
+    def same_as_rank0() -> float:
+        same = True
+        for p in leaves(tr.params):
+            b = p.clone()
+            comm.broadcast(b)
+            same &= torch.equal(b, p)
+        return float(same)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    recs, wave_losses, same, applied = [], [], [], []
+    try:
+        for _ in range(HDP_STEPS):
+            recs.append(tr.train_step())
+            wave_losses.append(list(tr.last_numerics["wave_losses"]))
+            applied.append(tr.last_numerics["applied"])
+            same.append(same_as_rank0())
+    finally:
+        sched.stop()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    names = [n for n, *_ in KERNELS]
+    mine = [counts[n] for n in names] + [
+        torch.cuda.max_memory_allocated() / 1e9] + \
+        [r["wall_s"] for r in recs] + same + applied
+    got = comm.all_gather(torch.tensor(
+        mine, dtype=torch.float64, device=DEVICE)).cpu().numpy()
+    if rank != 0:
+        return None
+
+    # what each rank must have launched: per wave, layers x (1 + its live
+    # visiting blocks) carry launches in the forward and as many again in
+    # the remat recompute, layers x that dq and dkv, one CE each way
+    want = {n: [0] * hdp for n in names}
+    for step, plan in enumerate(plans):
+        for wave in plan.waves:
+            lw = tr.loader.materialize(step, wave)
+            live = RC.expected_launches(
+                tuple(wave.composition), lw.batch["seg"], lw.batch["pos"],
+                c=RC.RING_CAP * wave.c_mult)
+            for r in range(hdp):
+                n = cfg.num_layers * live[r]
+                for name, add in (("flash_fwd_carry", 2 * n),
+                                  ("flash_bwd_dq", n), ("flash_bwd_dkv", n),
+                                  ("fused_ce_fwd", 1), ("fused_ce_bwd", 1)):
+                    want[name][r] += add
+    k, s = len(names), HDP_STEPS
+    return {
+        "model": f"{cfg.name}, {cfg.num_layers} layers",
+        "compositions": [[list(w.composition) for w in plan.waves]
+                         for plan in plans],
+        "wave_losses": wave_losses, "ref_wave_losses":
+        held["ref_wave_losses"],
+        "grad_norms": [r["grad_norm"] for r in recs],
+        "ref_grad_norms": held["ref_grad_norm"],
+        "tokens_per_step": [r["tokens"] for r in recs],
+        "grad_rel_l2_max_step1": max(held["grad_rel_l2"]),
+        "apply_bf16_elements_over_hold": held["apply_bf16_over_hold"],
+        "apply_bf16_elements_past_one_ulp": held["apply_bf16_past_one_ulp"],
+        "apply_bf16_past_one_ulp_max_abs_value":
+        held["apply_bf16_past_one_ulp_max_abs"],
+        "apply_state_max_err_over_1e-6": held["apply_state_max_err"],
+        "launches_per_rank": {n: got[:, i].astype(int).tolist()
+                              for i, n in enumerate(names)},
+        "want_launches_per_rank": want,
+        "peak_mem_gb_per_rank": got[:, k].tolist(),
+        "step_wall_s_per_rank": got[:, k + 1:k + 1 + s].tolist(),
+        "params_same_as_rank0": got[:, k + 1 + s:k + 1 + 2 * s].tolist(),
+        "applied": got[:, k + 1 + 2 * s:].tolist()}
+
+
+def hdp_gates(res) -> list:
+    """Phase 7's gates on rank 0's numbers -> what failed."""
+    import numpy as np
+    fails = []
+    comps = {tuple(c) for c in res["compositions"][1]}
+    if not set(HDP_COMPS) <= comps:
+        fails.append(f"step 1 waves {res['compositions'][1]} lack "
+                     f"{set(HDP_COMPS) - comps}")
+    for step in range(HDP_STEPS):
+        got, want = res["wave_losses"][step], res["ref_wave_losses"][step]
+        rel = np.abs(np.subtract(got, want)) / np.abs(want)
+        if not (len(got) == len(want) and np.all(rel <= TRAIN_LOSS_TOL)):
+            fails.append(f"step {step} wave losses {got} vs hdp=1 {want}")
+        g, w = res["grad_norms"][step], res["ref_grad_norms"][step]
+        if not abs(g - w) <= TRAIN_LOSS_TOL * abs(w):
+            fails.append(f"step {step} grad norm {g} vs hdp=1 {w}")
+    if not res["grad_rel_l2_max_step1"] <= TRAIN_GRAD_TOL:
+        fails.append(f"step-1 reduced gradients: relative L2 up to "
+                     f"{res['grad_rel_l2_max_step1']} against hdp=1")
+    if res["apply_bf16_elements_over_hold"] or \
+            res["apply_state_max_err_over_1e-6"]:
+        fails.append("the ZeRO-1 apply differs from the unsharded apply")
+    if res["launches_per_rank"]["flash_fwd"] != [0] * RING_HDP:
+        fails.append("the training path launched the finalising forward")
+    for name, want in res["want_launches_per_rank"].items():
+        if res["launches_per_rank"][name] != want:
+            fails.append(f"{name} launches per rank "
+                         f"{res['launches_per_rank'][name]}, want {want}")
+    if np.any(np.asarray(res["params_same_as_rank0"]) != 1):
+        fails.append("a rank's parameters differ from rank 0's")
+    if np.any(np.asarray(res["applied"]) != 1):
+        fails.append(f"applied {res['applied']}")
+    return fails
+
+
+def phase_hdp_train(torch, card):
+    """Phase 7: 4 processes share the card, rank 0 this one.  -> launches
+    summed over the ranks."""
+    import tempfile
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    if mode.splitlines()[0].strip() != "Default":
+        raise AssertionError(f"compute mode {mode!r}: the four rank "
+                             f"processes cannot share the card")
+    mp = torch.multiprocessing.get_context("spawn")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        store = str(Path(tmp) / "store")
+        procs = [mp.Process(target=hdp_rank, args=(r, store), daemon=True)
+                 for r in range(1, RING_HDP)]
+        for pr in procs:
+            pr.start()
+        try:
+            res = hdp_rank(0, store)
+            for pr in procs:
+                pr.join(HDP_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+        codes = [pr.exitcode for pr in procs]
+        if codes != [0] * len(procs):
+            raise AssertionError(f"phase 7 rank exit codes {codes}")
+    wall = time.perf_counter() - t0
+    log(f"[hdp_train] {card}: 4 rank processes share this card (gloo "
+        f"through host memory): the times below measure no card-to-card "
+        f"transfer. {json.dumps({k: res[k] for k in ('peak_mem_gb_per_rank', 'step_wall_s_per_rank')})} "
+        f"phase wall {wall:.1f} s")
+    log(f"[hdp_train] {json.dumps(res)}")
+
+    fails = hdp_gates(res)
+    if fails:
+        raise AssertionError("phase 7: " + "; ".join(fails))
+    return {name: int(sum(v)) for name, v in
+            res["launches_per_rank"].items()}
+
+
+# ---------------------------------------------------------------------------
+# 8. report
+# ---------------------------------------------------------------------------
+
+def kernels_line(cases, serve_launches, train_launches, ring_launches,
+                 hdp_launches):
     """Launches: the serve path for the forward kernels, the train path for
-    the rest, plus the ring path's."""
+    the rest, plus the ring path's and the hdp = 4 trainer's (summed over
+    its ranks)."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -981,7 +1370,8 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches):
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": launches[name] + ring_launches[name],
+            "launches": launches[name] + ring_launches[name]
+            + hdp_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -1009,8 +1399,10 @@ def main() -> int:
     log(f"[train] done at {time.perf_counter() - t0:.1f} s")
     ring_launches = phase_ring(torch, card)
     log(f"[ring] done at {time.perf_counter() - t0:.1f} s")
+    hdp_launches = phase_hdp_train(torch, card)
+    log(f"[hdp_train] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
-                                ring_launches)))
+                                ring_launches, hdp_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,7 +56,8 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
 
 def params_to_flat(params) -> Dict[str, np.ndarray]:
     """The port's parameter tree -> flat {key: array}; bf16 leaves as
-    float32, like the reference's checkpoint flattening."""
+    float32, like the reference's checkpoint flattening.  The arrays are
+    copies: a later in-place update of the tree does not show in them."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
@@ -70,7 +71,7 @@ def params_to_flat(params) -> Dict[str, np.ndarray]:
             t = node.detach().cpu()
             if t.dtype in (torch.bfloat16, torch.float16):
                 t = t.float()
-            flat["/".join(prefix)] = t.numpy()
+            flat["/".join(prefix)] = np.array(t.numpy())
 
     walk(params, [])
     return flat

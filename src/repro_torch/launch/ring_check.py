@@ -75,12 +75,11 @@ def groups(comp):
     return out
 
 
-def expected_launches(comp, seg_np, pos_np) -> list:
-    """Per rank: 1 (the local block) + the visiting blocks it can see, from
-    `_block_relevant` on the rank metas (at step s rank j of a group holds
-    the block of rank j - s)."""
+def expected_launches(comp, seg_np, pos_np, c: int = RING_CAP) -> list:
+    """Per rank of ``c`` rows: 1 (the local block) + the visiting blocks it
+    can see, from `_block_relevant` on the rank metas (at step s rank j of
+    a group holds the block of rank j - s)."""
     from repro_torch.core.ring import _block_meta, _block_relevant
-    c = RING_CAP
     metas = [_block_meta(torch.tensor(seg_np[r * c:(r + 1) * c]),
                          torch.tensor(pos_np[r * c:(r + 1) * c]))
              for r in range(sum(comp))]

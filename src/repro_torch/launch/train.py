@@ -1,25 +1,43 @@
-"""Training launcher of the port, one process on one device:
+"""Training launcher of the port:
 
     python -m repro_torch.launch.train --arch llama3.2-3b [--reduced] \\
         --steps N --capacity C --tokens-per-step N --context L \\
         --dataset D --strategy S --lr X --attn-impl {flash,ref} \\
-        [--device cpu]
+        [--mesh NxM] [--device cpu]
 
-Port of `repro/launch/train.py`'s single-process path (hdp = 1, mode
-``dp``, no PP, no TP, no offload).  Runs on ``cuda`` unless ``--device
-cpu`` is given, and refuses to start without a GPU otherwise.  Prints one
-line per step, as the reference does.
+Port of `repro/launch/train.py` (mode ``dp``, no PP, no offload).  Runs on
+``cuda`` unless ``--device cpu`` is given, and refuses to start without a
+GPU otherwise.  Prints one line per step, as the reference does.
+
+``--mesh Nx1`` (the reference's ``--mesh``) trains on N HDP ranks, one
+process each: one per card over NCCL (``torch.cuda.set_device(rank)``
+before ``init_process_group``), or over gloo with ``--device cpu``.  The
+kernels are built once here, before the ranks are spawned; the optimiser
+state is sharded by ZeRO-1 over the ranks.  Rank 0 prints the step lines
+and, last, one JSON line: per step loss, grad norm, wall and trained
+tokens/s; ms per warm wave by composition (the slowest rank's); every
+rank's peak device memory; the ZeRO-1 bytes of a step.  M > 1 (tensor
+parallelism) is not ported.
 """
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import subprocess
+import tempfile
+from collections import defaultdict
+
+import numpy as np
 
 from repro_torch.configs.registry import get_config
 from repro_torch.data.distribution import DISTRIBUTIONS, LengthDistribution
 from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.sharding import Runtime
+from repro_torch.parallel.zero1 import zero1_bytes
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.tree import leaves
 
 
 def _resolve_config(args):
@@ -36,6 +54,103 @@ def _resolve_config(args):
     ds = SyntheticDataset(dist, cfg.vocab_size, args.tokens_per_step,
                           args.context)
     return cfg, ds
+
+
+def _mesh(text: str):
+    try:
+        hdp, tp = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {text!r}: expected NxM, e.g. 4x1") from None
+    if hdp < 1 or tp < 1:
+        raise ValueError(f"--mesh {text!r}: both sizes must be >= 1")
+    if tp > 1:
+        raise NotImplementedError(
+            f"--mesh {text}: tensor parallelism (M > 1) comes with ROADMAP "
+            f"queue 1 item 7")
+    return hdp
+
+
+def train(args, comm=None, say=print):
+    """Builds the trainer on ``comm``'s ranks (None: one) and runs
+    ``args.steps`` steps -> (trainer, every dispatched wave as
+    (composition, fresh, per-rank seconds))."""
+    rt = Runtime(device=args.device, attn_impl=args.attn_impl, comm=comm)
+    cfg, ds = _resolve_config(args)
+    sched = GlobalScheduler(ds, cfg, capacity=args.capacity,
+                            hdp=rt.hdp_size, strategy=args.strategy,
+                            use_offload=False)
+    waves, step_waves = [], []
+    try:
+        trainer = Trainer(cfg, rt, AdamWConfig(lr=args.lr,
+                                               total_steps=args.steps),
+                          sched, TrainerConfig(capacity=args.capacity))
+        trainer.telemetry_fn = lambda ws, measured, fresh, wall_s=None: \
+            step_waves.append((str(tuple(ws[0].composition)), fresh))
+        for rec in trainer.run(args.steps):
+            secs = trainer.last_numerics["wave_seconds"]
+            waves += [(comp, fresh, np.atleast_1d(s).tolist())
+                      for (comp, fresh), s in zip(step_waves, secs)]
+            step_waves.clear()
+            say(f"step {rec['step']:4d} loss {rec['loss']:.4f} "
+                f"waves {rec['waves']} wall {rec['wall_s']:.1f}s",
+                flush=True)
+    finally:
+        sched.stop()      # the planner thread must not outlive the loop
+    return trainer, waves
+
+
+def summary(args, trainer, waves, peaks) -> dict:
+    """The run's JSON record (see the module docstring)."""
+    by_comp = defaultdict(list)
+    for comp, fresh, secs in waves:
+        if not fresh:
+            by_comp[comp].append(max(secs) * 1e3)
+    hdp = trainer.rt.hdp_size
+    return {
+        "arch": args.arch, "reduced": args.reduced, "mesh": f"{hdp}x1",
+        "device": str(trainer.rt.device),
+        "params_b": sum(p.numel() for p in leaves(trainer.params)) / 1e9,
+        "steps": [{**{k: r[k] for k in ("step", "loss", "grad_norm",
+                                        "waves", "tokens", "wall_s")},
+                   "tokens_per_s": r["tokens"] / r["wall_s"]}
+                  for r in trainer.history],
+        "warm_ms_per_wave_by_composition": {
+            k: float(np.mean(v)) for k, v in sorted(by_comp.items())},
+        "warm_waves_by_composition": {k: len(v) for k, v in
+                                      sorted(by_comp.items())},
+        "peak_mem_gb_by_rank": peaks,
+        "zero1_bytes": zero1_bytes(trainer.params, hdp)}
+
+
+def _rank_main(rank: int, hdp: int, args, store: str) -> None:
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import ProcessGroupComm
+    cuda = args.device is None or args.device.startswith("cuda")
+    if cuda:
+        torch.cuda.set_device(rank)
+        args.device = f"cuda:{rank}"
+    else:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // hdp))
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{store}", world_size=hdp,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        comm = ProcessGroupComm()
+        say = print if rank == 0 else (lambda *a, **k: None)
+        trainer, waves = train(args, comm, say)
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9
+                             if cuda else float("nan")],
+                            dtype=torch.float64, device=comm.device)
+        peaks = comm.all_gather(peak).flatten().tolist()
+        if rank == 0:
+            print(json.dumps(summary(args, trainer, waves,
+                                     peaks if cuda else None)), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -56,25 +171,34 @@ def main(argv=None):
                     help="attention and cross-entropy backend: the "
                          "hand-written kernels (flash; their plain versions "
                          "on the CPU) or the plain oracle (ref)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="NxM: N HDP ranks, one process each (M, tensor "
+                         "parallelism, must be 1)")
     ap.add_argument("--device", default=None,
                     help="default cuda; pass cpu to run on the CPU")
     args = ap.parse_args(argv)
+    hdp = _mesh(args.mesh)
+    if hdp == 1:
+        return train(args)[0]
 
-    rt = Runtime(device=args.device, attn_impl=args.attn_impl)
-    cfg, ds = _resolve_config(args)
-    sched = GlobalScheduler(ds, cfg, capacity=args.capacity, hdp=1,
-                            strategy=args.strategy, use_offload=False)
-    try:
-        trainer = Trainer(cfg, rt, AdamWConfig(lr=args.lr,
-                                               total_steps=args.steps),
-                          sched, TrainerConfig(capacity=args.capacity))
-        for rec in trainer.run(args.steps):
-            print(f"step {rec['step']:4d} loss {rec['loss']:.4f} "
-                  f"waves {rec['waves']} wall {rec['wall_s']:.1f}s",
-                  flush=True)
-    finally:
-        sched.stop()      # the planner thread must not outlive the loop
-    return trainer
+    import torch
+    import torch.multiprocessing as mp
+    if args.device is None or args.device.startswith("cuda"):
+        if torch.cuda.device_count() < hdp:
+            raise RuntimeError(f"--mesh {args.mesh} needs {hdp} CUDA "
+                               f"devices, found {torch.cuda.device_count()}")
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip(),
+              flush=True)
+        from repro_torch.kernels import build
+        build.build_all(["flash_fwd", "flash_bwd", "fused_ce"])   # once
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        mp.start_processes(_rank_main, args=(hdp, args,
+                                             os.path.join(tmp, "store")),
+                           nprocs=hdp, join=True, start_method="spawn")
+    return None
 
 
 if __name__ == "__main__":

@@ -3,34 +3,26 @@
 Port of part of `repro/obs/numerics.py`: the health sentinels fused into
 the optimizer apply (per-group grad/param/update norms and a non-finite
 element count, as torch scalars on the device — the trainer fetches the
-whole summary at once) and `plan_fingerprint`, a copy.  The online
-`NumericsMonitor`, `StepProvenance` and the replay helpers come with the
-rest of `obs` (ROADMAP queue 1 item 9).
+whole summary at once; over several HDP ranks the gradient sentinels are
+summed from ZeRO-1 shards by one all-reduce) and `plan_fingerprint`, a
+copy.  The online `NumericsMonitor`, `StepProvenance` and the replay
+helpers come with the rest of `obs` (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
 import hashlib
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from repro_torch.optim.adamw import global_norm
-from repro_torch.tree import leaves, tree_map
+from repro_torch.optim.adamw import global_norm, sq_norm
+from repro_torch.tree import leaves
 
 
 # ---------------------------------------------------------------------------
 # sentinels
 # ---------------------------------------------------------------------------
-
-def count_nonfinite(tree) -> torch.Tensor:
-    """Total non-finite elements across every floating leaf (int64
-    scalar)."""
-    counts = [torch.isfinite(x).logical_not_().sum() for x in leaves(tree)
-              if x.is_floating_point()]
-    return torch.stack(counts).sum() if counts \
-        else torch.zeros((), dtype=torch.int64)
-
 
 def group_norms(tree, prefix: str) -> Dict[str, Any]:
     """Per-top-level-group global norms (embed / blocks / head_blocks /
@@ -41,19 +33,42 @@ def group_norms(tree, prefix: str) -> Dict[str, Any]:
             if leaves(v)}
 
 
-def sentinel_summary(grads, params=None, new_params=None) -> Dict[str, Any]:
-    """Per-group grad norms + non-finite count, and — when the applied
-    params are supplied — per-group param and update norms."""
+def grad_sentinels(grads, comm=None,
+                   counted: Optional[Sequence[bool]] = None):
+    """-> (global grad norm, {"gnorm/<group>": norm, "grad_nonfinite":
+    count}) of a step's gradients, as device scalars.
+
+    Over several ranks (``comm``) ``grads`` holds this rank's ZeRO-1
+    shards: ``counted[i]`` says whether leaf i's Σg² and non-finite count
+    are this rank's to add (a replicated leaf, whole on every rank, is
+    counted on rank 0 only).  The partial sums go through one
+    ``all_reduce``, so every rank sees the same numbers and takes the same
+    guard decision."""
+    ls = leaves(grads)
+    if counted is None:
+        counted = [True] * len(ls)
+    zero = torch.zeros((), dtype=torch.float32, device=ls[0].device)
+    sq = torch.stack([sq_norm(x) if c else zero
+                      for x, c in zip(ls, counted)])
+    bad = [torch.isfinite(x).logical_not_().sum()
+           for x, c in zip(ls, counted) if c and x.is_floating_point()]
+    bad = torch.stack(bad).sum() if bad \
+        else torch.zeros((), dtype=torch.int64, device=zero.device)
+    if comm is not None and comm.size > 1:
+        vec = torch.cat([sq.double(), bad.double()[None]])
+        comm.all_reduce(vec)
+        sq, bad = vec[:-1].float(), vec[-1].long()
     out: Dict[str, Any] = {}
-    out.update(group_norms(grads, "gnorm"))
-    out["grad_nonfinite"] = count_nonfinite(grads)
-    if new_params is not None:
-        out.update(group_norms(new_params, "pnorm"))
-        if params is not None:
-            diff = tree_map(lambda n, o: n.float() - o.float(), new_params,
-                            params)
-            out.update(group_norms(diff, "unorm"))
-    return out
+    groups = grads.items() if isinstance(grads, dict) else [(None, grads)]
+    start = 0
+    for key, sub in groups:
+        n = len(leaves(sub))
+        if n:
+            name = "gnorm" if key is None else f"gnorm/{key}"
+            out[name] = sq[start:start + n].sum().sqrt()
+        start += n
+    out["grad_nonfinite"] = bad
+    return sq.sum().sqrt(), out
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,12 @@ in chunks of each leaf, so the step never holds a second copy of the
 optimiser state (38.6 GB for llama3.2-3b) and its temporaries stay a few
 hundred MB.  Scalars (lr, bias corrections, clip scale) are float32
 tensors computed as the reference computes them.
+
+Over several HDP ranks the state is sharded by ZeRO-1
+(`parallel/zero1.py`): a leaf `zero1_dim` shards keeps only this rank's
+shard of master, m and v, its gradient arrives as this rank's shard of the
+reduced sum, and the updated bf16 shard is all-gathered into the full
+parameter; a replicated leaf is updated whole on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.parallel.zero1 import gather_leaf, shard, zero1_dim
 from repro_torch.tree import leaves, tree_map
 
 _CHUNK = 1 << 24      # elements per in-place update chunk (64 MB in fp32)
@@ -50,18 +57,25 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def init_state(params) -> dict:
+def init_state(params, comm=None) -> dict:
     """{"step": int32 0, "master": fp32 copy of params, "m", "v": fp32
-    zeros}, on the params' device."""
+    zeros}, on the params' device.  With ``comm`` (the HDP ranks) a leaf
+    that `zero1_dim` shards holds only this rank's shard (contiguous) of
+    master, m and v."""
     first = leaves(params)[0]
+    hdp, rank = (1, 0) if comm is None else (comm.size, comm.rank)
+
+    def master(p):
+        dim = zero1_dim(p.shape, hdp)
+        x = p if dim is None else shard(p, dim, rank, hdp)
+        return x.detach().to(torch.float32, copy=True).contiguous()
+
+    state_master = tree_map(master, params)
     return {
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
-        "master": tree_map(
-            lambda p: p.detach().to(torch.float32, copy=True), params),
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device), params),
+        "master": state_master,
+        "m": tree_map(torch.zeros_like, state_master),
+        "v": tree_map(torch.zeros_like, state_master),
     }
 
 
@@ -80,15 +94,19 @@ def _chunks(x: torch.Tensor):
 
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
-                  update_sq: Optional[Dict[str, torch.Tensor]] = None):
+                  update_sq: Optional[Dict[str, torch.Tensor]] = None,
+                  comm=None):
     """One AdamW step, in place: params, state["master"/"m"/"v"] are
     updated where they lie and state["step"] is replaced.  Returns (params,
     state, {"grad_norm", "lr"}).  ``gnorm`` lets a caller that already
-    reduced the global grad norm pass it in.  ``update_sq``, when given, is
-    filled with Σ (new - old)² of the params per top-level group (the
-    sentinels' update norms, which an in-place update cannot recompute
-    afterwards).  ``grads`` may be the caller's fp32 accumulator: it is
-    read, never written."""
+    reduced the global grad norm pass it in (with ``comm`` it must).
+    ``update_sq``, when given, is filled with Σ (new - old)² of the params
+    per top-level group (the sentinels' update norms, which an in-place
+    update cannot recompute afterwards).  ``grads`` may be the caller's
+    fp32 accumulator: it is read, never written.  With ``comm`` (state
+    from ``init_state(params, comm)``) a sharded leaf's gradient is this
+    rank's shard of the reduced sum and its new bf16 values are
+    all-gathered into the parameter."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
     if gnorm is None:
@@ -99,9 +117,11 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
     stepf = step.to(torch.float32)
     bias1 = 1 - torch.full_like(stepf, b1) ** stepf
     bias2 = 1 - torch.full_like(stepf, b2) ** stepf
+    hdp = 1 if comm is None else comm.size
 
-    def update(g, m, v, master, p):
-        """Returns Σ (new p - old p)² of this chunk in fp32."""
+    def update(g, m, v, master, p, du: bool):
+        """Writes the new params into ``p``; returns Σ (new p - old p)² of
+        this chunk in fp32 if ``du``."""
         g = g.to(torch.float32) * scale
         m.mul_(b1).add_(g * (1 - b1))
         v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
@@ -109,10 +129,10 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
             + cfg.weight_decay * master
         master.sub_(lr * delta)
         new = master.to(p.dtype)
-        du = sq_norm(new.to(torch.float32) - p.to(torch.float32)) \
-            if update_sq is not None else None
+        sq = sq_norm(new.to(torch.float32) - p.to(torch.float32)) \
+            if du else None
         p.copy_(new)
-        return du
+        return sq
 
     groups = params.items() if isinstance(params, dict) \
         else [(None, params)]
@@ -123,9 +143,17 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
                            leaves(sel(state["m"])), leaves(sel(state["v"])),
                            leaves(sel(state["master"]))):
             p, g, m, v, master = tensors
+            dim = zero1_dim(p.shape, hdp)
+            out = p if dim is None else torch.empty(
+                master.shape, dtype=p.dtype, device=p.device)
             for pc, gc, mc, vc, wc in zip(*(_chunks(x) for x in
-                                            (p, g, m, v, master))):
-                du = update(gc, mc, vc, wc, pc)
+                                            (out, g, m, v, master))):
+                du = update(gc, mc, vc, wc, pc,
+                            update_sq is not None and dim is None)
+                if du is not None:
+                    acc.append(du)
+            if dim is not None:
+                du = gather_leaf(p, out, dim, comm, sq=update_sq is not None)
                 if du is not None:
                     acc.append(du)
         if update_sq is not None and acc:

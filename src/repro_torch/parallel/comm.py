@@ -1,5 +1,5 @@
-"""The HDP ranks of one process group: point-to-point permutes and a small
-all-gather.
+"""The HDP ranks of one process group: point-to-point permutes, a small
+all-gather, and the collectives of the ZeRO-1 step.
 
 Port of the reference's ``(mesh, hdp_axes)`` pair as its ring code uses
 it: ``jax.lax.axis_index`` becomes `HdpComm.rank`, ``jax.lax.ppermute``
@@ -12,12 +12,16 @@ pair targets receives zeros, and a receiver gets its own buffer.  Every
 rank of the group calls it with the same ``perm`` and tensors of the same
 shapes and dtypes.
 
-Two implementations:
+Three implementations:
 
 * `ProcessGroupComm` — one process per rank over a ``torch.distributed``
-  group: ``batch_isend_irecv`` over NCCL for CUDA tensors and over gloo
-  for CPU tensors.  It never swaps one backend for the other: a tensor on
-  the wrong device raises.
+  group: ``batch_isend_irecv`` and the collectives over NCCL for CUDA
+  tensors and over gloo for CPU tensors.  It never swaps one backend for
+  the other: a tensor on the wrong device raises.
+* `HostStagedComm` — a gloo group of processes that share one CUDA
+  device (NCCL refuses two ranks on one GPU): each CUDA tensor is copied
+  to host memory, moved by gloo, and copied back.  Only ``chip_smoke.py``
+  and the ``cuda`` tests construct it; no code picks it on its own.
 * `ThreadRanks` — g ranks as g threads of one process, exchanging through
   a barrier and a mailbox.  It exists for ``chip_smoke.py`` and the tests
   only, as the one-device counterpart of the reference tests' virtual
@@ -26,6 +30,7 @@ Two implementations:
 """
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Callable, List, Sequence, Tuple
 
@@ -38,22 +43,29 @@ class Pending:
     """An issued `ppermute`: `wait` returns the received tensors.  Every
     rank waits on it, senders too (a send is not complete before).  Over
     NCCL the wait orders the current stream after the transfer and does
-    not block the host."""
+    not block the host.  ``device``: where the received tensors go once
+    they are in (`HostStagedComm` receives into host memory)."""
 
-    def __init__(self, works, out: List[torch.Tensor]):
+    def __init__(self, works, out: List[torch.Tensor], device=None):
         self._works = works
         self._out = out
+        self._device = device
 
     def wait(self) -> List[torch.Tensor]:
         for w in self._works:
             w.wait()
         self._works = []
+        if self._device is not None:
+            self._out = [x.to(self._device) for x in self._out]
         return self._out
 
 
 class HdpComm:
     """The ranks of one HDP axis: ``rank``, ``size``, `ppermute`,
-    `ppermute_async` and `all_gather`."""
+    `ppermute_async`, `all_gather` and the ZeRO-1 step's collectives
+    (`all_reduce`, `reduce_scatter`, `all_gather_into`, `broadcast`).
+    Every rank of the group calls each of them in the same order with
+    tensors of the same shapes and dtypes."""
 
     rank: int
     size: int
@@ -68,6 +80,25 @@ class HdpComm:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """x [...] -> [size, ...], rank r's x at row r."""
+        raise NotImplementedError
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sums the contiguous ``x`` over the ranks, in place; returns it."""
+        raise NotImplementedError
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """x [size·n, ...] contiguous -> [n, ...]: this rank's block r (rows
+        [r·n, (r+1)·n)) of the sum of every rank's x."""
+        raise NotImplementedError
+
+    def all_gather_into(self, out: torch.Tensor, x: torch.Tensor) -> None:
+        """Writes every rank's x [n, ...] into the contiguous ``out`` [size·n,
+        ...], rank r's at rows [r·n, (r+1)·n)."""
+        raise NotImplementedError
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's contiguous ``x`` into every rank's, in place; returns
+        it."""
         raise NotImplementedError
 
 
@@ -103,6 +134,8 @@ class ProcessGroupComm(HdpComm):
     rank, and in a composition such as (1, 2, 1) the singleton ranks send
     nothing, so construction runs one collective over the group."""
 
+    staged = False      # HostStagedComm: tensors cross through host memory
+
     def __init__(self, group=None):
         import torch.distributed as dist
         self._dist = dist
@@ -129,11 +162,18 @@ class ProcessGroupComm(HdpComm):
                     f"a {self.backend} group moves {self.device.type} "
                     f"tensors, got one on {x.device}")
 
+    def _wire(self, x: torch.Tensor, copy: bool = True) -> torch.Tensor:
+        """``x`` as the backend moves it: itself, or under staging a host
+        copy (``copy=False``: an empty host buffer of its shape)."""
+        if not self.staged:
+            return x
+        return x.to("cpu") if copy else torch.empty(x.shape, dtype=x.dtype)
+
     def ppermute_async(self, tensors, perm) -> Pending:
         check_perm(perm, self.size)
         dist = self._dist
-        tensors = [x.contiguous() for x in tensors]
         self._check(tensors)
+        tensors = [self._wire(x.contiguous()) for x in tensors]
         dst, src = _routes(perm, self.rank)
         ops, out = [], []
         for x in tensors:
@@ -151,14 +191,63 @@ class ProcessGroupComm(HdpComm):
             ops += [dist.P2POp(dist.isend, x, self._global[dst], self.group)
                     for x in tensors]
         works = dist.batch_isend_irecv(ops) if ops else []
-        return Pending(works, out)
+        return Pending(works, out, self.device if self.staged else None)
 
     def all_gather(self, x):
         self._check([x])
-        x = x.contiguous()
+        x = self._wire(x.contiguous())
         parts = [torch.empty_like(x) for _ in range(self.size)]
         self._dist.all_gather(parts, x, group=self.group)
-        return torch.stack(parts)
+        return torch.stack(parts).to(self.device)
+
+    def all_reduce(self, x):
+        self._check([x])
+        w = self._wire(x)
+        self._dist.all_reduce(w, group=self.group)
+        if w is not x:
+            x.copy_(w)
+        return x
+
+    def reduce_scatter(self, x):
+        self._check([x])
+        w = self._wire(x)
+        out = w.new_empty((w.shape[0] // self.size, *w.shape[1:]))
+        self._dist.reduce_scatter_tensor(out, w, group=self.group)
+        return out.to(self.device)
+
+    def all_gather_into(self, out, x):
+        self._check([out, x])
+        w, wo = self._wire(x), self._wire(out, copy=False)
+        self._dist.all_gather_into_tensor(wo, w, group=self.group)
+        if wo is not out:
+            out.copy_(wo)
+
+    def broadcast(self, x):
+        self._check([x])
+        w = self._wire(x)
+        self._dist.broadcast(w, src=self._global[0], group=self.group)
+        if w is not x:
+            x.copy_(w)
+        return x
+
+
+class HostStagedComm(ProcessGroupComm):
+    """A gloo group of processes that share one CUDA device: the ranks
+    take CUDA tensors, and every transfer copies them to host memory, runs
+    the gloo operation, and copies the result back.  NCCL refuses two
+    ranks on one GPU, and `ThreadRanks` cannot exchange inside an autograd
+    backward on CUDA, so this is how one card runs several ranks of the
+    multi-rank trainer.  Its transfers say nothing of a card-to-card
+    link.  Only ``chip_smoke.py`` and the ``cuda`` tests construct it."""
+
+    staged = True
+
+    def __init__(self, group=None):
+        super().__init__(group)
+        if self.backend != "gloo":
+            raise ValueError(f"HostStagedComm runs over gloo, the group's "
+                             f"backend is {self.backend!r}")
+        self.device = torch.device("cuda", torch.cuda.current_device())
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +329,9 @@ class _ThreadComm(HdpComm):
         self.rank = rank
         self.size = ranks.size
 
+    def _exchange(self, item, take):
+        return self._ranks._exchange(self.rank, item, take)
+
     def ppermute_async(self, tensors, perm) -> Pending:
         check_perm(perm, self.size)
         _, src = _routes(perm, self.rank)
@@ -248,8 +340,24 @@ class _ThreadComm(HdpComm):
             if src is None:
                 return [torch.zeros_like(x) for x in tensors]
             return [x.clone() for x in mail[src]]
-        return Pending([], self._ranks._exchange(self.rank, list(tensors),
-                                                 take))
+        return Pending([], self._exchange(list(tensors), take))
 
     def all_gather(self, x):
-        return self._ranks._exchange(self.rank, x, torch.stack)
+        return self._exchange(x, torch.stack)
+
+    def all_reduce(self, x):
+        x.copy_(self._exchange(x, lambda mail: functools.reduce(torch.add,
+                                                                 mail)))
+        return x
+
+    def reduce_scatter(self, x):
+        r, n = self.rank, self.size
+        return self._exchange(x, lambda mail: functools.reduce(
+            torch.add, [m.unflatten(0, (n, -1))[r] for m in mail]))
+
+    def all_gather_into(self, out, x):
+        out.copy_(self._exchange(x, torch.cat))
+
+    def broadcast(self, x):
+        x.copy_(self._exchange(x, lambda mail: mail[0].clone()))
+        return x

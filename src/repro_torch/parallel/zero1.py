@@ -1,0 +1,110 @@
+"""ZeRO-1 over the HDP ranks (ByteScale §5.1, Fig. 8a).
+
+Port of `repro/parallel/zero1.py`.  HDP replicates the parameters like DP,
+so the optimizer state (fp32 master, Adam m and v) is sharded over the HDP
+ranks on the first dimension the HDP size divides (`zero1_dim`, the
+reference's `zero1_spec` at tp = 1); a leaf with no such dimension stays
+replicated.  Each step reduce-scatters the fp32 gradients into this rank's
+shard (`reduce_grad`), updates the shard of master, m and v
+(`optim/adamw.py`), and all-gathers the bf16 parameters (`gather_leaf`).
+
+Where the reference lets XLA lay the collectives out, here a leaf sharded on
+a dimension d > 0 is brought into rank-major order block by block (at most
+`_CHUNK` elements a block), never as a copy of the whole leaf: the stacked
+MLP input of llama3.2-3b alone is ~5.6 GB in fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.parallel.comm import HdpComm
+from repro_torch.tree import leaves
+
+_CHUNK = 1 << 24      # elements moved by one collective call (all ranks)
+
+
+def zero1_dim(shape: Sequence[int], hdp: int) -> Optional[int]:
+    """The dimension ZeRO-1 shards a leaf of ``shape`` on over ``hdp``
+    ranks: the first one with ``dim % hdp == 0 and dim > 0``; None (the
+    leaf stays replicated) at hdp <= 1 or when no dimension divides."""
+    if hdp <= 1:
+        return None
+    for i, d in enumerate(shape):
+        if d > 0 and d % hdp == 0:
+            return i
+    return None
+
+
+def shard(x: torch.Tensor, dim: int, rank: int, hdp: int) -> torch.Tensor:
+    """Rank ``rank``'s shard of ``x`` along ``dim`` (a view)."""
+    n = x.shape[dim] // hdp
+    return x.narrow(dim, rank * n, n)
+
+
+def shard_shape(shape: Sequence[int], dim: int, hdp: int) -> tuple:
+    return tuple(s // hdp if i == dim else s for i, s in enumerate(shape))
+
+
+def _blocks(x: torch.Tensor, dim: int, hdp: int):
+    """``x`` (contiguous, full) viewed [P, hdp, M] — P the product of the
+    dimensions before ``dim``, M the elements of one rank's share of the
+    rest, so rank r's shard is [:, r, :] — and the (p, column slice) blocks
+    that cover it, at most `_CHUNK` elements each."""
+    p = math.prod(x.shape[:dim])
+    view = x.view(p, hdp, -1)
+    m = view.shape[2]
+    step = max(1, _CHUNK // hdp)
+    return view, [(i, slice(j, min(m, j + step))) for i in range(p)
+                  for j in range(0, m, step)]
+
+
+def reduce_grad(g: torch.Tensor, comm: HdpComm) -> torch.Tensor:
+    """The sum over the ranks of the contiguous gradient ``g``: this rank's
+    ZeRO-1 shard (contiguous, ``g``'s dtype), or for a replicated leaf the
+    whole sum, in place in ``g``."""
+    dim = zero1_dim(g.shape, comm.size)
+    if dim is None:
+        return comm.all_reduce(g)
+    view, blocks = _blocks(g, dim, comm.size)
+    out = torch.empty((view.shape[0], view.shape[2]), dtype=g.dtype,
+                      device=g.device)
+    for i, cols in blocks:
+        out[i, cols] = comm.reduce_scatter(view[i, :, cols].contiguous())[0]
+    return out.view(shard_shape(g.shape, dim, comm.size))
+
+
+def gather_leaf(out: torch.Tensor, part: torch.Tensor, dim: int,
+                comm: HdpComm, sq: bool = False) -> Optional[torch.Tensor]:
+    """Writes every rank's shard ``part`` (contiguous) of the contiguous
+    leaf ``out`` into it.  ``sq``: returns Σ (new − old)² of ``out`` in
+    fp32 over the whole leaf, the same on every rank."""
+    view, blocks = _blocks(out, dim, comm.size)
+    src = part.view(view.shape[0], view.shape[2])
+    acc = []
+    for i, cols in blocks:
+        new = torch.empty((comm.size, cols.stop - cols.start),
+                          dtype=out.dtype, device=out.device)
+        comm.all_gather_into(new.view(-1), src[i, cols].contiguous())
+        if sq:
+            acc.append(torch.linalg.vector_norm(
+                new.float() - view[i, :, cols].float()).square())
+        view[i, :, cols] = new
+    return torch.stack(acc).sum() if sq else None
+
+
+def zero1_bytes(params, hdp: int) -> dict:
+    """Analytic collective bytes of one ZeRO-1 update over the HDP ranks
+    (fleet totals, the reference's model): the fp32 gradient reduction
+    priced as a ring all-reduce, 2·(hdp − 1)·bytes, and the all-gather of
+    the parameters that `zero1_dim` shards, (hdp − 1)·their bytes."""
+    if hdp <= 1:
+        return {"zero1_grad_reduce": 0.0, "zero1_param_gather": 0.0}
+    ls = leaves(params)
+    grad_b = sum(x.numel() * 4 for x in ls)
+    gather = sum(x.numel() * x.element_size() for x in ls
+                 if zero1_dim(x.shape, hdp) is not None)
+    return {"zero1_grad_reduce": 2.0 * (hdp - 1) * float(grad_b),
+            "zero1_param_gather": (hdp - 1) * float(gather)}

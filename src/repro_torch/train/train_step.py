@@ -8,7 +8,13 @@ accumulating grads over heterogeneous waves equals one plain-DP batch.
 The reference's steps are pure jitted functions; here ``grad_step`` adds
 one wave's gradient into the caller's fp32 accumulator in place and
 ``apply_step`` updates params and optimiser state in place (see
-`optim/adamw.py`), one leaf at a time.
+`optim/adamw.py`), one leaf at a time.  Over several HDP ranks
+(``rt.comm``) each rank accumulates the gradients of its own slices, and
+``apply_step`` is the ZeRO-1 update (`parallel/zero1.py`): `reduce_grads`
+(reduce-scatter over the ranks), then `apply_reduced` (the guarded apply
+to this rank's shard of the optimiser state, and the all-gather of the
+bf16 parameters).  Where the reference's jit sums the grads across the
+mesh, these two are the explicit collectives.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from repro_torch.models.transformer import forward_hidden
 from repro_torch.obs import numerics as NU
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import Runtime
+from repro_torch.parallel.zero1 import reduce_grad, zero1_dim
 from repro_torch.tree import leaves, tree_map
 
 
@@ -37,6 +44,50 @@ def zeros_accum(params):
                                           device=p.device), params)
 
 
+def reduce_grads(grad_accum, comm=None):
+    """The step's gradients summed over the HDP ranks ``comm``: per leaf
+    this rank's ZeRO-1 shard (a reduce-scatter), or a replicated leaf's
+    whole sum (an all-reduce, in place).  At one rank ``grad_accum``
+    itself."""
+    if comm is None or comm.size == 1:
+        return grad_accum
+    with torch.no_grad():
+        return tree_map(lambda g: reduce_grad(g, comm), grad_accum)
+
+
+def apply_reduced(params, opt_state, grads, opt_cfg: adamw.AdamWConfig, *,
+                  comm=None, numerics: bool = True, guard: bool = False):
+    """The guarded AdamW apply of reduced gradients (`reduce_grads`) ->
+    (params, opt_state, om); see `make_accum_steps`.  Every decision comes
+    from all-reduced values, so every rank applies or skips alike."""
+    with torch.no_grad():
+        hdp = 1 if comm is None else comm.size
+        counted = [comm is None or comm.rank == 0
+                   or zero1_dim(p.shape, hdp) is not None
+                   for p in leaves(params)]
+        gnorm, sent = NU.grad_sentinels(grads, comm, counted)
+        om: Dict[str, torch.Tensor] = sent if numerics or guard else {}
+        ok = not guard or int(sent["grad_nonfinite"]) == 0
+        update_sq: Dict[str, torch.Tensor] = {}
+        if ok:
+            _, _, opt_om = adamw.apply_updates(
+                params, grads, opt_state, opt_cfg, gnorm=gnorm,
+                update_sq=update_sq if numerics or guard else None,
+                comm=comm)
+        else:
+            opt_om = {"grad_norm": gnorm,
+                      "lr": adamw.schedule_lr(opt_cfg,
+                                              opt_state["step"] + 1)}
+        om = {**opt_om, **om}
+        if numerics or guard:
+            om.update(NU.group_norms(params, "pnorm"))
+            om.update({f"unorm/{k}": (update_sq[k].sqrt() if ok
+                                      else torch.zeros_like(gnorm))
+                       for k, v in params.items() if leaves(v)})
+            om["applied"] = torch.tensor(int(ok))
+    return params, opt_state, om
+
+
 def make_accum_steps(cfg: ModelConfig, rt: Runtime,
                      opt_cfg: adamw.AdamWConfig, *,
                      numerics: bool = True, guard: bool = False):
@@ -45,9 +96,12 @@ def make_accum_steps(cfg: ModelConfig, rt: Runtime,
     ``grad_step(params, grad_accum, batch, rt_wave)`` runs one wave's
     forward and backward under ``rt_wave`` and adds its grads into
     ``grad_accum``; it returns (grad_accum, {"loss", "nll_sum", "tokens"}).
+    Over several ranks ``batch`` is this rank's slice of the wave and the
+    loss its share.
 
-    ``apply_step(params, opt_state, grad_accum)`` computes the global grad
-    norm once, applies AdamW in place and returns (params, opt_state, om).
+    ``apply_step(params, opt_state, grad_accum)`` reduces the grads over
+    ``rt.comm``'s ranks (`reduce_grads`), computes the global grad norm
+    once, applies AdamW in place and returns (params, opt_state, om).
     ``numerics`` fills om with the sentinels (per-group grad/param/update
     norms, non-finite count).  ``guard`` decides from the grads, BEFORE
     anything is written, whether any element is non-finite; if so params,
@@ -56,6 +110,7 @@ def make_accum_steps(cfg: ModelConfig, rt: Runtime,
     apply reports the kept params' norms and zero update norms.  om values
     are device scalars, for one fetch by the caller.
     """
+    comm = None if rt is None else rt.comm
 
     def grad_step(params, grad_accum, batch, rt_wave: Runtime):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -70,28 +125,8 @@ def make_accum_steps(cfg: ModelConfig, rt: Runtime,
                             **{k: v.detach() for k, v in metrics.items()}}
 
     def apply_step(params, opt_state, grad_accum):
-        with torch.no_grad():
-            om: Dict[str, torch.Tensor] = {}
-            gnorm = adamw.global_norm(grad_accum)
-            if numerics or guard:
-                om.update(NU.sentinel_summary(grad_accum))
-            ok = not guard or int(om["grad_nonfinite"]) == 0
-            update_sq: Dict[str, torch.Tensor] = {}
-            if ok:
-                _, _, opt_om = adamw.apply_updates(
-                    params, grad_accum, opt_state, opt_cfg, gnorm=gnorm,
-                    update_sq=update_sq if numerics or guard else None)
-            else:
-                opt_om = {"grad_norm": gnorm,
-                          "lr": adamw.schedule_lr(opt_cfg,
-                                                  opt_state["step"] + 1)}
-            om = {**opt_om, **om}
-            if numerics or guard:
-                om.update(NU.group_norms(params, "pnorm"))
-                om.update({f"unorm/{k}": (update_sq[k].sqrt() if ok
-                                          else torch.zeros_like(gnorm))
-                           for k, v in params.items() if leaves(v)})
-                om["applied"] = torch.tensor(int(ok))
-        return params, opt_state, om
+        return apply_reduced(params, opt_state,
+                             reduce_grads(grad_accum, comm), opt_cfg,
+                             comm=comm, numerics=numerics, guard=guard)
 
     return grad_step, apply_step

@@ -1,4 +1,5 @@
-"""The training loop: HDP waves + gradient accumulation, one process.
+"""The training loop: HDP waves + gradient accumulation, one process per
+HDP rank.
 
 Port of `repro/train/trainer.py` on its non-pipelined branch.  Per step
 (paper Fig. 7): the GlobalScheduler plans the global batch (sync, or from
@@ -11,10 +12,20 @@ its sentinel summary fetched from the device once.  Measured wave times
 feed the online calibrator (per-rank speeds, refitted cost coefficients)
 and compiled keys warm the scheduler's composition templates.
 
+Over several HDP ranks (``rt.comm``, one process each) every rank plans
+the same step, where the reference's single controller plans for the
+mesh: the ranks check their plan fingerprints against each other before
+the first wave, each runs its own rows of every wave through the ring,
+and the apply is the ZeRO-1 update (`train/train_step.py`).  One
+all-gather a step carries every rank's per-wave loss shares and seconds,
+so the step's losses and the calibrator's per-rank times are the same on
+every rank.
+
 What the port does not run yet raises `NotImplementedError` naming the
 ROADMAP queue item that brings it: checkpointing (``ckpt_dir``, queue 1
 item 5), pipeline parallelism (queue 1 item 7), offload execution (queue 1
-item 4) and elastic ``resize`` (with the ring, queue 1 item 2).  The
+item 4), ``resize`` to another HDP size (queue 1 items 5 and 9) and the
+planner thread with calibration over several ranks (queue 1 item 9).  The
 numerics monitor, step provenance and the bytes ledger come with queue 1
 item 9.
 """
@@ -33,10 +44,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.loader import GlobalScheduler, WaveMaterializer
 from repro_torch.models.transformer import init_params
 from repro_torch.obs import get_metrics, get_recorder, get_tracer
+from repro_torch.obs.numerics import plan_fingerprint
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.sched.calibrate import OnlineCalibrator, fit_length_of
 from repro_torch.train.train_step import make_accum_steps, zeros_accum
+from repro_torch.tree import leaves
 
 
 @dataclass
@@ -71,7 +84,9 @@ class Trainer:
         """``rt=None`` means ``Runtime()`` on the default device (``cuda``;
         it raises without one).  ``params`` (a tree on the runtime's
         device, e.g. bridged from the reference) replaces the seeded
-        init; the optimiser state is built from it either way."""
+        init; over several ranks rank 0's are broadcast to every rank
+        either way, and the optimiser state (this rank's ZeRO-1 shards)
+        is built from them."""
         if tcfg.ckpt_dir is not None:
             raise NotImplementedError(
                 "checkpointing (ckpt_dir) comes with the port of "
@@ -84,23 +99,29 @@ class Trainer:
                 "offload execution comes with ROADMAP queue 1 item 4")
         self.cfg = cfg
         self.rt = rt if rt is not None else Runtime()
-        if self.rt.hdp_size > 1:
+        if tcfg.sched_async and tcfg.calibrate and self.rt.hdp_size > 1:
             raise NotImplementedError(
-                "the multi-rank trainer (each rank its slice of every wave, "
-                "gradients all-reduced) comes with ROADMAP queue 1 item 3")
+                "the planner thread applies speed updates from a window "
+                "that depends on its timing in each process, so calibrated "
+                "ranks could plan apart: sched_async with calibrate over "
+                "several ranks waits for the single controller, ROADMAP "
+                "queue 1 item 9")
         self.opt_cfg = opt_cfg
         self.sched = scheduler
         self.tcfg = tcfg
         self.seed = seed
         if scheduler.hdp != self.rt.hdp_size:
             raise ValueError(f"plan world {scheduler.hdp} must match the "
-                             f"runtime's {self.rt.hdp_size} rank")
+                             f"runtime's {self.rt.hdp_size} rank(s)")
         self.offload_ok = False
         self._align_offload(scheduler)
         self.loader = WaveMaterializer(scheduler.ds, cfg, tcfg.capacity)
         self.params = params if params is not None else init_params(
             cfg, seed=seed, device=self.rt.device)
-        self.opt_state = adamw.init_state(self.params)
+        if self.rt.comm is not None:
+            for p in leaves(self.params):
+                self.rt.comm.broadcast(p)
+        self.opt_state = adamw.init_state(self.params, self.rt.comm)
         self.step = 0
         self.grad_step, self.apply_step = make_accum_steps(
             cfg, self.rt, opt_cfg, guard=tcfg.numerics_guard)
@@ -114,9 +135,10 @@ class Trainer:
                                      # or per-rank vector)
         self.telemetry_fn = None     # called with (waves, measured, fresh,
                                      # wall_s=host wall) for every dispatch
+                                     # (this rank's time)
         self._clock = time.perf_counter
         self.last_numerics: Optional[Dict] = None   # the last step's
-        # loss, per-wave losses, sentinels and applied flag
+        # loss, per-wave losses and seconds, sentinels and applied flag
         if tcfg.sched_async:
             scheduler.service.attach_materializer(self.loader)
 
@@ -147,19 +169,34 @@ class Trainer:
         return self._exec_cache[key], fresh
 
     def resize(self, new_hdp_scheduler: GlobalScheduler):
-        raise NotImplementedError(
-            "elastic resize needs more than one rank: it comes with the "
-            "torch.distributed ring, ROADMAP queue 1 item 2")
+        """Elastic rescale at the same HDP size: the new scheduler and a
+        fresh calibrator take over, params and optimiser state carry on
+        (the reference's `resize`).  Another size raises: it needs a new
+        process group and a ZeRO-1 re-shard through a checkpoint."""
+        if new_hdp_scheduler.hdp != self.rt.hdp_size:
+            raise NotImplementedError(
+                f"resize from {self.rt.hdp_size} to {new_hdp_scheduler.hdp} "
+                f"HDP ranks needs a new process group and a ZeRO-1 re-shard "
+                f"through a checkpoint: ROADMAP queue 1 items 5 "
+                f"(ckpt/checkpoint.py) and 9 (ctrl/elastic.py)")
+        if new_hdp_scheduler is not self.sched:
+            self.sched.stop()   # old planner thread + pre-built buffers
+        self.sched = new_hdp_scheduler
+        self._align_offload(new_hdp_scheduler)
+        self.calib = OnlineCalibrator(
+            new_hdp_scheduler.spec.coeffs, new_hdp_scheduler.hdp,
+            self.cfg.num_layers, quadratic=new_hdp_scheduler.spec.quadratic,
+            ema=self.tcfg.straggler_ema)
+        if self.tcfg.sched_async:
+            new_hdp_scheduler.service.attach_materializer(self.loader)
 
     # ------------------------------------------------------------------
     def _observe(self, waves, measured, fresh_compile: bool,
-                 modeled: bool = False, wall_s: Optional[float] = None):
-        """Feed one measured dispatch to the telemetry hook and the local
-        calibrator (the reference's `_observe`): the hook sees every
-        dispatch; the calibrator skips fresh ones unless the time is
+                 modeled: bool = False):
+        """Feed one dispatch's time to the local calibrator (the
+        reference's `_observe`; the loop calls the telemetry hook itself,
+        per wave): fresh dispatches are skipped unless the time is
         modeled."""
-        if self.telemetry_fn is not None:
-            self.telemetry_fn(waves, measured, fresh_compile, wall_s=wall_s)
         if (fresh_compile and not modeled) or not self.tcfg.calibrate:
             return
         costs = np.zeros(self.sched.hdp)
@@ -170,6 +207,36 @@ class Trainer:
             self.calib.observe(costs, rank_seconds=measured, **kw)
         else:
             self.calib.observe(costs, seconds=float(measured), **kw)
+
+    def _check_plan(self, plan) -> None:
+        """Every rank must run the same plan.  One all-gather of a prefix of
+        each rank's plan fingerprint, before the first wave; on a mismatch
+        every rank raises (one rank raising while the others wait inside a
+        wave's ring would hang them)."""
+        if self.rt.hdp_size == 1:
+            return
+        mine = int(plan_fingerprint(plan)[:15], 16)
+        got = self.rt.comm.all_gather(torch.tensor(
+            [mine], dtype=torch.int64, device=self.rt.device)).flatten()
+        got = [f"{x:015x}" for x in got.tolist()]
+        if len(set(got)) > 1:
+            raise RuntimeError(
+                f"step {self.step}: the HDP ranks planned different steps "
+                f"(plan fingerprint prefixes by rank {got})")
+
+    def _share_waves(self, losses, seconds):
+        """Over several ranks, one all-gather of every rank's per-wave loss
+        shares and seconds -> (each wave's loss, summed over the ranks;
+        each wave's [hdp] seconds), the same on every rank.  At one rank
+        the inputs themselves."""
+        if self.rt.hdp_size == 1:
+            return losses, seconds
+        n = len(losses)
+        got = self.rt.comm.all_gather(torch.tensor(
+            losses + seconds, dtype=torch.float64,
+            device=self.rt.device)).cpu().numpy()
+        return [float(x) for x in got[:, :n].sum(axis=0)], \
+            [got[:, n + i] for i in range(n)]
 
     def _dispatch(self, tr, fn, grads, batch, idx: int, composition,
                   fresh: bool, wave):
@@ -203,8 +270,16 @@ class Trainer:
 
     def _to_device(self, arrays: Dict[str, np.ndarray], denom: float,
                    idx: int) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a wave's global buffers, on the device: rank
+        r of hdp takes rows [r·C·c_mult, (r+1)·C·c_mult)."""
         dev = self.rt.device
-        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        hdp = self.rt.hdp_size
+        r = 0 if hdp == 1 else self.rt.comm.rank
+
+        def rows(v):
+            n = v.shape[0] // hdp
+            return v[r * n:(r + 1) * n]
+        batch = {k: torch.from_numpy(np.ascontiguousarray(rows(v))).to(dev)
                  for k, v in arrays.items()}
         batch["denom"] = torch.tensor(
             float("nan") if self._nan_fault_hits(idx) else denom,
@@ -220,9 +295,10 @@ class Trainer:
                 plan, pre_waves = self.sched.get_step(self.step)
             else:
                 plan, pre_waves = self.sched.plan_step(self.step), None
+        self._check_plan(plan)
         denom = float(plan.denom)
         grads = zeros_accum(self.params)
-        losses = []
+        losses, seconds, measured, fresh_flags = [], [], [], []
         wave_iter = iter(pre_waves) if pre_waves is not None \
             else self.loader.iter_step(self.step, plan)
         for i in range(len(plan.waves)):
@@ -235,14 +311,21 @@ class Trainer:
             grads, loss, dt = self._dispatch(tr, fn, grads, batch, i,
                                              lw.composition, fresh, wave)
             losses.append(loss)
+            seconds.append(dt)
+            fresh_flags.append(fresh)
             mx.histogram("trainer.dispatch_s").observe(dt)
-            wall = dt
-            if self.wave_time_fn is not None:
-                dt = self.wave_time_fn(wave)
-            self._observe([wave], dt, fresh,
-                          modeled=self.wave_time_fn is not None, wall_s=wall)
+            measured.append(dt if self.wave_time_fn is None
+                            else self.wave_time_fn(wave))
+            if self.telemetry_fn is not None:
+                self.telemetry_fn([wave], measured[-1], fresh, wall_s=dt)
         for _ in wave_iter:             # drain the prefetch epilogue so
             pass                        # producer errors still surface
+        losses, rank_seconds = self._share_waves(losses, seconds)
+        modeled = self.wave_time_fn is not None
+        for i, wave in enumerate(plan.waves):
+            self._observe([wave], measured[i] if modeled
+                          else rank_seconds[i], fresh_flags[i],
+                          modeled=modeled)
         with tr.span("apply", step=self.step):
             self.params, self.opt_state, om = self.apply_step(
                 self.params, self.opt_state, grads)
@@ -266,7 +349,7 @@ class Trainer:
         self.sched.service.warm_keys(list(self._exec_cache))
         self.step += 1
         rec = {"step": self.step, "loss": float(np.sum(losses)),
-               "waves": len(plan.waves),
+               "waves": len(plan.waves), "tokens": int(plan.denom),
                "bubble_frac": plan.stats["bubble_frac"],
                "grad_norm": float(om["grad_norm"]),
                "wall_s": self._clock() - t0,
@@ -277,6 +360,7 @@ class Trainer:
             "grad_norm": rec["grad_norm"],
             "grad_nonfinite": om["grad_nonfinite"],
             "applied": om["applied"], "wave_losses": losses,
+            "wave_seconds": [np.asarray(x).tolist() for x in rank_seconds],
             "sentinels": {k: v for k, v in om.items() if k != "applied"}}
         mx.counter("trainer.steps").inc()
         mx.counter("trainer.waves").inc(len(plan.waves))

@@ -1,0 +1,421 @@
+"""The port's multi-rank `Trainer` under ZeRO-1 against the reference's
+`Trainer` at hdp = 4.
+
+* Reduced llama3.2-3b in float32, 3 steps of the planner's hdp = 4 plans
+  (2048 tokens a step, context 1024, capacity 256 a rank), calibration
+  off: the reference's `Trainer` on a (4, 1) mesh of 4 host devices
+  (``attn_impl="ref"``) and the port's on 4 gloo ranks, one process each
+  (`_torch_hdp_train_worker.py`), from the reference's initial weights.
+  Plan fingerprints equal on every rank and on the reference; per-wave
+  losses, step losses and grad norms within 1e-4 relative
+  (`test_torch_train.py`'s F32_TOL); every step's parameter update within
+  1e-3 relative L2 per leaf; every rank's parameters bit-identical, at
+  ``attn_impl`` "ref" and "flash" (the kernels' plain versions here).
+* ZeRO-1: `zero1_dim` against the reference's `zero1_spec` leaf by leaf
+  (reduced and full llama3.2-3b, LLaMA-7B; hdp 2, 4, 8), `zero1_bytes`
+  against the reference's, each rank's optimiser state its shard, and
+  the sharded apply against the unsharded apply on the same reduced
+  gradients (fp32 within 1e-6, bf16 within one ulp or, for values under
+  2.4e-4 whose ulp is finer, 1e-6).
+* The guard, the plan check and the planner thread over 4 ranks: a
+  guarded skip is bit-exact on every rank; planted mismatched plans make
+  every rank raise, none hanging; ``sched_async`` without calibration
+  gives the synchronous history, with calibration it is refused.
+* The launcher's ``--mesh 2x1`` on 2 gloo ranks.
+
+The reference, the gloo ranks and the launcher run as three subprocesses
+started together by one module fixture.
+"""
+import json
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+import _torch_hdp_train_worker as W
+from repro.configs.registry import get_config as jax_config
+from repro.models import transformer as JT
+from repro.parallel import zero1 as jzero1
+from repro_torch.configs.registry import get_config
+from repro_torch.launch import train as launch_train
+from repro_torch.parallel import zero1
+
+ROOT = Path(__file__).resolve().parents[1]
+F32_TOL = 1e-4                  # tests/test_torch_train.py
+UPDATE_TOL = 1e-3               # post-step update, relative L2 per leaf
+APPLY_TOL = 1e-6                # sharded vs unsharded apply: fp32; a bf16
+                                # parameter within one ulp, or this much
+                                # where one ulp is finer (the clip factor
+                                # is summed from shards, and the masters'
+                                # own hold admits more there)
+
+JAX_SCRIPT = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import dataclasses
+import numpy as np
+from repro import compat
+from repro.ckpt.checkpoint import _flatten
+from repro.configs.registry import get_config
+from repro.data.distribution import LengthDistribution
+from repro.data.loader import GlobalScheduler, SyntheticDataset
+from repro.obs.numerics import plan_fingerprint
+from repro.optim.adamw import AdamWConfig
+from repro.parallel.sharding import Runtime
+from repro.train.trainer import Trainer, TrainerConfig
+sys.path.insert(0, "tests")
+import _torch_hdp_train_worker as W
+
+out = sys.argv[1]
+mesh = compat.make_mesh((W.R, 1), ("data", "model"),
+                        axis_types=compat.auto_axis_types(2))
+compat.set_mesh(mesh)
+cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                          dtype="float32")
+ds = SyntheticDataset(LengthDistribution(*W.DIST), cfg.vocab_size,
+                      tokens_per_step=W.TOKENS, context=W.CONTEXT)
+sched = GlobalScheduler(ds, cfg, capacity=W.CAP, hdp=W.R, use_offload=False)
+plans = []
+plan_step = sched.plan_step
+def recorded(step):
+    plan = plan_step(step)
+    plans.append(plan_fingerprint(plan))
+    return plan
+sched.plan_step = recorded
+rt = Runtime(mesh=mesh, hdp_axes=("data",), model_axis="model")
+tr = Trainer(cfg, rt, AdamWConfig(lr=W.LR, total_steps=W.TOTAL_STEPS), sched,
+             TrainerConfig(capacity=W.CAP, attn_impl="ref", calibrate=False))
+# the weights first: the gloo ranks wait for them
+np.savez(out + "/jax_params.tmp.npz", **_flatten(tr.params))
+os.replace(out + "/jax_params.tmp.npz", out + "/jax_params.npz")
+wave_losses = []
+observe_wave = tr.numerics.observe_wave
+def observe(step, i, loss):
+    wave_losses.append((step, float(loss)))
+    return observe_wave(step, i, loss)
+tr.numerics.observe_wave = observe
+res = {}
+for s in range(W.STEPS):
+    rec = tr.train_step()
+    res.setdefault("loss", []).append(rec["loss"])
+    res.setdefault("grad_norm", []).append(rec["grad_norm"])
+    res.setdefault("waves", []).append(rec["waves"])
+    res[f"wave_losses/{s}"] = [l for st, l in wave_losses if st == s]
+    for key, v in _flatten(tr.params).items():
+        res[f"p{s + 1}/{key}"] = v
+sched.stop()
+res["fp"] = np.array(plans)
+np.savez(out + "/jax_train.npz", **{k: np.asarray(v) for k, v in res.items()})
+"""
+
+LAUNCH_ARGS = ["--arch", "llama3.2-3b", "--reduced", "--steps", "2",
+               "--capacity", "256", "--tokens-per-step", "1024",
+               "--context", "512", "--dataset", "tiny", "--device", "cpu",
+               "--attn-impl", "ref", "--mesh", "2x1"]
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """Start the reference (4 host devices), the port (4 gloo ranks) and
+    the launcher (2 gloo ranks) together; -> (reference results, per-rank
+    port results, the launcher's stdout)."""
+    out = tmp_path_factory.mktemp("hdp_train")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    procs, logs = {}, {}
+    for part, cmd in (
+            ("jax", [sys.executable, "-c", JAX_SCRIPT, str(out)]),
+            ("torch", [sys.executable,
+                       str(ROOT / "tests" / "_torch_hdp_train_worker.py"),
+                       str(out)]),
+            ("launch", [sys.executable, "-m", "repro_torch.launch.train",
+                        *LAUNCH_ARGS])):
+        logs[part] = out / f"{part}.log"
+        with open(logs[part], "w") as log, \
+                open(out / f"{part}.err", "w") as err:
+            procs[part] = subprocess.Popen(
+                cmd, cwd=out if part == "launch" else ROOT, env=env,
+                stdout=log, stderr=err)
+    try:
+        for p in procs.values():
+            p.wait(timeout=600)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for part, p in procs.items():
+        assert p.returncode == 0, (part, logs[part].read_text()[-2000:],
+                                   (out / f"{part}.err").read_text()[-4000:])
+    ref = dict(np.load(out / "jax_train.npz"))
+    ranks = [dict(np.load(out / f"torch_rank{r}.npz")) for r in range(W.R)]
+    return ref, ranks, logs["launch"].read_text()
+
+
+def _leaf_keys(res, prefix):
+    return sorted(k[len(prefix):] for k in res if k.startswith(prefix))
+
+
+# ---------------------------------------------------------------------------
+# (a) three steps against the reference's Trainer at hdp = 4
+# ---------------------------------------------------------------------------
+
+def test_plan_fingerprints_agree_on_every_rank_and_the_reference(results):
+    ref, ranks, _ = results
+    want = ref["fp"].tolist()
+    assert len(want) == W.STEPS and len(set(want)) == W.STEPS
+    for impl in W.IMPLS:
+        for rk in ranks:
+            assert rk[f"{impl}/fp"].tolist() == want, impl
+
+
+@pytest.mark.parametrize("impl", W.IMPLS)
+def test_losses_and_grad_norms_match_the_reference(results, impl):
+    ref, ranks, _ = results
+    for rk in ranks:
+        assert rk[f"{impl}/waves"].tolist() == ref["waves"].tolist()
+        assert rk[f"{impl}/applied"].tolist() == [1] * W.STEPS
+        for s in range(W.STEPS):
+            np.testing.assert_allclose(rk[f"{impl}/wave_losses/{s}"],
+                                       ref[f"wave_losses/{s}"], rtol=F32_TOL)
+        np.testing.assert_allclose(rk[f"{impl}/loss"], ref["loss"],
+                                   rtol=F32_TOL)
+        np.testing.assert_allclose(rk[f"{impl}/grad_norm"], ref["grad_norm"],
+                                   rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("impl", W.IMPLS)
+def test_parameter_updates_match_the_reference(results, impl):
+    """Every step's update (params after - params before) per leaf within
+    1e-3 relative L2 of the reference's."""
+    ref, ranks, _ = results
+    rk = ranks[0]
+    keys = _leaf_keys(rk, f"{impl}/p0/")
+    assert len(keys) > 5 and keys == _leaf_keys(ref, "p1/")
+    for s in range(W.STEPS):
+        for key in keys:
+            got = rk[f"{impl}/p{s + 1}/{key}"] - rk[f"{impl}/p{s}/{key}"]
+            before = rk[f"{impl}/p0/{key}"] if s == 0 else ref[f"p{s}/{key}"]
+            want = ref[f"p{s + 1}/{key}"] - before
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= UPDATE_TOL, (s, key, rel)
+
+
+@pytest.mark.parametrize("impl", W.IMPLS)
+def test_every_rank_holds_the_same_parameters(results, impl):
+    _, ranks, _ = results
+    for s in range(W.STEPS + 1):
+        for key in _leaf_keys(ranks[0], f"{impl}/p{s}/"):
+            for r, rk in enumerate(ranks[1:], 1):
+                np.testing.assert_array_equal(
+                    rk[f"{impl}/p{s}/{key}"], ranks[0][f"{impl}/p{s}/{key}"],
+                    err_msg=f"rank {r} step {s} {key}")
+
+
+# ---------------------------------------------------------------------------
+# (b) ZeRO-1
+# ---------------------------------------------------------------------------
+
+def _abstract_params(name: str, rt1):
+    """[(path, ShapeDtypeStruct)] of a config's parameter tree, from the
+    reference's init traced abstractly (nothing is allocated)."""
+    cfg = jax_config(name)
+    abstract = jax.eval_shape(
+        lambda: JT.init_params(jax.random.PRNGKey(0), cfg, rt1))
+    return abstract, jax.tree_util.tree_flatten_with_path(abstract)[0]
+
+
+@pytest.mark.parametrize("hdp", [2, 4, 8])
+@pytest.mark.parametrize("name", ["llama3.2-3b-reduced", "llama3.2-3b",
+                                  "llama-7b"])
+def test_zero1_dim_matches_zero1_spec(name, hdp, rt1):
+    """Leaf by leaf, the dimension the port shards is the one the
+    reference's `zero1_spec` gives an unsharded leaf at tp = 1."""
+    abstract, leaves = _abstract_params(name, rt1)
+    rt = types.SimpleNamespace(hdp_size=hdp, hdp_axes=("data",))
+    assert len(leaves) > 5
+    for path, leaf in leaves:
+        spec = jzero1.zero1_spec(P(), leaf.shape, rt)
+        want = next((i for i, e in enumerate(spec) if e is not None), None)
+        assert zero1.zero1_dim(leaf.shape, hdp) == want, (path, leaf.shape)
+    # and the analytic bytes, from the same shapes
+    meta = [torch.empty(leaf.shape, dtype=getattr(torch, str(leaf.dtype)),
+                        device="meta") for _, leaf in leaves]
+    assert zero1.zero1_bytes(meta, hdp) == jzero1.zero1_bytes(abstract, rt)
+
+
+def test_reduced_config_shards_every_divisible_leaf():
+    """hdp = 4 on the reduced config: the stacked leaves (2 periods) shard
+    on dim 1, the 1-D norm scales of 64 on dim 0, the embedding on dim 0."""
+    cfg = get_config("llama3.2-3b").reduced()
+    from repro_torch.models.transformer import init_params
+    params = init_params(cfg, device="cpu")
+    assert zero1.zero1_dim(params["embed"].shape, 4) == 0
+    assert zero1.zero1_dim(params["final_norm"]["scale"].shape, 4) == 0
+    assert zero1.zero1_dim(params["blocks"][0]["mlp"]["w_in"].shape, 4) == 1
+
+
+def test_state_holds_this_ranks_shard_only(results):
+    """Every rank's master (and m, v, made alike) is the `zero1_dim` shard
+    of its leaf at hdp = 4."""
+    _, ranks, _ = results
+    full = {k: ranks[0][f"ref/p0/{k}"].shape
+            for k in _leaf_keys(ranks[0], "ref/p0/")}
+    for rk in ranks:
+        got = dict(s.split(":") for s in rk["state_shapes"].tolist())
+        assert sorted(got) == sorted(full)
+        for key, shape in full.items():
+            dim = zero1.zero1_dim(shape, W.R)
+            want = shape if dim is None else zero1.shard_shape(shape, dim,
+                                                               W.R)
+            assert got[key] == str(tuple(want)), key
+
+
+def _ulp_bf16(x):
+    """One bf16 unit in the last place at the magnitude of ``x``."""
+    mag = np.maximum(np.abs(x), np.float32(2.0 ** -126))
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", W.APPLY_DTYPES)
+def test_sharded_apply_equals_the_unsharded_apply(results, dtype):
+    _, ranks, _ = results
+    out = f"apply/{dtype}"
+    full = ranks[0]
+    keys = _leaf_keys(full, f"{out}/full/params/")
+    assert len(keys) > 5
+    for r, rk in enumerate(ranks):
+        for key in keys:
+            got = rk[f"{out}/sharded/params/{key}"]
+            want = full[f"{out}/full/params/{key}"]
+            if dtype == "float32":
+                np.testing.assert_allclose(got, want, atol=APPLY_TOL,
+                                           rtol=APPLY_TOL,
+                                           err_msg=f"rank {r} {key}")
+            else:
+                hold = np.maximum(_ulp_bf16(want), APPLY_TOL)
+                assert np.all(np.abs(got - want) <= hold), \
+                    (r, key, np.abs(got - want).max())
+            for k in ("master", "m", "v"):
+                np.testing.assert_allclose(
+                    rk[f"{out}/sharded/{k}/{key}"], full[f"{out}/full/{k}/{key}"],
+                    atol=APPLY_TOL, rtol=APPLY_TOL, err_msg=f"rank {r} {k} {key}")
+        np.testing.assert_allclose(rk[f"{out}/sharded/om"], full[f"{out}/full/om"],
+                                   rtol=1e-5, err_msg=str(rk[f"{out}/om_keys"]))
+
+
+# ---------------------------------------------------------------------------
+# (c) guard, plan check, planner thread
+# ---------------------------------------------------------------------------
+
+def test_guarded_skip_is_bit_exact_on_every_rank(results):
+    _, ranks, _ = results
+    for r, rk in enumerate(ranks):
+        assert int(rk["guard/applied"]) == 0, r
+        assert int(rk["guard/nonfinite"]) > 0, r
+        assert bool(rk["guard/unchanged"]), r
+        assert int(rk["guard/next_applied"]) == 1, r
+        assert np.isfinite(float(rk["guard/next_loss"])), r
+
+
+def test_mismatched_plans_raise_on_every_rank(results):
+    _, ranks, _ = results
+    for r, rk in enumerate(ranks):
+        assert "planned different steps" in str(rk["mismatch/error"]), r
+
+
+def test_async_planning_gives_the_sync_history(results):
+    _, ranks, _ = results
+    for r, rk in enumerate(ranks):
+        sync = np.stack([rk["ref/loss"], rk["ref/grad_norm"],
+                         rk["ref/waves"]], axis=1)[:2]
+        np.testing.assert_array_equal(rk["async/hist"], sync,
+                                      err_msg=f"rank {r}")
+        assert "item 9" in str(rk["async/calibrate_refused"]), r
+
+
+# ---------------------------------------------------------------------------
+# (d) the launcher
+# ---------------------------------------------------------------------------
+
+def test_launcher_trains_on_two_gloo_ranks(results):
+    *_, stdout = results
+    steps = [ln for ln in stdout.splitlines() if ln.startswith("step")]
+    rec = json.loads([ln for ln in stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    assert len(steps) == 2 and rec["mesh"] == "2x1"
+    assert [s["step"] for s in rec["steps"]] == [1, 2]
+    assert all(np.isfinite(s["loss"]) and s["tokens"] > 0
+               for s in rec["steps"])
+    assert rec["zero1_bytes"]["zero1_param_gather"] > 0
+
+
+def test_launcher_refuses_tensor_parallelism():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        launch_train.main(["--arch", "llama3.2-3b", "--reduced", "--mesh",
+                           "2x2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="NxM"):
+        launch_train.main(["--arch", "llama3.2-3b", "--mesh", "four"])
+
+
+# ---------------------------------------------------------------------------
+# on the card: HostStagedComm, processes sharing one device
+# ---------------------------------------------------------------------------
+
+def _staged_rank(rank: int, store: str, out: str) -> None:
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import HostStagedComm
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        comm = HostStagedComm()
+        dev = comm.device
+        x = torch.arange(8, dtype=torch.float32, device=dev) + 10 * rank
+        got = {"reduce_scatter": comm.reduce_scatter(x),
+               "all_reduce": comm.all_reduce(x.clone()),
+               "broadcast": comm.broadcast(x.clone()),
+               "all_gather": comm.all_gather(x[:2])}
+        gathered = torch.empty(4, device=dev)
+        comm.all_gather_into(gathered, x[:2].contiguous())
+        got["all_gather_into"] = gathered
+        (got["ppermute"],) = comm.ppermute([x], [(0, 1), (1, 0)])
+        assert all(v.device == dev for v in got.values())
+        torch.save({k: v.cpu() for k, v in got.items()},
+                   f"{out}/staged{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_host_staged_comm_moves_cuda_tensors(tmp_path):
+    """Two processes on one card: every collective of `HostStagedComm`
+    takes and returns CUDA tensors with gloo's results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.multiprocessing as mp
+    mp.start_processes(_staged_rank, args=(str(tmp_path / "store"),
+                                           str(tmp_path)),
+                       nprocs=2, join=True, start_method="spawn")
+    x = [torch.arange(8, dtype=torch.float32) + 10 * r for r in range(2)]
+    for r in range(2):
+        got = torch.load(tmp_path / f"staged{r}.pt")
+        total = x[0] + x[1]
+        torch.testing.assert_close(got["reduce_scatter"],
+                                   total[4 * r:4 * r + 4])
+        torch.testing.assert_close(got["all_reduce"], total)
+        torch.testing.assert_close(got["broadcast"], x[0])
+        torch.testing.assert_close(got["all_gather"],
+                                   torch.stack([x[0][:2], x[1][:2]]))
+        torch.testing.assert_close(got["all_gather_into"],
+                                   torch.cat([x[0][:2], x[1][:2]]))
+        torch.testing.assert_close(got["ppermute"], x[1 - r])

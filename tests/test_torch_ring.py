@@ -334,8 +334,10 @@ def test_planner_waves_liveness():
 
 
 def test_single_rank_entry_points_refuse_several_ranks():
-    """The trainer and the serving engine run one rank until their
-    multi-rank versions land; given a comm of 2 ranks they raise."""
+    """Given a comm of 2 ranks, the trainer builds (rank 0's parameters
+    broadcast, each rank its ZeRO-1 shard of the optimiser state) and the
+    serving engine, single-rank until its multi-rank version lands,
+    raises."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.distribution import LengthDistribution
     from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
@@ -352,15 +354,22 @@ def test_single_rank_entry_points_refuse_several_ranks():
     def build(comm):
         rt = Runtime(device="cpu", comm=comm)
         assert rt.hdp_size == 2 and rt.composition == (1, 1)
-        with pytest.raises(NotImplementedError, match="item 3"):
-            Trainer(cfg, rt, AdamWConfig(), sched, TrainerConfig(capacity=256))
+        tr = Trainer(cfg, rt, AdamWConfig(), sched,
+                     TrainerConfig(capacity=256),
+                     params=init_params(cfg, seed=comm.rank, device="cpu"))
         with pytest.raises(NotImplementedError, match="item 10"):
             ServeEngine(params, cfg, rt)
+        return tr.params["embed"], tr.opt_state["master"]["embed"]
 
     try:
-        ThreadRanks(2).run(build)
+        got = ThreadRanks(2).run(build)
     finally:
         sched.stop()
+    for r, (embed, master) in enumerate(got):
+        torch.testing.assert_close(embed, params["embed"], rtol=0, atol=0)
+        half = cfg.vocab_size // 2
+        torch.testing.assert_close(master, params["embed"][
+            r * half:(r + 1) * half].float(), rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

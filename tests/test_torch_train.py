@@ -310,9 +310,20 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings():
     assert sched.spec.use_offload
     tr = Trainer(cfg, rt, opt, sched, TrainerConfig(capacity=256))
     assert not sched.spec.use_offload
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tr.resize(sched)
-    sched.stop()
+    # resize: a scheduler of the same HDP size swaps in (with a fresh
+    # calibrator), as the reference's does; another size needs a new
+    # process group and a ZeRO-1 re-shard through a checkpoint
+    sched2 = GlobalScheduler(ds, cfg, capacity=256, hdp=1)
+    calib = tr.calib
+    tr.resize(sched2)
+    assert tr.sched is sched2 and tr.calib is not calib
+    assert not sched2.spec.use_offload
+    sched4 = GlobalScheduler(ds, cfg, capacity=256, hdp=4)
+    with pytest.raises(NotImplementedError, match="items 5 .* and 9"):
+        tr.resize(sched4)
+    assert tr.sched is sched2
+    for s in (sched, sched2, sched4):
+        s.stop()
 
 
 def test_launcher_trains_on_the_cpu(capsys):
