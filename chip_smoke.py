@@ -95,10 +95,28 @@ Phases (any failure raises and exits non-zero before the result line):
    x (1 + its live visiting blocks) carry launches in the forward and as
    many in the remat recompute, as many dq and dkv, one CE each way, per
    wave; applied == 1.  Prints per-rank peak memory and step wall.
-8. report  — one JSON line of every kernel (launches on the paths that
+8. offload — selective activation offload on the card: llama3.2-3b at
+   full width and depth, hdp = 1, github at context 16384, 16384 tokens a
+   step, capacity 4096, balance, Eq. 3 on.  (a) The plan's waves
+   (composition, c_mult, r, k) are printed and one must offload (step 0:
+   one (1,) wave at c_mult 4, r 0.875, k 24).  That wave then goes
+   through ``grad_step`` outside the Trainer (seed-0 weights) under
+   ``remat="full"`` and ``remat="offload"``: (b) loss and gradients
+   bit-equal (or, were the kernels not run-to-run deterministic, within
+   the full route's own spread); (c) exactly k x 16384 x 3072 x 2 bytes
+   copied each way, the ledger's continuous-r prediction within half a
+   period of it; (d) the forward leaving exactly k period inputs less for
+   the backward, and the wave's peak lower by at least half of them.
+   Prints warm ms both ways, the copy stream's busy time, the card's
+   pinned copy bandwidth (256 MB each way) and Eq. 3's overlap bound per
+   offloaded wave at the reference's constants and at that bandwidth.
+   (e) Three `Trainer` steps with ``use_offload`` and the bytes ledger
+   on: phase 5's checks, and each ledger record's offload bytes exactly
+   k whole periods each way; the ledger's summary is printed.
+9. report  — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
-   ring's and the hdp = 4 trainer's; errors, times, bounds), then the
-   result line.
+   ring's, the hdp = 4 trainer's and the offloading trainer's; errors,
+   times, bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -758,22 +776,24 @@ def train_setup(cfg, *, tokens_per_step=16384, capacity=4096):
                            strategy="balance", use_offload=False)
 
 
-def train_full(torch, cfg, steps=3):
-    """Full width and depth through `Trainer.train_step`; per-wave launch
-    counts through the trainer's telemetry hook (zeroed before the run,
-    read after every wave)."""
+def train_full(torch, cfg, steps=3, sched=None, tcfg=None, tag="train"):
+    """Full width and depth through `Trainer.train_step` (phase 5's
+    scheduler and config unless given); per-wave launch counts through the
+    trainer's telemetry hook (zeroed before the run, read after every
+    wave).  -> (launches, the run's record, its ledger records if the
+    ledger is on)."""
     import numpy as np
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import Runtime
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    sched = train_setup(cfg)
+    sched = sched if sched is not None else train_setup(cfg)
     t0 = time.perf_counter()
     tr = Trainer(cfg, Runtime(device=DEVICE),
                  AdamWConfig(lr=3e-4, warmup_steps=0), sched,
-                 TrainerConfig(capacity=4096))
+                 tcfg if tcfg is not None else TrainerConfig(capacity=4096))
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: {cfg.num_layers} layers, params + optimiser "
+    log(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, params + optimiser "
         f"state {torch.cuda.memory_allocated() / 1e9:.2f} GB, init "
         f"{time.perf_counter() - t0:.1f} s")
     waves = []
@@ -802,7 +822,7 @@ def train_full(torch, cfg, steps=3):
     for w in waves:
         for name, n in w["counts"].items():
             totals[name] += n
-    peak = torch.cuda.max_memory_allocated()
+    peak = tr.peak.high_water()     # over the ledger's per-wave resets
 
     for s in steps_out:
         if s["applied"] != 1:
@@ -827,12 +847,18 @@ def train_full(torch, cfg, steps=3):
            "tokens_per_step": [sum(w["tokens"] for w in waves
                                    if w["step"] == i) for i in range(steps)],
            "peak_mem_gb": peak / 1e9}
+    if tr.offload_store is not None:
+        res["pinned_host_gb"] = tr.offload_store.pinned_bytes / 1e9
     res["tokens_per_s_warm_steps"] = float(
         sum(res["tokens_per_step"][1:]) / sum(res["step_wall_s"][1:]))
-    log(f"[train] {json.dumps(res)}")
+    records = []
+    if tr.ledger is not None:
+        res["ledger"] = tr.ledger.summary()
+        records = tr.ledger.recent(1024)
+    log(f"[{tag}] {json.dumps(res)}")
     del tr
     torch.cuda.empty_cache()
-    return totals
+    return totals, res, records
 
 
 def train_layers2(torch, cfg):
@@ -886,7 +912,7 @@ def phase_train(torch):
     from repro_torch.configs.registry import get_config
     torch.cuda.empty_cache()
     cfg = get_config("llama3.2-3b")
-    launches = train_full(torch, cfg)
+    launches, _, _ = train_full(torch, cfg)
     train_layers2(torch, cfg)
     return launches
 
@@ -1352,14 +1378,267 @@ def phase_hdp_train(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 8. report
+# 8. offload
+# ---------------------------------------------------------------------------
+
+OFF_CONTEXT = 16384             # phase 8: github at context 16384, hdp = 1
+OFF_STEPS = 3
+OFF_COPY_BYTES = 256 * 2**20    # the pinned-copy bandwidth probe, each way
+
+
+def offload_setup(cfg):
+    from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    ds = SyntheticDataset("github", cfg.vocab_size, tokens_per_step=16384,
+                          context=OFF_CONTEXT)
+    return GlobalScheduler(ds, cfg, capacity=4096, hdp=1,
+                           strategy="balance", use_offload=True)
+
+
+def offload_plans(cfg):
+    """Gate (a): the planner's first steps with Eq. 3's offload term; each
+    wave's (composition, c_mult, r, k) is printed and one must offload."""
+    from repro_torch.core.offload import offload_periods
+    sched = offload_setup(cfg)
+    try:
+        plans = [sched.plan_step(s) for s in range(OFF_STEPS)]
+    finally:
+        sched.stop()
+    rows = [[(list(w.composition), w.c_mult, w.offload_ratio,
+              offload_periods(cfg, w.offload_ratio)) for w in p.waves]
+            for p in plans]
+    log(f"[offload] waves (composition, c_mult, r, k) by step: "
+        f"{json.dumps(rows)}")
+    if not any(r > 0 and k >= 1 for step in rows for _, _, r, k in step):
+        raise AssertionError("(a) no wave of the plan offloads")
+    return sched, plans
+
+
+def pinned_bandwidth(torch) -> dict:
+    """Bytes/s of a 256 MB copy each way between pinned host memory and
+    the card (CUDA events, 5 copies after one)."""
+    host = torch.empty(OFF_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(OFF_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    out = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        ms = time_ms(torch, lambda: dst.copy_(src, non_blocking=True), 5)
+        out[name] = OFF_COPY_BYTES / (ms / 1e3)
+    return out
+
+
+def offload_routes(torch, cfg, sched, plan):
+    """Gates (b)-(d) on step 0's first offloading wave, outside the
+    Trainer (seed-0 weights): the same batch through ``grad_step`` under
+    ``remat="full"`` and ``remat="offload"``, in the order full, offload,
+    full, offload.  The fp32 accumulators of the first three runs all
+    exist before the first, so the peaks share one baseline.  Then each
+    route's forward alone, for the memory it holds until the backward.
+    -> the wave's tuple, times, peaks, held bytes, copied bytes and the
+    copy stream's busy time."""
+    from repro_torch.core.offload import offload_periods
+    from repro_torch.data.loader import WaveMaterializer
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs import ledger
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.host_offload import HostOffload
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.train_step import (loss_fn, make_accum_steps,
+                                              zeros_accum)
+    from repro_torch.tree import leaves, tree_map
+
+    wave = next(w for w in plan.waves
+                if offload_periods(cfg, w.offload_ratio) >= 1)
+    k = offload_periods(cfg, wave.offload_ratio)
+    lw = WaveMaterializer(sched.ds, cfg, 4096).materialize(0, wave)
+    batch = {key: torch.tensor(v, device=DEVICE)
+             for key, v in lw.batch.items()}
+    batch["denom"] = torch.tensor(float(plan.denom), device=DEVICE)
+    t = batch["tokens"].shape[0]
+    resid = t * cfg.d_model * 2          # one period's bf16 input residual
+    rt_full = Runtime(device=DEVICE, remat="full")
+    store = HostOffload(rt_full.device)
+    rts = {"full": rt_full,
+           "offload": Runtime(device=DEVICE, remat="offload",
+                              offload_periods=k, offload_store=store)}
+    params = init_params(cfg, seed=0, device=DEVICE)
+    grad_step, _ = make_accum_steps(cfg, rt_full, AdamWConfig())
+    accs = [zeros_accum(params) for _ in range(3)]
+
+    def run(name, acc):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        moved = (store.d2h_bytes, store.h2d_bytes)
+        t0 = time.perf_counter()
+        _, m = grad_step(params, acc, batch, rts[name])
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        return {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                "peak": torch.cuda.max_memory_allocated(),
+                "d2h": store.d2h_bytes - moved[0],
+                "h2d": store.h2d_bytes - moved[1]}
+
+    full_a = run("full", accs[0])
+    off = run("offload", accs[1])
+    full_b = run("full", accs[2])
+    bit_equal = off["loss"] == full_a["loss"] and all(
+        torch.equal(a, b) for a, b in zip(leaves(accs[1]), leaves(accs[0])))
+    full_repeats = full_b["loss"] == full_a["loss"] and all(
+        torch.equal(a, b) for a, b in zip(leaves(accs[2]), leaves(accs[0])))
+    spread = max(float((a - b).abs().max()) for a, b in
+                 zip(leaves(accs[2]), leaves(accs[0])))
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(leaves(accs[1]), leaves(accs[0])))
+    del accs[:2]
+    off_b = run("offload", accs[0])
+    busy = store.busy_ms()
+    del accs
+
+    def held(name):
+        """Device memory the forward leaves for the backward."""
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            loss, _ = loss_fn(live, cfg, rts[name], batch)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() - before
+
+    held_bytes = {name: held(name) for name in ("full", "offload")}
+    del params
+    torch.cuda.empty_cache()
+    pred = ledger.offload_dispatch_bytes(cfg, wave.offload_ratio, t)[0]
+    return {"wave": [list(wave.composition), wave.c_mult,
+                     wave.offload_ratio, k],
+            "tokens": t, "resid_bytes": resid,
+            "loss_full": full_a["loss"], "loss_offload": off["loss"],
+            "bit_equal": bit_equal, "full_repeats_bitwise": full_repeats,
+            "grad_max_abs_diff": err, "full_spread_max_abs": spread,
+            "d2h_bytes": off["d2h"], "h2d_bytes": off["h2d"],
+            "ledger_pred_bytes": pred,
+            "peak_full_gb": full_a["peak"] / 1e9,
+            "peak_offload_gb": off["peak"] / 1e9,
+            "held_after_forward_full": held_bytes["full"],
+            "held_after_forward_offload": held_bytes["offload"],
+            "ms_full": [full_a["ms"], full_b["ms"]],
+            "ms_offload": [off["ms"], off_b["ms"]],
+            "copy_busy_ms": busy}
+
+
+def offload_gates(cfg, res) -> list:
+    fails = []
+    k, resid = res["wave"][3], res["resid_bytes"]
+    # (b) the copies are exact and the recompute is the same; if the
+    # kernels are not run-to-run deterministic, the full route's own
+    # spread over two runs is the hold
+    if not res["bit_equal"] and (res["full_repeats_bitwise"]
+                                 or res["grad_max_abs_diff"]
+                                 > res["full_spread_max_abs"]):
+        fails.append(f"(b) offload route off the full route: loss "
+                     f"{res['loss_offload']} vs {res['loss_full']}, grads "
+                     f"up to {res['grad_max_abs_diff']} (full route's own "
+                     f"spread {res['full_spread_max_abs']})")
+    # (c) exactly k period inputs each way; Eq. 3's continuous ratio
+    # within half a period of the whole periods moved
+    if not res["d2h_bytes"] == res["h2d_bytes"] == k * resid:
+        fails.append(f"(c) moved {res['d2h_bytes']} / {res['h2d_bytes']} "
+                     f"bytes, want {k} x {resid}")
+    if not abs(res["ledger_pred_bytes"] - res["d2h_bytes"]) <= resid / 2:
+        fails.append(f"(c) ledger predicts {res['ledger_pred_bytes']}, "
+                     f"measured {res['d2h_bytes']}")
+    # (d) what the forward leaves for the backward holds exactly k period
+    # inputs fewer; the full route's peak falls in the loss's backward,
+    # with every input resident beside logits and dlogits, but offloading
+    # can move the wave's peak to the end of the backward, where the
+    # per-period grads (201 MB a period here) have piled up and the
+    # inputs are gone, so the peak must fall by half of the k inputs (on
+    # an H100 80GB HBM3 at 700 W it fell by 20.97 of the 24: PERF.md)
+    held = res["held_after_forward_full"] - res["held_after_forward_offload"]
+    if held != k * resid:
+        fails.append(f"(d) the forward holds {held} bytes less, want "
+                     f"{k} x {resid}")
+    saved = (res["peak_full_gb"] - res["peak_offload_gb"]) * 1e9
+    if not saved >= k * resid / 2:
+        fails.append(f"(d) peak lowered by {saved / 1e9:.3f} GB, want >= "
+                     f"{k * resid / 2e9:.3f} GB (half of {k} periods)")
+    return fails
+
+
+def phase_offload(torch, card):
+    """Phase 8 -> launches of the offload path's three trainer steps."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import offload as OF
+    from repro_torch.core.offload import offload_periods
+    from repro_torch.obs import ledger
+    from repro_torch.train.trainer import TrainerConfig
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.2-3b")
+    sched, plans = offload_plans(cfg)
+    bw = pinned_bandwidth(torch)
+    res = offload_routes(torch, cfg, sched, plans[0])
+    res["pinned_gb_s"] = {k: v / 1e9 for k, v in bw.items()}
+    # Eq. 3's overlap bound for each offloading wave's longest sequence,
+    # at the copy's reference constants and at this card's measured rate
+    hw_card = OF.OffloadHW(d2h_bw=bw["d2h"], h2d_bw=bw["h2d"])
+    bound_rows = []
+    for i, p in enumerate(plans):
+        for w in p.waves:
+            if w.offload_ratio <= 0:
+                continue
+            seqs = {}
+            for piece in (x for slot in w.slots for x in slot):
+                seqs[piece.seq_id] = seqs.get(piece.seq_id, 0) + piece.length
+            s = max(seqs.values())
+            bound_rows.append({
+                "step": i, "c_mult": w.c_mult, "r": w.offload_ratio, "s": s,
+                "r_max_reference_hw": OF.max_overlap_ratio(
+                    sched.spec.coeffs, s, OF.OffloadHW()),
+                "r_max_this_card": OF.max_overlap_ratio(
+                    sched.spec.coeffs, s, hw_card)})
+    res["eq3_overlap_bound"] = bound_rows
+    log(f"[offload] {card}: {json.dumps(res)}")
+    fails = offload_gates(cfg, res)
+
+    # (e) three Trainer steps with use_offload, the ledger on
+    ledger.set_ledger_enabled(True)
+    try:
+        launches, run, records = train_full(
+            torch, cfg, steps=OFF_STEPS, sched=offload_setup(cfg),
+            tcfg=TrainerConfig(capacity=4096, use_offload=True,
+                               calibrate=False), tag="offload")
+    finally:
+        ledger.set_ledger_enabled(False)
+    waves = [w for p in plans for w in p.waves]
+    if len(records) != len(waves):
+        fails.append(f"(e) {len(records)} ledger records for "
+                     f"{len(waves)} waves")
+    for rec, w in zip(records, waves):
+        k = offload_periods(cfg, w.offload_ratio)
+        moved = k * 4096 * w.c_mult * cfg.d_model * 2
+        if rec["comp"] != list(w.composition) or rec["c_mult"] != w.c_mult \
+                or rec["meas"]["offload_d2h"] != moved \
+                or rec["meas"]["offload_h2d"] != moved:
+            fails.append(f"(e) ledger record {rec} for a wave of "
+                         f"{w.composition} x{w.c_mult} r {w.offload_ratio}: "
+                         f"want {moved} bytes each way")
+    log(f"[offload] ledger records {json.dumps(records)}")
+    log(f"[offload] phase wall {time.perf_counter() - t0:.1f} s")
+    if fails:
+        raise AssertionError("phase 8: " + "; ".join(fails))
+    if not np.isfinite(run["losses"]).all():
+        raise AssertionError(f"phase 8: losses {run['losses']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 9. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
-                 hdp_launches):
+                 hdp_launches, offload_launches):
     """Launches: the serve path for the forward kernels, the train path for
-    the rest, plus the ring path's and the hdp = 4 trainer's (summed over
-    its ranks)."""
+    the rest, plus the ring path's, the hdp = 4 trainer's (summed over
+    its ranks) and the offloading trainer's."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -1371,7 +1650,7 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": launches[name] + ring_launches[name]
-            + hdp_launches[name],
+            + hdp_launches[name] + offload_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -1401,8 +1680,11 @@ def main() -> int:
     log(f"[ring] done at {time.perf_counter() - t0:.1f} s")
     hdp_launches = phase_hdp_train(torch, card)
     log(f"[hdp_train] done at {time.perf_counter() - t0:.1f} s")
+    offload_launches = phase_offload(torch, card)
+    log(f"[offload] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
-                                ring_launches, hdp_launches)))
+                                ring_launches, hdp_launches,
+                                offload_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""Selective activation offloading — ByteScale Eq. 3 on TPU.
+"""Selective activation offloading — ByteScale Eq. 3.
 
-The cost model is reproduced verbatim; the hardware constants change
-(HBM↔host DMA instead of PCIe D2H/H2D).  Given per-layer compute time
+A copy of `repro/core/offload.py` (only the imports rewritten), so the
+port plans exactly as the reference does.  Given per-layer compute time
 T(s) = α₁s² + β₁s + γ and activation bytes Act(s) = α₂s + β₂, pick the
 offload ratio r that minimizes the number of HDP ranks D(s) needed for a
 sequence of length s, subject to the transfer being hidden under compute:
@@ -10,11 +10,17 @@ sequence of length s, subject to the transfer being hidden under compute:
     T(s) ≥ Act(s)·r / min(B_d2h, B_h2d)
     min(1, l·Act(C) / ((l-2)·Act(s))) ≥ r ≥ 0        (paper's bound)
 
-Execution side: core/models apply the ratio through the remat policy
-``save_and_offload_only_these_names`` — the first round(r·n_periods) layer
-periods offload their residuals to `pinned_host` memory
-(models/transformer.py), reproducing act_ctx's FILO behaviour with XLA's
-host-offload machinery instead of CUDA streams.
+The hardware constants of `OffloadHW` are the reference's defaults, kept
+so that planner parity holds; they are not measured on the card the port
+runs on.  The planner calls `solve_eq3` without ``hw``, so Eq. 3's
+overlap bound uses them (`chip_smoke.py` prints the card's measured
+pinned-copy bandwidth and the bound at both).
+
+Execution side: the first ``offload_periods(cfg, r)`` layer periods of a
+wave keep their input residual in pinned host memory between the forward
+and the backward's recompute (`models/transformer.py::apply_periods`,
+`parallel/host_offload.py`), the FILO order of the paper's act_ctx, with
+a copy stream beside the compute stream.
 """
 from __future__ import annotations
 
@@ -26,10 +32,11 @@ from repro_torch.configs.base import ModelConfig
 
 @dataclass(frozen=True)
 class OffloadHW:
-    """TPU-adapted transfer/compute constants."""
-    d2h_bw: float = 25e9           # device->host bytes/s (DMA)
-    h2d_bw: float = 25e9
-    peak_flops: float = 197e12     # bf16
+    """Transfer/compute constants: the reference's defaults (planner
+    parity), not figures of the port's card."""
+    d2h_bw: float = 25e9           # device->host bytes/s
+    h2d_bw: float = 25e9           # host->device bytes/s
+    peak_flops: float = 197e12     # compute rate, flop/s
 
 
 @dataclass(frozen=True)

@@ -33,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import attention as att
+from repro_torch.obs import ledger
 
 ATTN_IMPLS = ("ref", "flash")
 
@@ -166,6 +167,10 @@ class _RingShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, comm, perm, acc, m, l, kv, seg, pos):
         ctx.comm, ctx.perm = comm, perm
+        if ledger.tally_active():
+            # bytes ledger: the block this rank sends, if it sends one
+            ledger.record_comm("ring", ledger.tensor_bytes(kv, seg, pos)
+                               * sum(a == comm.rank for a, _ in perm))
         kv_b, seg_b, pos_b = comm.ppermute([kv, seg, pos], perm)
         ctx.mark_non_differentiable(seg_b, pos_b)
         return acc, m, l, kv_b, seg_b, pos_b

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.ring import check_composition, ring_liveness, ring_perm
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.obs import ledger
 
 
 @dataclass(frozen=True)
@@ -170,6 +171,12 @@ def ring_flash_fwd(cfg: RingConfig, q, kv, q_seg, k_seg, q_pos, k_pos, kgi,
                                      *state, **cfg.kernel_kw)
 
     blk = [kv, k_seg, k_pos]
+    if cfg.steps and ledger.tally_active():
+        # bytes ledger: the forward's `steps` rotations of this rank's
+        # block, if it sends one (the reverse ring in `ring_flash_bwd` is
+        # not counted: forward traffic only, obs/ledger.py)
+        ledger.record_comm("ring", cfg.steps * ledger.tensor_bytes(*blk)
+                           * sum(a == _rank(comm) for a, _ in cfg.perm))
     # the rotation fetching step 1's block goes out before step 0's kernel
     nxt = comm.ppermute_async(blk, cfg.perm) if cfg.steps else None
     step_kernel(*blk)                  # step 0: the local block

@@ -3,11 +3,15 @@
     python -m repro_torch.launch.train --arch llama3.2-3b [--reduced] \\
         --steps N --capacity C --tokens-per-step N --context L \\
         --dataset D --strategy S --lr X --attn-impl {flash,ref} \\
-        [--mesh NxM] [--device cpu]
+        [--offload] [--mesh NxM] [--device cpu]
 
-Port of `repro/launch/train.py` (mode ``dp``, no PP, no offload).  Runs on
-``cuda`` unless ``--device cpu`` is given, and refuses to start without a
-GPU otherwise.  Prints one line per step, as the reference does.
+Port of `repro/launch/train.py` (mode ``dp``, no PP).  Runs on ``cuda``
+unless ``--device cpu`` is given, and refuses to start without a GPU
+otherwise.  Prints one line per step, as the reference does.
+``--offload`` (off by default, as the reference launcher runs) plans with
+Eq. 3's offload term and runs the offloading waves' leading layer periods
+with their residuals in pinned host memory (``TrainerConfig.use_offload``).
+The bytes ledger (`obs/ledger.py`) is on while ``train`` runs.
 
 ``--mesh Nx1`` (the reference's ``--mesh``) trains on N HDP ranks, one
 process each: one per card over NCCL (``torch.cuda.set_device(rank)``
@@ -15,9 +19,12 @@ before ``init_process_group``), or over gloo with ``--device cpu``.  The
 kernels are built once here, before the ranks are spawned; the optimiser
 state is sharded by ZeRO-1 over the ranks.  Rank 0 prints the step lines
 and, last, one JSON line: per step loss, grad norm, wall and trained
-tokens/s; ms per warm wave by composition (the slowest rank's); every
-rank's peak device memory; the ZeRO-1 bytes of a step.  M > 1 (tensor
-parallelism) is not ported.
+tokens/s; each wave's composition, c_mult, offload ratio r and offloaded
+periods k; ms per warm wave by composition (the slowest rank's); every
+rank's peak device memory; the pinned host memory the offload buffers
+hold; the ZeRO-1 bytes of a step; the ledger's
+totals (predicted and measured ring and offload bytes, predicted and
+measured peak memory).  M > 1 (tensor parallelism) is not ported.
 """
 from __future__ import annotations
 
@@ -29,10 +36,13 @@ import tempfile
 from collections import defaultdict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.core.offload import offload_periods
 from repro_torch.data.distribution import DISTRIBUTIONS, LengthDistribution
 from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+from repro_torch.obs import ledger
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.parallel.zero1 import zero1_bytes
@@ -73,39 +83,52 @@ def _mesh(text: str):
 def train(args, comm=None, say=print):
     """Builds the trainer on ``comm``'s ranks (None: one) and runs
     ``args.steps`` steps -> (trainer, every dispatched wave as
-    (composition, fresh, per-rank seconds))."""
+    (composition, fresh, per-rank seconds, (c_mult, r, k)), this rank's
+    peak device memory in bytes (None on the CPU))."""
     rt = Runtime(device=args.device, attn_impl=args.attn_impl, comm=comm)
     cfg, ds = _resolve_config(args)
     sched = GlobalScheduler(ds, cfg, capacity=args.capacity,
                             hdp=rt.hdp_size, strategy=args.strategy,
-                            use_offload=False)
+                            use_offload=args.offload)
     waves, step_waves = [], []
+    was_on = ledger.ledger_enabled()
+    ledger.set_ledger_enabled(True)
     try:
         trainer = Trainer(cfg, rt, AdamWConfig(lr=args.lr,
                                                total_steps=args.steps),
-                          sched, TrainerConfig(capacity=args.capacity))
-        trainer.telemetry_fn = lambda ws, measured, fresh, wall_s=None: \
-            step_waves.append((str(tuple(ws[0].composition)), fresh))
+                          sched, TrainerConfig(capacity=args.capacity,
+                                               use_offload=args.offload))
+
+        def telemetry(ws, measured, fresh, wall_s=None):
+            w = ws[0]
+            k = offload_periods(cfg, w.offload_ratio) \
+                if trainer.offload_ok else 0
+            step_waves.append((str(tuple(w.composition)), fresh,
+                               (w.c_mult, w.offload_ratio, k)))
+        trainer.telemetry_fn = telemetry
         for rec in trainer.run(args.steps):
             secs = trainer.last_numerics["wave_seconds"]
-            waves += [(comp, fresh, np.atleast_1d(s).tolist())
-                      for (comp, fresh), s in zip(step_waves, secs)]
+            waves += [(comp, fresh, np.atleast_1d(s).tolist(), key)
+                      for (comp, fresh, key), s in zip(step_waves, secs)]
             step_waves.clear()
             say(f"step {rec['step']:4d} loss {rec['loss']:.4f} "
                 f"waves {rec['waves']} wall {rec['wall_s']:.1f}s",
                 flush=True)
     finally:
         sched.stop()      # the planner thread must not outlive the loop
-    return trainer, waves
+        ledger.set_ledger_enabled(was_on)
+    return trainer, waves, trainer.peak.high_water()
 
 
 def summary(args, trainer, waves, peaks) -> dict:
     """The run's JSON record (see the module docstring)."""
     by_comp = defaultdict(list)
-    for comp, fresh, secs in waves:
+    for comp, fresh, secs, (c_mult, _, _) in waves:
         if not fresh:
-            by_comp[comp].append(max(secs) * 1e3)
+            by_comp[f"{comp} x{c_mult}"].append(max(secs) * 1e3)
     hdp = trainer.rt.hdp_size
+    led = trainer.ledger.summary()
+    totals = trainer.ledger.totals
     return {
         "arch": args.arch, "reduced": args.reduced, "mesh": f"{hdp}x1",
         "device": str(trainer.rt.device),
@@ -114,17 +137,26 @@ def summary(args, trainer, waves, peaks) -> dict:
                                         "waves", "tokens", "wall_s")},
                    "tokens_per_s": r["tokens"] / r["wall_s"]}
                   for r in trainer.history],
-        "warm_ms_per_wave_by_composition": {
+        "warm_ms_per_wave_by_composition_x_c_mult": {
             k: float(np.mean(v)) for k, v in sorted(by_comp.items())},
-        "warm_waves_by_composition": {k: len(v) for k, v in
-                                      sorted(by_comp.items())},
+        "warm_waves_by_composition_x_c_mult": {
+            k: len(v) for k, v in sorted(by_comp.items())},
+        "waves": [{"composition": comp, "c_mult": c_mult, "r": r, "k": k}
+                  for comp, _, _, (c_mult, r, k) in waves],
+        "offload": bool(trainer.offload_ok),
+        "pinned_host_gb": trainer.offload_store.pinned_bytes / 1e9
+        if trainer.offload_store is not None else 0.0,
         "peak_mem_gb_by_rank": peaks,
-        "zero1_bytes": zero1_bytes(trainer.params, hdp)}
+        "zero1_bytes": zero1_bytes(trainer.params, hdp),
+        "ledger": {"pred": totals["pred"], "meas": totals["meas"],
+                   "hbm_pred_peak_gb": led["hbm_pred_peak"] / 1e9,
+                   "hbm_meas_peak_gb": led["hbm_meas_peak"] / 1e9,
+                   "comm_residual": led["comm_residual"],
+                   "dispatches": led["n"]}}
 
 
 def _rank_main(rank: int, hdp: int, args, store: str) -> None:
     import datetime
-    import torch
     import torch.distributed as dist
     from repro_torch.parallel.comm import ProcessGroupComm
     cuda = args.device is None or args.device.startswith("cuda")
@@ -140,9 +172,8 @@ def _rank_main(rank: int, hdp: int, args, store: str) -> None:
     try:
         comm = ProcessGroupComm()
         say = print if rank == 0 else (lambda *a, **k: None)
-        trainer, waves = train(args, comm, say)
-        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9
-                             if cuda else float("nan")],
+        trainer, waves, peak = train(args, comm, say)
+        peak = torch.tensor([peak / 1e9 if cuda else float("nan")],
                             dtype=torch.float64, device=comm.device)
         peaks = comm.all_gather(peak).flatten().tolist()
         if rank == 0:
@@ -171,6 +202,9 @@ def main(argv=None):
                     help="attention and cross-entropy backend: the "
                          "hand-written kernels (flash; their plain versions "
                          "on the CPU) or the plain oracle (ref)")
+    ap.add_argument("--offload", action="store_true",
+                    help="selective activation offload (Eq. 3 plans, the "
+                         "leading periods' residuals in pinned host memory)")
     ap.add_argument("--mesh", default="1x1",
                     help="NxM: N HDP ranks, one process each (M, tensor "
                          "parallelism, must be 1)")
@@ -181,7 +215,6 @@ def main(argv=None):
     if hdp == 1:
         return train(args)[0]
 
-    import torch
     import torch.multiprocessing as mp
     if args.device is None or args.device.startswith("cuda"):
         if torch.cuda.device_count() < hdp:

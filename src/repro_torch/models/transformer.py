@@ -23,12 +23,12 @@ import math
 from typing import Optional
 
 import torch
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ring as R
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import Runtime, resolve_device
+from repro_torch.tree import leaves, tree_map
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -213,34 +213,92 @@ def apply_periods(blocks, cfg: ModelConfig, rt: Runtime, x, seg, pos,
     iteration per period.  ``collect`` receives one list per period of the
     per-position KV rows.
 
-    With ``rt.remat == "full"`` and grad enabled, each period runs under
-    ``torch.utils.checkpoint`` (the reference's per-period
-    ``jax.checkpoint``): only its input residual is kept and the backward
-    recomputes the period.  The stacked params are unbound once per call,
-    so the backward stacks each leaf's per-period grads in one copy
-    instead of scattering every period into a full-size zero tensor."""
+    With ``rt.remat != "none"`` and grad enabled, each period is a
+    `_Period` node (the reference's per-period ``jax.checkpoint``): only
+    its input residual is kept and the backward recomputes the period.
+    The stacked params are unbound once per call, so the backward stacks
+    each leaf's per-period grads in one copy instead of scattering every
+    period into a full-size zero tensor.
+
+    With ``rt.remat == "offload"`` (the reference's offload branch) the
+    first ``k = min(offload_periods, n_periods)`` periods keep that input
+    in host memory (``rt.offload_store``, `parallel/host_offload.py`,
+    which k > 0 needs); the rest keep it on the device, as ``"full"``
+    does.  At ``offload_periods = 0`` the route is ``"full"``'s."""
     period = len(cfg.layer_pattern)
     head_n = head_layer_count(cfg)
     layers = [_unstack(b) for b in blocks]          # [position][period]
-    remat = (rt.remat == "full" and torch.is_grad_enabled()
+    n = len(layers[0])
+    remat = (rt.remat != "none" and torch.is_grad_enabled()
              and collect is None)
+    k = min(rt.offload_periods, n) if remat and rt.remat == "offload" else 0
+    store = rt.offload_store
+    if k:
+        if store is None:
+            raise ValueError(
+                f"remat='offload' with offload_periods={k} needs "
+                f"rt.offload_store (a parallel.host_offload.HostOffload)")
+        store.begin()
 
-    def period_body(x, i, kvs):
+    def period_body(x, ps, kvs):
         for j in range(period):
-            x = block_forward(layers[j][i], cfg, rt, x, seg, pos, head_n + j,
+            x = block_forward(ps[j], cfg, rt, x, seg, pos, head_n + j,
                               collect=kvs)
         return x
 
-    for i in range(len(layers[0])):
+    for i in range(n):
+        ps = [layers[j][i] for j in range(period)]
         if remat:
-            x = torch.utils.checkpoint.checkpoint(period_body, x, i, None,
-                                                  use_reentrant=False)
+            x = _Period.apply(period_body, ps, i, k, store, x, *leaves(ps))
             continue
         kvs = None if collect is None else []
-        x = period_body(x, i, kvs)
+        x = period_body(x, ps, kvs)
         if collect is not None:
             collect.append(kvs)
     return x
+
+
+class _Period(torch.autograd.Function):
+    """One layer period under remat: the forward runs it without a graph
+    and keeps its input, in host memory for the first k periods
+    (`HostOffload.save`, the copy overlapping the period) and on the
+    device for the rest; the backward first starts bringing back the
+    input of the period before it (one period ahead, FILO), then
+    recomputes this period from its input under grad and differentiates
+    it.  The weights are inputs of the node, so their grads flow on into
+    the unbind of the stacked params."""
+
+    @staticmethod
+    def forward(ctx, body, ps, i, k, store, x, *weights):
+        ctx.body, ctx.ps, ctx.i, ctx.k, ctx.store = body, ps, i, k, store
+        if i >= k:
+            ctx.save_for_backward(x, *weights)
+            return body(x, ps, None)
+        store.save(i, x)
+        ctx.save_for_backward(*weights)
+        y = body(x, ps, None)
+        store.release(i)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        i, k, store = ctx.i, ctx.k, ctx.store
+        if i < k:              # started by period i + 1, unless i = n - 1
+            store.prefetch(i)
+        if 0 < i <= k:         # the next input the backward needs
+            store.prefetch(i - 1)
+        if i < k:
+            x, weights = store.load(i), ctx.saved_tensors
+        else:
+            x, *weights = ctx.saved_tensors
+        x = x.detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in weights]
+        it = iter(ws)
+        ps = tree_map(lambda _: next(it), ctx.ps)
+        with torch.enable_grad():
+            y = ctx.body(x, ps, None)
+        grads = torch.autograd.grad(y, [x, *ws], gy)
+        return (None, None, None, None, None, *grads)
 
 
 def _unstack(tree) -> list:

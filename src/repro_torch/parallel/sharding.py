@@ -7,12 +7,20 @@ is one rank, where every composition is ``(1,)``.  A composition must sum
 to the HDP size; left out, it is all singletons.  The device defaults to
 ``cuda``; without a GPU the caller must ask for ``device="cpu"``
 explicitly — a runtime never falls back to the CPU on its own.
+
+``remat="offload"`` with ``offload_periods = k`` is the reference's
+selective offload: the first k layer periods keep their input residual in
+host memory between the forward and the recompute of the backward
+(`parallel/host_offload.py`), the rest are recomputed from a residual
+kept on the device.  ``offload_store`` holds the host buffers, and k > 0
+needs one; the trainer hands one store to every wave, so the buffers are
+reused from wave to wave.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import torch
 
@@ -20,6 +28,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ring import ATTN_IMPLS, check_composition
 from repro_torch.models.layers import gqa_layout
 from repro_torch.parallel.comm import HdpComm
+
+if TYPE_CHECKING:
+    from repro_torch.parallel.host_offload import HostOffload
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -36,6 +47,9 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     return dev
 
 
+REMATS = ("none", "full", "offload")
+
+
 @dataclass(frozen=True)
 class Runtime:
     device: Optional[Union[str, torch.device]] = None
@@ -48,8 +62,14 @@ class Runtime:
     block_skip: bool = True
     remat: str = "full"               # none | full: recompute each layer
                                       # period in the backward
-                                      # (torch.utils.checkpoint)
+                                      # (models.transformer._Period) |
+                                      # offload: full, the first
+                                      # offload_periods periods' inputs
+                                      # in host memory
+    offload_periods: int = 0
     comm: Optional[HdpComm] = None    # the HDP ranks; None: one rank
+    offload_store: Optional["HostOffload"] = field(
+        default=None, compare=False, repr=False)   # needed at k > 0
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
@@ -60,12 +80,10 @@ class Runtime:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{ATTN_IMPLS}")
-        if self.remat == "offload":
-            raise NotImplementedError(
-                "remat='offload' (selective activation offload) comes with "
-                "the offload slice of the port (ROADMAP queue 1 item 4)")
-        if self.remat not in ("none", "full"):
-            raise ValueError(f"remat {self.remat!r} not in ('none', 'full')")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat {self.remat!r} not in {REMATS}")
+        if self.offload_periods < 0:
+            raise ValueError(f"offload_periods {self.offload_periods} < 0")
 
     @property
     def tp(self) -> int:

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.loss import token_ce_loss
 from repro_torch.models.transformer import forward_hidden
+from repro_torch.obs import ledger
 from repro_torch.obs import numerics as NU
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import Runtime
@@ -116,7 +117,8 @@ def make_accum_steps(cfg: ModelConfig, rt: Runtime,
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss, metrics = loss_fn(live, cfg, rt_wave, batch)
-            grads = torch.autograd.grad(loss, leaves(live))
+            with ledger.paused():     # the bytes ledger counts the forward
+                grads = torch.autograd.grad(loss, leaves(live))
         with torch.no_grad():
             for acc, g in zip(leaves(grad_accum), grads):
                 acc.add_(g)

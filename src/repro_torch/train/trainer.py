@@ -21,18 +21,33 @@ all-gather a step carries every rank's per-wave loss shares and seconds,
 so the step's losses and the calibrator's per-rank times are the same on
 every rank.
 
+With ``use_offload`` the planner sizes groups with Eq. 3's offload term
+and each wave with an offload ratio r > 0 runs under ``remat="offload"``:
+its first `core.offload.offload_periods` layer periods keep their input
+residual in pinned host memory between the forward and the backward's
+recompute (`parallel/host_offload.py`: one set of host buffers for all
+the waves, grown to the largest and reused); over several ranks each rank
+offloads its own rows.
+
+The bytes ledger (`obs/ledger.py`, on with tracing or ``REPRO_LEDGER``)
+gets one record per wave: the predicted ring, offload and ZeRO-1 bytes
+beside the measured ones (this rank's forward sends and offload copies,
+summed over the ranks in the step's all-gather) and the wave's peak
+device memory (the largest over the ranks).  ``peak.high_water()`` is the
+peak over the whole run, which the per-dispatch resets hide from
+``torch.cuda.max_memory_allocated``.
+
 What the port does not run yet raises `NotImplementedError` naming the
 ROADMAP queue item that brings it: checkpointing (``ckpt_dir``, queue 1
-item 5), pipeline parallelism (queue 1 item 7), offload execution (queue 1
-item 4), ``resize`` to another HDP size (queue 1 items 5 and 9) and the
-planner thread with calibration over several ranks (queue 1 item 9).  The
-numerics monitor, step provenance and the bytes ledger come with queue 1
-item 9.
+item 5), pipeline parallelism (queue 1 item 7), ``resize`` to another HDP
+size (queue 1 items 5 and 9) and the planner thread with calibration over
+several ranks (queue 1 item 9).  The numerics monitor and step provenance
+come with queue 1 item 9.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -41,12 +56,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.offload import offload_periods
 from repro_torch.data.loader import GlobalScheduler, WaveMaterializer
 from repro_torch.models.transformer import init_params
 from repro_torch.obs import get_metrics, get_recorder, get_tracer
+from repro_torch.obs import ledger as ledger_mod
 from repro_torch.obs.numerics import plan_fingerprint
 from repro_torch.optim import adamw
+from repro_torch.parallel.host_offload import HostOffload, PeakMeter
 from repro_torch.parallel.sharding import Runtime
+from repro_torch.parallel.zero1 import zero1_bytes
 from repro_torch.sched.calibrate import OnlineCalibrator, fit_length_of
 from repro_torch.train.train_step import make_accum_steps, zeros_accum
 from repro_torch.tree import leaves
@@ -58,7 +77,9 @@ class TrainerConfig:
     steps: int = 10
     ckpt_dir: Optional[str] = None   # checkpointing: not ported yet
     mode: str = "dp"                 # balance mode ("pp": not ported yet)
-    use_offload: bool = False        # offload remat: not ported yet
+    use_offload: bool = False        # offload remat (Eq. 3 plans, the
+                                     # leading periods' inputs in pinned
+                                     # host memory)
     straggler_ema: float = 0.5
     attn_impl: Optional[str] = None  # override Runtime.attn_impl per run:
                                      # "ref" (plain oracle) | "flash" (the
@@ -94,9 +115,6 @@ class Trainer:
         if scheduler.spec.num_stages > 1 or tcfg.mode == "pp":
             raise NotImplementedError(
                 "pipeline parallelism comes with ROADMAP queue 1 item 7")
-        if tcfg.use_offload and scheduler.spec.use_offload:
-            raise NotImplementedError(
-                "offload execution comes with ROADMAP queue 1 item 4")
         self.cfg = cfg
         self.rt = rt if rt is not None else Runtime()
         if tcfg.sched_async and tcfg.calibrate and self.rt.hdp_size > 1:
@@ -113,7 +131,11 @@ class Trainer:
         if scheduler.hdp != self.rt.hdp_size:
             raise ValueError(f"plan world {scheduler.hdp} must match the "
                              f"runtime's {self.rt.hdp_size} rank(s)")
-        self.offload_ok = False
+        self.offload_ok = tcfg.use_offload
+        # one set of host buffers for every wave (grown to the largest)
+        self.offload_store = HostOffload(self.rt.device) \
+            if self.offload_ok else None
+        self.peak = PeakMeter(self.rt.device)   # per-dispatch peaks
         self._align_offload(scheduler)
         self.loader = WaveMaterializer(scheduler.ds, cfg, tcfg.capacity)
         self.params = params if params is not None else init_params(
@@ -125,7 +147,7 @@ class Trainer:
         self.step = 0
         self.grad_step, self.apply_step = make_accum_steps(
             cfg, self.rt, opt_cfg, guard=tcfg.numerics_guard)
-        self._exec_cache: Dict[tuple, object] = {}
+        self._exec_cache: Dict[tuple, Runtime] = {}
         self.history: list = []
         self.calib = OnlineCalibrator(
             scheduler.spec.coeffs, self.rt.hdp_size, cfg.num_layers,
@@ -137,35 +159,43 @@ class Trainer:
                                      # wall_s=host wall) for every dispatch
                                      # (this rank's time)
         self._clock = time.perf_counter
+        self.ledger: Optional[ledger_mod.Ledger] = None   # built on the
+        # first dispatch with tracing or REPRO_LEDGER on
+        self.last_ledger_record: Optional[Dict] = None
         self.last_numerics: Optional[Dict] = None   # the last step's
         # loss, per-wave losses and seconds, sentinels and applied flag
         if tcfg.sched_async:
             scheduler.service.attach_materializer(self.loader)
 
     def _align_offload(self, scheduler: GlobalScheduler):
-        """Waves cannot offload here, so the scheduler must not size groups
+        """Keep plan and execution consistent: when waves do not offload
+        (off in the TrainerConfig), the scheduler must not size groups
         with Eq. 3's offload term either."""
         if scheduler.spec.use_offload and not self.offload_ok:
             scheduler.spec = scheduler.spec.replace(use_offload=False)
 
-    def _wave_rt(self, composition) -> Runtime:
+    def _wave_rt(self, composition, offload_ratio) -> Runtime:
         rt_wave = self.rt.with_composition(composition)
         if self.tcfg.attn_impl is not None:
             rt_wave = dataclasses.replace(rt_wave,
                                           attn_impl=self.tcfg.attn_impl)
+        if self.offload_ok and offload_ratio > 0:
+            k = offload_periods(self.cfg, offload_ratio)
+            rt_wave = dataclasses.replace(
+                rt_wave, remat="offload", offload_periods=k,
+                offload_store=self.offload_store)
         return rt_wave
 
     def _wave_fn(self, composition, c_mult, offload_ratio):
-        """-> (callable, fresh): ``fresh`` marks a cache miss (on the card
-        the first dispatch also builds the kernels; the calibrator skips
-        it)."""
+        """-> (the wave's runtime, fresh): ``fresh`` marks a cache miss (on
+        the card the first dispatch also builds the kernels; the
+        calibrator skips it)."""
         key = (tuple(composition), c_mult, round(offload_ratio, 2))
         fresh = key not in self._exec_cache
         get_metrics().counter("trainer.compile_miss" if fresh
                               else "trainer.compile_hit").inc()
         if fresh:
-            self._exec_cache[key] = functools.partial(
-                self.grad_step, rt_wave=self._wave_rt(composition))
+            self._exec_cache[key] = self._wave_rt(composition, offload_ratio)
         return self._exec_cache[key], fresh
 
     def resize(self, new_hdp_scheduler: GlobalScheduler):
@@ -224,44 +254,104 @@ class Trainer:
                 f"step {self.step}: the HDP ranks planned different steps "
                 f"(plan fingerprint prefixes by rank {got})")
 
-    def _share_waves(self, losses, seconds):
+    def _share_waves(self, losses, seconds, meas=None):
         """Over several ranks, one all-gather of every rank's per-wave loss
         shares and seconds -> (each wave's loss, summed over the ranks;
-        each wave's [hdp] seconds), the same on every rank.  At one rank
-        the inputs themselves."""
+        each wave's [hdp] seconds; ``meas``), the same on every rank.  With
+        the ledger on, ``meas`` (each wave's [ring, d2h, h2d bytes, peak]
+        of this rank) rides the same all-gather and comes back as fleet
+        totals: bytes summed over the ranks, the largest peak.  At one
+        rank the inputs themselves."""
         if self.rt.hdp_size == 1:
-            return losses, seconds
+            return losses, seconds, meas
         n = len(losses)
+        flat = [x for m in meas for x in m] if meas is not None else []
         got = self.rt.comm.all_gather(torch.tensor(
-            losses + seconds, dtype=torch.float64,
+            losses + seconds + flat, dtype=torch.float64,
             device=self.rt.device)).cpu().numpy()
+        if meas is not None:
+            m = got[:, 2 * n:].reshape(self.rt.hdp_size, n, 4)
+            meas = [[*m[:, i, :3].sum(axis=0).tolist(),
+                     float(m[:, i, 3].max())] for i in range(n)]
         return [float(x) for x in got[:, :n].sum(axis=0)], \
-            [got[:, n + i] for i in range(n)]
+            [got[:, n + i] for i in range(n)], meas
 
-    def _dispatch(self, tr, fn, grads, batch, idx: int, composition,
-                  fresh: bool, wave):
+    def _ensure_ledger(self, tr) -> Optional[ledger_mod.Ledger]:
+        """The bytes ledger (obs/ledger.py), built on the first dispatch
+        with tracing or REPRO_LEDGER on (on every rank alike: its tallies
+        ride the step's all-gather), and rebuilt after a resize.  None
+        when the ledger is off (zero cost on the disabled path)."""
+        if not (tr.enabled or ledger_mod.ledger_enabled()):
+            return None
+        if self.ledger is None or self.ledger.hdp != self.sched.hdp:
+            self.ledger = ledger_mod.Ledger(
+                self.cfg, capacity=self.tcfg.capacity, hdp=self.sched.hdp,
+                coeffs=self.sched.spec.coeffs,
+                offload_active=self.offload_ok)
+            self.ledger.set_step_bytes(zero1_bytes(self.params,
+                                                   self.rt.hdp_size))
+        return self.ledger
+
+    def _dispatch(self, tr, led, rt_wave: Runtime, grads, batch, idx: int,
+                  composition, fresh: bool, wave):
         """Run one wave under a span; a fresh cache entry's first call sits
         in a nested "compile" span.  The loss fetch blocks until the wave
-        has run, so the time is the wave's."""
+        has run, so the time is the wave's.  With the ledger on (``led``)
+        -> also this rank's [ring bytes sent in the forward, offload d2h
+        and h2d bytes, peak device memory of the dispatch (nan on the
+        CPU)]."""
         extra = {}
         if tr.enabled:
             extra = {"cost_max": round(float(max(wave.costs)), 9),
                      "cost_sum": round(float(sum(wave.costs)), 9),
                      "tokens": int(sum(p.length for slot in wave.slots
                                        for p in slot))}
+        store = self.offload_store
+        moved = (store.d2h_bytes, store.h2d_bytes) if store else (0, 0)
+        if led is not None:
+            self.peak.start()
         with tr.span("wave", step=self.step, idx=idx,
                      composition=composition, fresh=fresh, **extra):
             t_w = self._clock()
-            if fresh:
-                with tr.span("compile", step=self.step,
-                             composition=composition):
-                    grads, metrics = fn(self.params, grads, batch)
-                    loss = float(metrics["loss"])
-            else:
-                grads, metrics = fn(self.params, grads, batch)
+            with (ledger_mod.capture() if led is not None
+                  else contextlib.nullcontext({})) as tally, \
+                    (tr.span("compile", step=self.step,
+                             composition=composition) if fresh
+                     else contextlib.nullcontext()):
+                grads, metrics = self.grad_step(self.params, grads, batch,
+                                                rt_wave)
                 loss = float(metrics["loss"])
             dt = self._clock() - t_w
-        return grads, loss, dt
+        meas = None
+        if led is not None:
+            peak = self.peak.read()
+            meas = [tally.get("ring", 0.0),
+                    float(store.d2h_bytes - moved[0]) if store else 0.0,
+                    float(store.h2d_bytes - moved[1]) if store else 0.0,
+                    float("nan") if peak is None else float(peak)]
+        return grads, loss, dt, meas
+
+    def _record_ledger(self, led, keys, fresh_flags, meas) -> None:
+        """One ledger record per wave of the step, from the fleet tallies
+        (the reference's per-dispatch record), and its metrics."""
+        mx = get_metrics()
+        for i, ((comp, c_mult, ratio), m) in enumerate(zip(keys, meas)):
+            ring, d2h, h2d, peak = m
+            rec = led.record_dispatch(
+                step=self.step, idx=i, kind="wave", composition=comp,
+                c_mult=c_mult, offload_ratio=ratio, fresh=fresh_flags[i],
+                measured={"ring": ring, "offload_d2h": d2h,
+                          "offload_h2d": h2d},
+                hbm_peak=peak if np.isfinite(peak) else None)
+            self.last_ledger_record = rec
+            mx.counter("comm.pred_bytes").inc(sum(rec["pred"].values()))
+            mx.counter("comm.meas_bytes").inc(sum(rec["meas"].values()))
+            mx.gauge("mem.hbm_pred_peak").set(float(rec["hbm_pred"]))
+            if "hbm_meas" in rec:
+                mx.gauge("mem.hbm_meas_peak").set(rec["hbm_meas"])
+            self.calib.observe_bytes(sum(rec["pred"].values()),
+                                     sum(rec["meas"].values()))
+            mx.gauge("comm.residual").set(led.comm_residual())
 
     def _nan_fault_hits(self, idx: int) -> bool:
         nf = self.tcfg.nan_fault
@@ -298,7 +388,9 @@ class Trainer:
         self._check_plan(plan)
         denom = float(plan.denom)
         grads = zeros_accum(self.params)
+        led = self._ensure_ledger(tr)
         losses, seconds, measured, fresh_flags = [], [], [], []
+        keys, meas = [], []
         wave_iter = iter(pre_waves) if pre_waves is not None \
             else self.loader.iter_step(self.step, plan)
         for i in range(len(plan.waves)):
@@ -306,10 +398,13 @@ class Trainer:
                 lw = next(wave_iter)
             wave = plan.waves[i]
             batch = self._to_device(lw.batch, denom, i)
-            fn, fresh = self._wave_fn(lw.composition, lw.c_mult,
-                                      lw.offload_ratio)
-            grads, loss, dt = self._dispatch(tr, fn, grads, batch, i,
-                                             lw.composition, fresh, wave)
+            rt_wave, fresh = self._wave_fn(lw.composition, lw.c_mult,
+                                           lw.offload_ratio)
+            grads, loss, dt, m = self._dispatch(tr, led, rt_wave, grads,
+                                                batch, i, lw.composition,
+                                                fresh, wave)
+            keys.append((tuple(lw.composition), lw.c_mult, lw.offload_ratio))
+            meas.append(m)
             losses.append(loss)
             seconds.append(dt)
             fresh_flags.append(fresh)
@@ -320,7 +415,10 @@ class Trainer:
                 self.telemetry_fn([wave], measured[-1], fresh, wall_s=dt)
         for _ in wave_iter:             # drain the prefetch epilogue so
             pass                        # producer errors still surface
-        losses, rank_seconds = self._share_waves(losses, seconds)
+        losses, rank_seconds, meas = self._share_waves(
+            losses, seconds, meas if led is not None else None)
+        if led is not None:
+            self._record_ledger(led, keys, fresh_flags, meas)
         modeled = self.wave_time_fn is not None
         for i, wave in enumerate(plan.waves):
             self._observe([wave], measured[i] if modeled

@@ -3,12 +3,17 @@
 npz for the test to hold against the reference.
 
     python tests/_torch_hdp_train_worker.py OUT_DIR
+    python tests/_torch_hdp_train_worker.py --ledger OUT_DIR
 
 Imports torch and the port only (no JAX), so the four spawned ranks start
 light.  Every scenario waits for the reference's initial parameters
-(``OUT_DIR/jax_params.npz``, written by the JAX side before it trains), so
-both sides start from the same weights.  Each rank writes
-``OUT_DIR/torch_rank{r}.npz``.
+(``OUT_DIR/jax_params.npz``, and ``OUT_DIR/jax_params_offload.npz`` for
+the offload runs; written by the JAX side before it trains), so both sides
+start from the same weights.  Each rank writes ``OUT_DIR/torch_rank{r}.npz``.
+
+``--ledger`` runs only the offload scenario, with the bytes ledger on and
+seeded weights (`tests/test_torch_ledger.py`); each rank writes
+``OUT_DIR/ledger_rank{r}.npz``.
 """
 from __future__ import annotations
 
@@ -26,33 +31,46 @@ LR, TOTAL_STEPS = 1e-3, 8
 DIST = ("tiny", 4.5, 0.8, 0.1, 1.5, 256)      # tests/test_system.py
 IMPLS = ("ref", "flash")
 APPLY_DTYPES = ("float32", "bfloat16")
+# the offload scenario: 4 layers, so that 0 < k < n is reachable; this
+# mix plans a (4,) ring wave that also offloads (r 0.375, k 2) and
+# singleton waves at k = 4 and k = 2
+OFF_LAYERS, OFF_TOKENS, OFF_CONTEXT = 4, 2048, 2048
+OFF_RUNS = tuple(f"offload-{impl}" for impl in IMPLS)
+LEDGER_KINDS = ("ring", "offload_d2h", "offload_h2d")
 
 
-def config(dtype: str = "float32"):
+def config(dtype: str = "float32", layers: int = 0):
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config("llama3.2-3b").reduced(),
-                               dtype=dtype)
+    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
+                              dtype=dtype)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
-def scheduler(cfg, seed: int = 0, sched_async: bool = False):
+def scheduler(cfg, seed: int = 0, sched_async: bool = False,
+              use_offload: bool = False):
     from repro_torch.data.distribution import LengthDistribution
     from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    tokens, context = (OFF_TOKENS, OFF_CONTEXT) if use_offload \
+        else (TOKENS, CONTEXT)
     ds = SyntheticDataset(LengthDistribution(*DIST), cfg.vocab_size,
-                          tokens_per_step=TOKENS, context=CONTEXT, seed=seed)
-    return GlobalScheduler(ds, cfg, capacity=CAP, hdp=R, use_offload=False,
-                           sched_async=sched_async)
+                          tokens_per_step=tokens, context=context, seed=seed)
+    return GlobalScheduler(ds, cfg, capacity=CAP, hdp=R,
+                           use_offload=use_offload, sched_async=sched_async)
 
 
 def trainer(comm, flat, impl="ref", seed=0, **tcfg):
     """The port's `Trainer` on ``comm``'s ranks from the reference's
-    parameters, recording each step's plan fingerprint in ``.plans``."""
+    parameters (seeded ones if ``flat`` is None), recording each step's
+    plan fingerprint in ``.plans``.  ``use_offload`` runs the offload
+    scenario's model and data."""
     from repro_torch import bridge
     from repro_torch.obs.numerics import plan_fingerprint
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import Runtime
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = config()
-    sched = scheduler(cfg, seed, tcfg.get("sched_async", False))
+    off = tcfg.get("use_offload", False)
+    cfg = config(layers=OFF_LAYERS if off else 0)
+    sched = scheduler(cfg, seed, tcfg.get("sched_async", False), off)
     plans = []
     plan_step = sched.plan_step
 
@@ -65,7 +83,8 @@ def trainer(comm, flat, impl="ref", seed=0, **tcfg):
                  AdamWConfig(lr=LR, total_steps=TOTAL_STEPS), sched,
                  TrainerConfig(capacity=CAP, calibrate=False, attn_impl=impl,
                                **tcfg),
-                 params=bridge.params_from_flat(flat, cfg, "cpu"))
+                 params=None if flat is None
+                 else bridge.params_from_flat(flat, cfg, "cpu"))
     tr.plans = plans
     return tr
 
@@ -76,30 +95,62 @@ def state_flat(state) -> dict:
             for key, v in bridge.params_to_flat(state[k]).items()}
 
 
-def run_history(comm, flat, impl, res) -> None:
+def run_history(comm, flat, impl, res, offload: bool = False) -> None:
     """STEPS steps; per step the fingerprint, loss, grad norm, wave losses
-    and the parameters after it (p0: after the broadcast)."""
+    and the parameters after it (p0: after the broadcast).  ``offload``:
+    the offload scenario under the key ``offload-{impl}``, with the bytes
+    ledger on: each wave's (composition, c_mult, r, k) and its predicted
+    and measured bytes (`ledger_arrays`)."""
     from repro_torch import bridge
-    tr = trainer(comm, flat, impl)
+    from repro_torch.obs import ledger
+    run = f"offload-{impl}" if offload else impl
+    ledger.set_ledger_enabled(offload)
+    tr = trainer(comm, flat, impl, use_offload=offload)
+    ratios = []
+    tr.telemetry_fn = lambda ws, *_, **__: ratios.append(ws[0].offload_ratio)
     try:
         for key, v in bridge.params_to_flat(tr.params).items():
-            res[f"{impl}/p0/{key}"] = v
-        res["state_shapes"] = np.array(
-            [f"{key}:{tuple(v.shape)}" for key, v in bridge.params_to_flat(
-                tr.opt_state["master"]).items()])
+            res[f"{run}/p0/{key}"] = v
+        if not offload:
+            res["state_shapes"] = np.array(
+                [f"{key}:{tuple(v.shape)}" for key, v in
+                 bridge.params_to_flat(tr.opt_state["master"]).items()])
         for s in range(STEPS):
             rec = tr.train_step()
             for key, v in bridge.params_to_flat(tr.params).items():
-                res[f"{impl}/p{s + 1}/{key}"] = v
-            res[f"{impl}/wave_losses/{s}"] = np.array(
+                res[f"{run}/p{s + 1}/{key}"] = v
+            res[f"{run}/wave_losses/{s}"] = np.array(
                 tr.last_numerics["wave_losses"])
             for k in ("loss", "grad_norm", "waves"):
-                res.setdefault(f"{impl}/{k}", []).append(rec[k])
-            res.setdefault(f"{impl}/applied", []).append(
+                res.setdefault(f"{run}/{k}", []).append(rec[k])
+            res.setdefault(f"{run}/applied", []).append(
                 tr.last_numerics["applied"])
-        res[f"{impl}/fp"] = np.array(tr.plans)
+        res[f"{run}/fp"] = np.array(tr.plans)
+        if offload:
+            res.update(ledger_arrays(tr, run, ratios))
     finally:
+        ledger.set_ledger_enabled(False)
         tr.sched.stop()
+
+
+def ledger_arrays(tr, run: str, rs) -> dict:
+    """Every ledger record of the run (one a wave, in order; ``rs`` the
+    waves' offload ratios): composition, c_mult, r, the periods the wave
+    offloaded, predicted and measured bytes by kind."""
+    from repro_torch.core.offload import offload_periods
+    recs = tr.ledger.recent(1024)
+    assert len(recs) == len(rs)
+    return {
+        f"{run}/ledger/comp": np.array([str(tuple(r["comp"])) for r in recs]),
+        f"{run}/ledger/c_mult": np.array([r["c_mult"] for r in recs]),
+        f"{run}/ledger/r": np.array(rs),
+        f"{run}/ledger/k": np.array([offload_periods(tr.cfg, r)
+                                     for r in rs]),
+        f"{run}/ledger/pred": np.array([[r["pred"][k] for k in LEDGER_KINDS]
+                                        for r in recs]),
+        f"{run}/ledger/meas": np.array([[r["meas"][k] for k in LEDGER_KINDS]
+                                        for r in recs]),
+        f"{run}/ledger/n": np.array(tr.ledger.summary()["n"])}
 
 
 def opt_inputs(cfg, params):
@@ -272,6 +323,10 @@ def _rank_main(rank: int, out_dir: str) -> None:
         res: dict = {}
         for impl in IMPLS:
             run_history(comm, flat, impl, res)
+        _wait_for(f"{out_dir}/jax_params_offload.npz")
+        flat_off = dict(np.load(f"{out_dir}/jax_params_offload.npz"))
+        for impl in IMPLS:
+            run_history(comm, flat_off, impl, res, offload=True)
         for dtype in APPLY_DTYPES:
             apply_check(comm, flat, dtype, res)
         guard_check(comm, flat, res)
@@ -283,10 +338,34 @@ def _rank_main(rank: int, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
+def _ledger_rank_main(rank: int, out_dir: str) -> None:
+    """The offload scenario alone, from seeded weights, both impls."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import ProcessGroupComm
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            world_size=R, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        comm = ProcessGroupComm()
+        res: dict = {}
+        for impl in IMPLS:
+            run_history(comm, None, impl, res, offload=True)
+        np.savez(f"{out_dir}/ledger_rank{rank}.npz",
+                 **{k: np.asarray(v) for k, v in res.items()})
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv) -> int:
     import torch.multiprocessing as mp
+    rank_main = _rank_main
+    if argv and argv[0] == "--ledger":
+        rank_main, argv = _ledger_rank_main, argv[1:]
     (out_dir,) = argv
-    mp.start_processes(_rank_main, args=(out_dir,), nprocs=R, join=True,
+    mp.start_processes(rank_main, args=(out_dir,), nprocs=R, join=True,
                        start_method="spawn")
     return 0
 

@@ -11,6 +11,12 @@
   (`test_torch_train.py`'s F32_TOL); every step's parameter update within
   1e-3 relative L2 per leaf; every rank's parameters bit-identical, at
   ``attn_impl`` "ref" and "flash" (the kernels' plain versions here).
+* Selective offload: the same holds of both sides' `Trainer` at
+  ``use_offload=True`` (4 layers, 2048 tokens a step, context 2048), whose
+  plans hold offloading waves, one of them a (4,) ring; the bytes ledgers
+  agree: the same predictions, the same measured offload bytes, and the
+  port's measured ring bytes the reference's less the block metadata the
+  port does not rotate (`obs/ledger.py`).
 * ZeRO-1: `zero1_dim` against the reference's `zero1_spec` leaf by leaf
   (reduced and full llama3.2-3b, LLaMA-7B; hdp 2, 4, 8), `zero1_bytes`
   against the reference's, each rank's optimiser state its shard, and
@@ -45,9 +51,11 @@ from repro.models import transformer as JT
 from repro.parallel import zero1 as jzero1
 from repro_torch.configs.registry import get_config
 from repro_torch.launch import train as launch_train
+from repro_torch.obs import ledger
 from repro_torch.parallel import zero1
 
 ROOT = Path(__file__).resolve().parents[1]
+RUNS = W.IMPLS + W.OFF_RUNS     # the port's runs held to the reference
 F32_TOL = 1e-4                  # tests/test_torch_train.py
 UPDATE_TOL = 1e-3               # post-step update, relative L2 per leaf
 APPLY_TOL = 1e-6                # sharded vs unsharded apply: fp32; a bf16
@@ -66,6 +74,7 @@ from repro.ckpt.checkpoint import _flatten
 from repro.configs.registry import get_config
 from repro.data.distribution import LengthDistribution
 from repro.data.loader import GlobalScheduler, SyntheticDataset
+from repro.obs import set_ledger_enabled
 from repro.obs.numerics import plan_fingerprint
 from repro.optim.adamw import AdamWConfig
 from repro.parallel.sharding import Runtime
@@ -79,39 +88,61 @@ mesh = compat.make_mesh((W.R, 1), ("data", "model"),
 compat.set_mesh(mesh)
 cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
                           dtype="float32")
-ds = SyntheticDataset(LengthDistribution(*W.DIST), cfg.vocab_size,
-                      tokens_per_step=W.TOKENS, context=W.CONTEXT)
-sched = GlobalScheduler(ds, cfg, capacity=W.CAP, hdp=W.R, use_offload=False)
-plans = []
-plan_step = sched.plan_step
-def recorded(step):
-    plan = plan_step(step)
-    plans.append(plan_fingerprint(plan))
-    return plan
-sched.plan_step = recorded
 rt = Runtime(mesh=mesh, hdp_axes=("data",), model_axis="model")
-tr = Trainer(cfg, rt, AdamWConfig(lr=W.LR, total_steps=W.TOTAL_STEPS), sched,
-             TrainerConfig(capacity=W.CAP, attn_impl="ref", calibrate=False))
-# the weights first: the gloo ranks wait for them
-np.savez(out + "/jax_params.tmp.npz", **_flatten(tr.params))
-os.replace(out + "/jax_params.tmp.npz", out + "/jax_params.npz")
-wave_losses = []
-observe_wave = tr.numerics.observe_wave
-def observe(step, i, loss):
-    wave_losses.append((step, float(loss)))
-    return observe_wave(step, i, loss)
-tr.numerics.observe_wave = observe
+
+# a Trainer recording its plans; its initial weights are saved first, as
+# the gloo ranks wait for them
+def trainer(cfg, tokens, context, offload, name):
+    ds = SyntheticDataset(LengthDistribution(*W.DIST), cfg.vocab_size,
+                          tokens_per_step=tokens, context=context)
+    sched = GlobalScheduler(ds, cfg, capacity=W.CAP, hdp=W.R,
+                            use_offload=offload)
+    plans = []
+    plan_step = sched.plan_step
+    def recorded(step):
+        plan = plan_step(step)
+        plans.append(plan_fingerprint(plan))
+        return plan
+    sched.plan_step = recorded
+    tr = Trainer(cfg, rt, AdamWConfig(lr=W.LR, total_steps=W.TOTAL_STEPS),
+                 sched, TrainerConfig(capacity=W.CAP, attn_impl="ref",
+                                      calibrate=False, use_offload=offload))
+    tr.plans = plans
+    np.savez(out + f"/{name}.tmp.npz", **_flatten(tr.params))
+    os.replace(out + f"/{name}.tmp.npz", out + f"/{name}.npz")
+    return tr
+
+def train(tr, res, pre):
+    wave_losses = []
+    observe_wave = tr.numerics.observe_wave
+    def observe(step, i, loss):
+        wave_losses.append((step, float(loss)))
+        return observe_wave(step, i, loss)
+    tr.numerics.observe_wave = observe
+    for s in range(W.STEPS):
+        rec = tr.train_step()
+        res.setdefault(pre + "loss", []).append(rec["loss"])
+        res.setdefault(pre + "grad_norm", []).append(rec["grad_norm"])
+        res.setdefault(pre + "waves", []).append(rec["waves"])
+        res[pre + f"wave_losses/{s}"] = [l for st, l in wave_losses
+                                         if st == s]
+        for key, v in _flatten(tr.params).items():
+            res[pre + f"p{s + 1}/{key}"] = v
+    tr.sched.stop()
+    res[pre + "fp"] = np.array(tr.plans)
+
+tr = trainer(cfg, W.TOKENS, W.CONTEXT, False, "jax_params")
+tr_off = trainer(dataclasses.replace(cfg, num_layers=W.OFF_LAYERS),
+                 W.OFF_TOKENS, W.OFF_CONTEXT, True, "jax_params_offload")
 res = {}
-for s in range(W.STEPS):
-    rec = tr.train_step()
-    res.setdefault("loss", []).append(rec["loss"])
-    res.setdefault("grad_norm", []).append(rec["grad_norm"])
-    res.setdefault("waves", []).append(rec["waves"])
-    res[f"wave_losses/{s}"] = [l for st, l in wave_losses if st == s]
-    for key, v in _flatten(tr.params).items():
-        res[f"p{s + 1}/{key}"] = v
-sched.stop()
-res["fp"] = np.array(plans)
+train(tr, res, "")
+set_ledger_enabled(True)
+train(tr_off, res, "off/")
+recs = tr_off.ledger.recent(1024)
+for side in ("pred", "meas"):
+    res["off/ledger/" + side] = [[r[side][k] for k in W.LEDGER_KINDS]
+                                 for r in recs]
+res["off/offload_ok"] = tr_off.offload_ok
 np.savez(out + "/jax_train.npz", **{k: np.asarray(v) for k, v in res.items()})
 """
 
@@ -163,52 +194,88 @@ def _leaf_keys(res, prefix):
     return sorted(k[len(prefix):] for k in res if k.startswith(prefix))
 
 
+def _ref(run: str) -> str:
+    """The reference's key prefix for one of the port's runs."""
+    return "off/" if run in W.OFF_RUNS else ""
+
+
 # ---------------------------------------------------------------------------
 # (a) three steps against the reference's Trainer at hdp = 4
 # ---------------------------------------------------------------------------
 
 def test_plan_fingerprints_agree_on_every_rank_and_the_reference(results):
     ref, ranks, _ = results
-    want = ref["fp"].tolist()
-    assert len(want) == W.STEPS and len(set(want)) == W.STEPS
-    for impl in W.IMPLS:
+    for run in RUNS:
+        want = ref[_ref(run) + "fp"].tolist()
+        assert len(want) == W.STEPS and len(set(want)) == W.STEPS
         for rk in ranks:
-            assert rk[f"{impl}/fp"].tolist() == want, impl
+            assert rk[f"{run}/fp"].tolist() == want, run
 
 
-@pytest.mark.parametrize("impl", W.IMPLS)
+@pytest.mark.parametrize("impl", RUNS)
 def test_losses_and_grad_norms_match_the_reference(results, impl):
     ref, ranks, _ = results
+    pre = _ref(impl)
     for rk in ranks:
-        assert rk[f"{impl}/waves"].tolist() == ref["waves"].tolist()
+        assert rk[f"{impl}/waves"].tolist() == ref[pre + "waves"].tolist()
         assert rk[f"{impl}/applied"].tolist() == [1] * W.STEPS
         for s in range(W.STEPS):
             np.testing.assert_allclose(rk[f"{impl}/wave_losses/{s}"],
-                                       ref[f"wave_losses/{s}"], rtol=F32_TOL)
-        np.testing.assert_allclose(rk[f"{impl}/loss"], ref["loss"],
+                                       ref[f"{pre}wave_losses/{s}"],
+                                       rtol=F32_TOL)
+        np.testing.assert_allclose(rk[f"{impl}/loss"], ref[pre + "loss"],
                                    rtol=F32_TOL)
-        np.testing.assert_allclose(rk[f"{impl}/grad_norm"], ref["grad_norm"],
-                                   rtol=F32_TOL)
+        np.testing.assert_allclose(rk[f"{impl}/grad_norm"],
+                                   ref[pre + "grad_norm"], rtol=F32_TOL)
 
 
-@pytest.mark.parametrize("impl", W.IMPLS)
+@pytest.mark.parametrize("impl", RUNS)
 def test_parameter_updates_match_the_reference(results, impl):
     """Every step's update (params after - params before) per leaf within
     1e-3 relative L2 of the reference's."""
     ref, ranks, _ = results
     rk = ranks[0]
+    pre = _ref(impl)
     keys = _leaf_keys(rk, f"{impl}/p0/")
-    assert len(keys) > 5 and keys == _leaf_keys(ref, "p1/")
+    assert len(keys) > 5 and keys == _leaf_keys(ref, pre + "p1/")
     for s in range(W.STEPS):
         for key in keys:
             got = rk[f"{impl}/p{s + 1}/{key}"] - rk[f"{impl}/p{s}/{key}"]
-            before = rk[f"{impl}/p0/{key}"] if s == 0 else ref[f"p{s}/{key}"]
-            want = ref[f"p{s + 1}/{key}"] - before
+            before = rk[f"{impl}/p0/{key}"] if s == 0 \
+                else ref[f"{pre}p{s}/{key}"]
+            want = ref[f"{pre}p{s + 1}/{key}"] - before
             rel = np.linalg.norm(got - want) / np.linalg.norm(want)
             assert rel <= UPDATE_TOL, (s, key, rel)
 
 
-@pytest.mark.parametrize("impl", W.IMPLS)
+@pytest.mark.parametrize("run", W.OFF_RUNS)
+def test_offload_runs_and_its_ledger_matches_the_reference(results, run):
+    """The port's offload run offloads (a wave with r > 0 and k >= 1, and
+    one with a ring), and every wave's ledger record holds the reference's
+    prediction exactly, its measured offload bytes exactly, and measures
+    the predicted ring bytes less `ledger.ring_meta_bytes` exactly.  (The
+    reference's own measured ring of a wave that offloads k < n periods
+    counts the first k periods only, so the port is held to its
+    prediction there.)"""
+    ref, ranks, _ = results
+    assert bool(ref["off/offload_ok"])
+    cfg = W.config(layers=W.OFF_LAYERS)
+    rk = ranks[0]
+    rs, ks = rk[f"{run}/ledger/r"], rk[f"{run}/ledger/k"]
+    assert ((rs > 0) & (ks >= 1)).any()
+    comps = rk[f"{run}/ledger/comp"].tolist()
+    assert any("4" in c for c in comps)
+    pred, meas = rk[f"{run}/ledger/pred"], rk[f"{run}/ledger/meas"]
+    np.testing.assert_array_equal(pred, ref["off/ledger/pred"])
+    np.testing.assert_array_equal(meas[:, 1:], ref["off/ledger/meas"][:, 1:])
+    meta = [ledger.ring_meta_bytes(cfg, eval(c)) for c in comps]
+    assert max(meta) > 0
+    np.testing.assert_array_equal(meas[:, 0], pred[:, 0] - meta)
+    for other in ranks[1:]:
+        np.testing.assert_array_equal(other[f"{run}/ledger/meas"], meas)
+
+
+@pytest.mark.parametrize("impl", RUNS)
 def test_every_rank_holds_the_same_parameters(results, impl):
     _, ranks, _ = results
     for s in range(W.STEPS + 1):

@@ -299,15 +299,23 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings():
             launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1"])
     rt = Runtime(device="cpu")
     for tcfg in (TrainerConfig(capacity=256, ckpt_dir="ckpt"),
-                 TrainerConfig(capacity=256, mode="pp"),
-                 TrainerConfig(capacity=256, use_offload=True)):
+                 TrainerConfig(capacity=256, mode="pp")):
         with pytest.raises(NotImplementedError, match="queue 1 item"):
             Trainer(cfg, rt, opt, sched, tcfg)
-    with pytest.raises(NotImplementedError, match="offload"):
-        Runtime(device="cpu", remat="offload")
+    # offload execution is ported: the runtime takes remat="offload", and
+    # a Trainer with use_offload keeps the spec's Eq. 3 offload term, at
+    # construction and through a resize
+    assert Runtime(device="cpu", remat="offload",
+                   offload_periods=1).remat == "offload"
+    assert sched.spec.use_offload
+    tr_off = Trainer(cfg, rt, opt, sched,
+                     TrainerConfig(capacity=256, use_offload=True))
+    assert tr_off.offload_ok and sched.spec.use_offload
+    sched_off = GlobalScheduler(ds, cfg, capacity=256, hdp=1)
+    tr_off.resize(sched_off)
+    assert tr_off.sched is sched_off and sched_off.spec.use_offload
     # the reference's own auto-disable: offload off in the TrainerConfig
     # turns the spec's Eq. 3 offload term off
-    assert sched.spec.use_offload
     tr = Trainer(cfg, rt, opt, sched, TrainerConfig(capacity=256))
     assert not sched.spec.use_offload
     # resize: a scheduler of the same HDP size swaps in (with a fresh
@@ -322,12 +330,14 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings():
     with pytest.raises(NotImplementedError, match="items 5 .* and 9"):
         tr.resize(sched4)
     assert tr.sched is sched2
-    for s in (sched, sched2, sched4):
+    for s in (sched, sched2, sched4, sched_off):
         s.stop()
 
 
 def test_launcher_trains_on_the_cpu(capsys):
     from repro_torch.launch import train as launch_train
+    from repro_torch.obs import ledger
+    was_on = ledger.ledger_enabled()
     tr = launch_train.main(["--arch", ARCH, "--reduced", "--steps", "2",
                             "--capacity", "256", "--tokens-per-step", "512",
                             "--context", "256", "--dataset", "tiny",
@@ -336,6 +346,9 @@ def test_launcher_trains_on_the_cpu(capsys):
              if ln.startswith("step")]
     assert len(lines) == 2 and len(tr.history) == 2
     assert all(np.isfinite(r["loss"]) for r in tr.history)
+    # the launcher's ledger is on for its run only
+    assert tr.ledger.summary()["n"] == sum(r["waves"] for r in tr.history)
+    assert ledger.ledger_enabled() == was_on
 
 
 def _port_trainer(tcfg, params=None):
