@@ -113,10 +113,31 @@ Phases (any failure raises and exits non-zero before the result line):
    (e) Three `Trainer` steps with ``use_offload`` and the bytes ledger
    on: phase 5's checks, and each ledger record's offload bytes exactly
    k whole periods each way; the ledger's summary is printed.
-9. report  — one JSON line of every kernel (launches on the paths that
+9. hdp_serve — `ServeEngine` at hdp = 4 on the one card through
+   `ThreadRanks(4)` (serving is forward only, so threads may exchange):
+   llama3.2-3b at full width and depth (seed 0), phase 4's 8 prompts and
+   16 new tokens at max_context 4096 and prefill capacity 1024 a rank, so
+   the 3000- and 1800-token prompts need ring groups; once at 8 slots
+   (the slab's slots split over the ranks, 2 a rank) and once at 6 (every
+   rank holds 1024 of every slot's positions, attention through the
+   flash-decoding combine; two requests wait for a second admission
+   round).  Fails unless a wave has a group > 1; each rank's carry
+   launches (counted between its exchanges) equal layers x (1 + its live
+   visiting blocks) summed over the admitted waves
+   (`launch/ring_check.py::expected_launches`); no other kernel runs;
+   every rank's tokens and logit rows are bit-identical; each rank's KV
+   slab is exactly layers x 2 x its slots x positions x 8 x 128 x 2 bytes
+   (939,524,096 at 8 slots); and against an hdp = 1 engine on the same
+   pool (its launches left out of the counts) the tokens agree up to a
+   first divergence, allowed only where the hdp = 1 top-two logits lie
+   within 0.08, with the logits' rms through it within 0.08
+   (`launch/profile_serve.py::hold_to_single_rank`).  Prints prefill ms
+   per wave by composition, decode ms per wave and TTFT at hdp = 4 and 1,
+   the card's peak with the four ranks and the slab bytes.
+10. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
-   ring's, the hdp = 4 trainer's and the offloading trainer's; errors,
-   times, bounds), then the result line.
+   ring's, the hdp = 4 trainer's, the offloading trainer's and the hdp =
+   4 engine's; errors, times, bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -1631,14 +1652,213 @@ def phase_offload(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 9. report
+# 9. hdp_serve
+# ---------------------------------------------------------------------------
+
+HDP_SERVE_CAP = 1024            # phase 9: prefill capacity a rank, so the
+                                # 3000- and 1800-token prompts need groups
+HDP_SERVE_SLOTS = (8, 6)        # "batch" (2 slots a rank), then "seq" (6
+                                # slots, two requests in a second round)
+HDP_SERVE_CONTEXT = 4096
+
+
+def rank_counts_comm(comm):
+    """``comm`` with this rank's own launch counts.  ThreadRanks runs one
+    rank at a time and hands the card on only inside an exchange, so what
+    the wrappers' counts gain between two of a rank's exchanges are its
+    launches: ``.mine`` (``.finish()`` adds the stretch since its last
+    exchange)."""
+    from repro_torch.parallel.comm import HdpComm
+
+    class RankCounts(HdpComm):
+        def __init__(self):
+            self.rank, self.size = comm.rank, comm.size
+            self.mine = dict.fromkeys(read_counts(), 0)
+            self._mark = read_counts()
+
+        def finish(self):
+            now = read_counts()
+            for k in now:
+                self.mine[k] += now[k] - self._mark[k]
+            self._mark = now
+            return self.mine
+
+        def _exchange(self, fn):
+            self.finish()
+            out = fn()
+            self._mark = read_counts()
+            return out
+
+        def ppermute_async(self, tensors, perm):
+            return self._exchange(lambda: comm.ppermute_async(tensors, perm))
+
+        def all_gather(self, x):
+            return self._exchange(lambda: comm.all_gather(x))
+
+    return RankCounts()
+
+
+def hdp_serve_engine(torch, params, cfg, comm, slots, pool):
+    """The pool through one rank's `ServeEngine`, drained -> its results,
+    the plans it admitted with and (over several ranks) its launches."""
+    from repro_torch.launch.profile_serve import tokens_and_logits
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train.serve_step import cache_bytes
+    counts = None if comm is None else rank_counts_comm(comm)
+    eng = ServeEngine(params, cfg, Runtime(device=DEVICE, comm=counts),
+                      ServeConfig(max_slots=slots,
+                                  max_context=HDP_SERVE_CONTEXT,
+                                  prefill_capacity=HDP_SERVE_CAP,
+                                  collect_logits=True))
+    plans = []
+    plan_pool = eng.service.plan_pool
+
+    def recorded(lengths):
+        plan = plan_pool(lengths)
+        plans.append((list(lengths), plan))
+        return plan
+    eng.service.plan_pool = recorded
+    rids = [eng.submit(p, NEW_TOKENS) for p in pool]
+    eng.drain(max_steps=200)
+    reqs = [eng.pool.get(r) for r in rids]
+    return {"out": tokens_and_logits(reqs), "errors": [r.error for r in reqs],
+            "ttft_s": [r.t_first - r.t_submit for r in reqs],
+            "decode_ms_per_wave": 1e3 * sum(r.decode_s for r in reqs)
+            / eng.stats["decode_waves"],
+            "prefill_log": eng.prefill_log, "plans": plans,
+            "layout": eng.shard.layout, "slab_bytes": cache_bytes(eng.cache),
+            "launches": None if counts is None else counts.finish()}
+
+
+def expected_serve_launches(cfg, plans) -> list:
+    """Carry launches per rank: layers x (1 + the live visiting blocks) of
+    each prefill wave, from the admitted plans' materialized seg/pos."""
+    import numpy as np
+    from repro_torch.data.loader import WaveMaterializer
+    from repro_torch.launch import ring_check as RC
+    from repro_torch.serve.engine import _PromptProvider
+    want = [0] * RING_HDP
+    for lengths, plan in plans:
+        mat = WaveMaterializer(_PromptProvider(
+            [np.zeros(n, np.int32) for n in lengths]), cfg, HDP_SERVE_CAP)
+        for w in plan.waves:
+            lw = mat.materialize(0, w)
+            live = RC.expected_launches(tuple(w.composition),
+                                        lw.batch["seg"], lw.batch["pos"],
+                                        HDP_SERVE_CAP * w.c_mult)
+            want = [a + cfg.num_layers * b for a, b in zip(want, live)]
+    return want
+
+
+def hdp_serve_case(torch, cfg, params, slots, pool):
+    """One layout: the pool at hdp = 4 through ThreadRanks(4), gated; ->
+    (its launches summed over the ranks, the printed results)."""
+    import numpy as np
+    from repro_torch.launch.profile_serve import (hold_to_single_rank,
+                                                  ms_by_composition)
+    from repro_torch.parallel.comm import ThreadRanks
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    runs = ThreadRanks(RING_HDP).run(lambda c: hdp_serve_engine(
+        torch, params, cfg, c, slots, pool))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    one = hdp_serve_engine(torch, params, cfg, None, slots, pool)
+
+    fails = []
+    head = runs[0]
+    comps = [tuple(w.composition) for _, p in head["plans"] for w in p.waves]
+    if not any(max(c) > 1 for c in comps):
+        fails.append(f"no wave with a group > 1: {comps}")
+    want = expected_serve_launches(cfg, head["plans"])
+    got = [r["launches"]["flash_fwd_carry"] for r in runs]
+    if got != want:
+        fails.append(f"carry launches per rank {got}, want {want}")
+    if sum(got) != launches["flash_fwd_carry"]:
+        fails.append(f"per-rank carry launches {got} do not sum to the "
+                     f"wrappers' {launches['flash_fwd_carry']}")
+    if any(launches[n] for n in launches if n not in SERVE_KERNELS):
+        fails.append(f"serving launched a training kernel: {launches}")
+    for r, run in enumerate(runs):
+        if run["errors"] != [None] * len(pool):
+            fails.append(f"rank {r}: request errors {run['errors']}")
+        same = all(a[0] == b[0] and np.array_equal(a[1], b[1])
+                   for a, b in zip(run["out"], head["out"]))
+        if not same:
+            fails.append(f"rank {r}: tokens or logits differ from rank 0's")
+        if not np.isfinite(np.concatenate(
+                [rows.ravel() for _, rows in run["out"]])).all():
+            fails.append(f"rank {r}: non-finite logits")
+    # each rank's slab: 28 layers x k/v x its slots x positions x 8 x 128
+    # x 2 bytes (8 slots: 939,524,096 a rank, 3,758,096,384 / 4)
+    b_loc, s_loc = (slots // RING_HDP, HDP_SERVE_CONTEXT) \
+        if head["layout"] == "batch" else (slots, HDP_SERVE_CONTEXT // RING_HDP)
+    slab = cfg.num_layers * 2 * b_loc * s_loc * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2
+    if [r["slab_bytes"] for r in runs] != [slab] * RING_HDP:
+        fails.append(f"slab bytes {[r['slab_bytes'] for r in runs]}, want "
+                     f"{slab} a rank")
+    held = hold_to_single_rank(head["out"], one["out"])
+    if held["faults"] or not held["rms"] <= SERVE_TOL:
+        fails.append(f"against hdp = 1: {held}")
+    res = {"slots": slots, "layout": head["layout"], "waves": comps,
+           "carry_launches_by_rank": got, "want_by_rank": want,
+           "prefill_ms_by_composition": ms_by_composition(
+               head["prefill_log"]),
+           "hdp1_prefill_ms_by_composition": ms_by_composition(
+               one["prefill_log"]),
+           "decode_ms_per_wave": head["decode_ms_per_wave"],
+           "hdp1_decode_ms_per_wave": one["decode_ms_per_wave"],
+           "ttft_s": head["ttft_s"], "hdp1_ttft_s": one["ttft_s"],
+           "drain_s_hdp4": wall, "kv_slab_bytes_a_rank": slab,
+           "card_peak_mem_gb_4_ranks": peak / 1e9,
+           "vs_hdp1": held}
+    return launches, res, fails
+
+
+def phase_hdp_serve(torch, card):
+    """Phase 9 -> launches of the hdp = 4 serving path, both layouts, summed
+    over the ranks."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.2-3b")
+    params = init_params(cfg, seed=0, device=DEVICE)
+    rng = np.random.RandomState(0)
+    pool = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    totals = {name: 0 for name, *_ in KERNELS}
+    fails = []
+    for slots in HDP_SERVE_SLOTS:
+        launches, res, bad = hdp_serve_case(torch, cfg, params, slots, pool)
+        log(f"[hdp_serve] {card}: {json.dumps(res)}")
+        fails += [f"{slots} slots: {f}" for f in bad]
+        for name, n in launches.items():
+            totals[name] += n
+    del params
+    torch.cuda.empty_cache()
+    log(f"[hdp_serve] launches {json.dumps(totals)}, phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fails:
+        raise AssertionError("phase 9: " + "; ".join(fails))
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# 10. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
-                 hdp_launches, offload_launches):
+                 hdp_launches, offload_launches, hdp_serve_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
-    its ranks) and the offloading trainer's."""
+    its ranks), the offloading trainer's and the hdp = 4 engine's (summed
+    over its ranks)."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -1650,7 +1870,8 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": launches[name] + ring_launches[name]
-            + hdp_launches[name] + offload_launches[name],
+            + hdp_launches[name] + offload_launches[name]
+            + hdp_serve_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -1682,9 +1903,11 @@ def main() -> int:
     log(f"[hdp_train] done at {time.perf_counter() - t0:.1f} s")
     offload_launches = phase_offload(torch, card)
     log(f"[offload] done at {time.perf_counter() - t0:.1f} s")
+    hdp_serve_launches = phase_hdp_serve(torch, card)
+    log(f"[hdp_serve] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
-                                offload_launches)))
+                                offload_launches, hdp_serve_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

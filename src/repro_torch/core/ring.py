@@ -1,5 +1,5 @@
 """HDP dist-attention: subgroup ring attention over the ranks of a
-process group, and decode.
+process group, and decode against a KV cache, whole or split over them.
 
 Port of `repro/core/ring.py`.  A composition ``(g1, g2, ...)`` summing to
 the HDP size describes disjoint contiguous rank groups; each group of size
@@ -275,6 +275,30 @@ def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
         softcap=softcap, kv_chunk=kv_chunk, block_skip=block_skip)
 
 
+def _decode_partial(q, k, v, cache_len, *, base: int, scale: float,
+                    softcap: float, window: int):
+    """fp32 online-softmax stats (m, l, acc) of one token per row against
+    cache positions ``base + arange(S)``; masked entries weigh 0."""
+    pos = base + torch.arange(k.shape[1], device=q.device)
+    valid = pos[None, :] < cache_len[:, None]                # [B, S]
+    if window:
+        valid &= pos[None, :] >= (cache_len[:, None] - window)
+    valid = valid[:, None, None, :]
+    s = torch.einsum("bghd,bsgd->bghs", q.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(valid, s, att.NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(dim=-1), torch.einsum("bghs,bsgd->bghd", p, v.float())
+
+
+def _decode_finish(l, acc, dtype):
+    live = (l > 0)[..., None]
+    out = torch.where(live, acc / torch.where(live, l[..., None], 1.0), 0.0)
+    return out.to(dtype)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float,
                      softcap: float = 0.0, window: int = 0):
     """One-token attention against a KV cache, in fp32.
@@ -282,21 +306,39 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float,
     q [B, G, Hg, D]; k_cache [B, S, G, D]; v_cache [B, S, G, Dv];
     cache_len [B] valid prefix length per row -> [B, G, Hg, Dv] in q's
     dtype.  Rows with no valid entry return zeros.  (The single-device
-    body of the reference's ``decode_attention_sharded``.)
+    body of `decode_attention_sharded`.)
     """
-    pos = torch.arange(k_cache.shape[1], device=q.device)
-    valid = pos[None, :] < cache_len[:, None]                # [B, S]
-    if window:
-        valid &= pos[None, :] >= (cache_len[:, None] - window)
-    valid = valid[:, None, None, :]
-    s = torch.einsum("bghd,bsgd->bghs", q.float(), k_cache.float()) * scale
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    s = torch.where(valid, s, att.NEG_INF)
-    m = s.amax(dim=-1)
-    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bghs,bsgd->bghd", p, v_cache.float())
-    live = (l > 0)[..., None]
-    out = torch.where(live, acc / torch.where(live, l[..., None], 1.0), 0.0)
-    return out.to(q.dtype)
+    _, l, acc = _decode_partial(q, k_cache, v_cache, cache_len, base=0,
+                                scale=scale, softcap=softcap, window=window)
+    return _decode_finish(l, acc, q.dtype)
+
+
+def decode_attention_sharded(q, k_shard, v_shard, cache_len, *, comm,
+                             base: int, scale: float, softcap: float = 0.0,
+                             window: int = 0):
+    """One-token attention against a KV cache whose sequence dim is split
+    over the ranks of ``comm``: the flash-decoding combine (port of the
+    reference's ``decode_attention_sharded`` with its cache sequence over
+    the HDP axes).
+
+    q [B, G, Hg, D] (the same on every rank); k_shard [B, S_local, G, D],
+    v_shard [B, S_local, G, Dv]: this rank's cache positions ``base +
+    arange(S_local)``; cache_len [B] -> [B, G, Hg, Dv] in q's dtype.  Each
+    rank computes the fp32 partial (m, l, acc) of its shard; one
+    ``all_gather`` brings every rank's partial in rank order, and every
+    rank merges them the same way, so the output is bit-identical on every
+    rank.  Rows with no valid entry on any rank return zeros.  With
+    ``comm=None`` one rank holds the whole cache (``base`` 0):
+    `decode_attention`.
+    """
+    if comm is None:
+        return decode_attention(q, k_shard, v_shard, cache_len, scale=scale,
+                                softcap=softcap, window=window)
+    m, l, acc = _decode_partial(q, k_shard, v_shard, cache_len, base=base,
+                                scale=scale, softcap=softcap, window=window)
+    parts = comm.all_gather(torch.cat([m[..., None], l[..., None], acc],
+                                      dim=-1))       # [ranks, B, G, Hg, 2+Dv]
+    m_r, l_r, acc_r = parts[..., 0], parts[..., 1], parts[..., 2:]
+    w = torch.exp(m_r - m_r.amax(dim=0))
+    return _decode_finish((l_r * w).sum(dim=0),
+                          (acc_r * w[..., None]).sum(dim=0), q.dtype)

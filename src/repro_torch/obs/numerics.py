@@ -96,3 +96,14 @@ def plan_fingerprint(plan) -> str:
     }
     blob = json.dumps(doc, sort_keys=True, separators=(",", ":"))
     return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def fingerprints_by_rank(comm, plan, device) -> list:
+    """Every rank's plan fingerprint prefix (15 hex digits), in rank
+    order, from one all-gather; every rank of ``comm`` calls it with its
+    own plan.  Ranks that run different plans would wait in different
+    collectives, so the callers raise on every rank when these differ."""
+    mine = int(plan_fingerprint(plan)[:15], 16)
+    got = comm.all_gather(torch.tensor([mine], dtype=torch.int64,
+                                       device=device)).flatten()
+    return [f"{x:015x}" for x in got.tolist()]

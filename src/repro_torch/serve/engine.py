@@ -22,6 +22,21 @@ The slab lives on the runtime's device and is updated IN PLACE (prefill
 rows, decode writes, scrubs).  Hidden states and logits stay on the
 device; only the [n, V] logit rows the host needs (finiteness, argmax,
 ``collect_logits``) are copied back, as fp32.
+
+Over several HDP ranks (``rt.comm``, one process or `ThreadRanks` thread
+each) every rank runs the same engine: the same ``submit`` calls, the
+same pool, the same plans, whose fingerprints the ranks check against
+each other before the first wave of every admission round.  Rank r runs
+rows ``[r·c, (r+1)·c)`` of each wave (c = ``prefill_capacity · c_mult``)
+under the wave's composition, through the ring.  Each rank holds its
+`train/serve_step.py::slab_shard` of the slab (whole slots, or every
+slot's share of the positions), so the KV rows a rank computed mostly
+belong to other ranks' shards: one all-gather per layer of the wave's K
+and V rows, after which every rank writes the rows it owns.  The first
+token of a request comes from the rank that holds its last prompt row,
+the decode logits of whole-slot shards from their owners; one all-gather
+hands every rank the owner's rows, so every rank takes the same tokens
+and the same finiteness decisions.
 """
 from __future__ import annotations
 
@@ -37,11 +52,11 @@ from repro_torch.core.planner import PlanSpec
 from repro_torch.data.loader import WaveMaterializer
 from repro_torch.models.transformer import check_supported, logits_head
 from repro_torch.obs import get_metrics, get_recorder, get_tracer
+from repro_torch.obs.numerics import fingerprints_by_rank
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.serve.pool import Request, RequestPool
-from repro_torch.train.serve_step import (_layer_cache_len, init_decode_cache,
-                                          make_decode_step,
-                                          make_prefill_kv_step)
+from repro_torch.train.serve_step import (init_decode_cache, make_decode_step,
+                                          make_prefill_kv_step, slab_shard)
 
 
 @dataclass(frozen=True)
@@ -80,10 +95,6 @@ class ServeEngine:
         is present and none was asked for."""
         check_supported(cfg)
         rt = Runtime(device=device) if rt is None else rt
-        if rt.hdp_size > 1:
-            raise NotImplementedError(
-                "serving over several HDP ranks comes with ROADMAP queue 1 "
-                "item 10")
         scfg = ServeConfig() if scfg is None else scfg
         if params["embed"].device != rt.device:
             raise ValueError(f"parameters live on {params['embed'].device}, "
@@ -103,16 +114,18 @@ class ServeEngine:
         self.service = service
 
         b, s = scfg.max_slots, scfg.max_context
+        self.shard = slab_shard(rt, b, s)
         self.cache = init_decode_cache(cfg, rt, b, s)
         self._decode = make_decode_step(cfg, rt, b, s)
         self._prefill_fns: Dict[Tuple[int, ...], object] = {}
-        self._head_n = len(self.cache["head_layers"])
+        self._rank = 0 if rt.comm is None else rt.comm.rank
 
         # slab bookkeeping (host side)
         self._req: List[Optional[Request]] = [None] * b
         self._pos = np.zeros(b, np.int64)   # next position each slot feeds
         self._tok = np.zeros(b, np.int64)   # next token each slot feeds
         self.records: List[dict] = []       # per-request telemetry
+        self.prefill_log: List[dict] = []   # per wave: composition, s
         self.stats = {"prefill_waves": 0, "decode_waves": 0,
                       "compiled_compositions": 0}
 
@@ -164,6 +177,7 @@ class ServeEngine:
         with get_tracer().span("admit", n=len(reqs),
                                rids=[r.rid for r in reqs]):
             plan = self.service.plan_pool([r.plen for r in reqs])
+            self._check_plan(plan)
             slot_of = {i: free[i] for i in range(len(reqs))}
             provider = _PromptProvider([r.prompt for r in reqs])
             mat = WaveMaterializer(provider, self.cfg,
@@ -174,6 +188,18 @@ class ServeEngine:
                 if len(r.generated) >= r.max_new_tokens:  # prefill already
                     self._retire(r)
         get_metrics().gauge("serve.queue_depth").set(self.pool.n_waiting)
+
+    def _check_plan(self, plan) -> None:
+        """Every rank must prefill the same plan: on a fingerprint mismatch
+        every rank raises (one rank raising while the others wait inside
+        a wave's ring would hang them)."""
+        if self.rt.hdp_size == 1:
+            return
+        got = fingerprints_by_rank(self.rt.comm, plan, self.rt.device)
+        if len(set(got)) > 1:
+            raise RuntimeError(
+                f"the HDP ranks planned different prefills (plan "
+                f"fingerprint prefixes by rank {got})")
 
     def _prefill_fn(self, comp: Tuple[int, ...]):
         fn = self._prefill_fns.get(comp)
@@ -192,19 +218,21 @@ class ServeEngine:
                       reqs: List[Request], slot_of: Dict[int, int]) -> None:
         t0 = self.clock()
         tr = get_tracer()
-        with tr.span("prefill", composition=tuple(wave.composition),
+        comp = tuple(wave.composition)
+        with tr.span("prefill", composition=comp,
                      rids=[reqs[p.seq_id].rid
                            for s in wave.slots for p in s]):
             with tr.span("materialize"):
                 lw = mat.materialize(0, wave)
-            fn = self._prefill_fn(tuple(wave.composition))
-            batch = {k: self._dev(lw.batch[k])
+            fn = self._prefill_fn(comp)
+            c = self.scfg.prefill_capacity * wave.c_mult
+            r0 = self._rank * c               # this rank's rows of the wave
+            batch = {k: self._dev(lw.batch[k][r0:r0 + c])
                      for k in ("tokens", "seg", "pos")}
             hidden, head_kv, block_kv = fn(self.params, batch)
 
             # flat-buffer row of every (seq, abs position) — the same
             # cursor walk `WaveMaterializer.materialize` packs with
-            c = self.scfg.prefill_capacity * wave.c_mult
             flat: Dict[int, np.ndarray] = {}
             for r, pieces in enumerate(wave.slots):
                 cursor = r * c
@@ -221,18 +249,15 @@ class ServeEngine:
             covered = [reqs[sid] for sid in sids]
             total = sum(r.plen for r in covered)
             # first generated tokens come straight out of the prefill: the
-            # last prompt row of every request, one logits call on device
-            last = self._dev(np.array([flat[sid][reqs[sid].plen - 1]
-                                       for sid in sids]), torch.int64)
-            rows = logits_head(self.params, self.cfg,
-                               hidden.index_select(0, last))
-            rows = rows.float().cpu().numpy()
+            # last prompt row of every request
+            rows = self._first_rows(hidden, np.array(
+                [flat[sid][reqs[sid].plen - 1] for sid in sids]), c)
+            self._scatter_kv([(slot_of[sid], flat[sid]) for sid in sids],
+                             head_kv, block_kv)
             for n, sid in enumerate(sids):
                 req = reqs[sid]
                 slot = slot_of[sid]
                 req.slot = slot
-                self._scatter_kv(slot, req.plen, flat[sid], head_kv,
-                                 block_kv)
                 row = rows[n]
                 if not np.isfinite(row).all():
                     self._req[slot] = req
@@ -251,32 +276,62 @@ class ServeEngine:
             dt = self.clock() - t0
             for req in covered:          # attribute by token share
                 req.prefill_s += dt * req.plen / max(total, 1)
+        self.prefill_log.append({"composition": comp,
+                                 "c_mult": int(wave.c_mult), "s": dt})
         self.stats["prefill_waves"] += 1
         mx.counter("serve.prefill_waves").inc()
 
-    def _scatter_kv(self, slot: int, plen: int, fl: np.ndarray,
-                    head_kv, block_kv) -> None:
-        """Write one request's collected KV rows into its slab slot, in
-        place — ring-buffer layers keep only the last window of the
-        prompt, at `pos % window` exactly like the decode-side writes."""
-        def write(cache_layer, kv, layer_idx, stacked):
-            s_l = _layer_cache_len(self.cfg, layer_idx,
-                                   self.scfg.max_context)
-            keep = np.arange(max(0, plen - s_l), plen)
-            slots = self._dev(keep % s_l, torch.int64)
-            rows = self._dev(fl[keep], torch.int64)
-            for name, arr in kv.items():
-                buf = cache_layer[name]
-                if stacked:
-                    buf[:, slot, slots] = arr[:, rows].to(buf.dtype)
-                else:
-                    buf[slot, slots] = arr[rows].to(buf.dtype)
+    def _first_rows(self, hidden, last: np.ndarray, c: int) -> np.ndarray:
+        """fp32 logits of the wave rows ``last`` (global), each computed by
+        the rank that holds it (row // c)."""
+        owner = last // c
+        mine = np.flatnonzero(owner == self._rank)
+        out = logits_head(self.params, self.cfg, hidden.index_select(
+            0, self._dev(last[mine] - self._rank * c, torch.int64))).float()
+        if self.rt.hdp_size > 1:
+            # one all-gather, then every rank picks row n of rank owner[n]:
+            # no arithmetic, so every rank holds the same rows
+            full = out.new_zeros((len(last), out.shape[1]))
+            full[self._dev(mine, torch.int64)] = out
+            out = self.rt.comm.all_gather(full)[
+                self._dev(owner, torch.int64),
+                torch.arange(len(last), device=full.device)]
+        return out.cpu().numpy()
+
+    def _scatter_kv(self, entries, head_kv, block_kv) -> None:
+        """Write the wave's requests' KV rows into their slab slots, in
+        place.  ``entries``: (slot, flat rows of positions 0..plen-1) per
+        request.  Every layer caches every position (`check_supported`
+        rejects ring-buffer layers).  Over several ranks the wave's rows
+        of each layer come from one all-gather of every rank's K and V, and
+        each rank writes the (slot, position) pairs its shard holds."""
+        slots = np.concatenate([np.full(len(fl), slot) for slot, fl in
+                                entries])
+        pos = np.concatenate([np.arange(len(fl)) for _, fl in entries])
+        rows = np.concatenate([fl for _, fl in entries])
+        own = self.shard.owns(slots, pos)
+        ls = self._dev(slots[own] - self.shard.slot0, torch.int64)
+        lp = self._dev(pos[own] - self.shard.base, torch.int64)
+        rows = self._dev(rows[own], torch.int64)
+
+        def wave_rows(k, v):
+            if self.rt.hdp_size == 1:
+                return k, v
+            kv = self.rt.comm.all_gather(torch.cat([k, v], dim=-1))
+            kv = kv.flatten(0, 1)        # [ranks·c, G, Dk + Dv]
+            return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
+
+        def write(cache_layer, kv):
+            k, v = wave_rows(kv["k"], kv["v"])
+            for buf, src in ((cache_layer["k"], k), (cache_layer["v"], v)):
+                buf[ls, lp] = src[rows].to(buf.dtype)
 
         for i, kv in enumerate(head_kv):
-            write(self.cache["head_layers"][i], kv, i, stacked=False)
+            write(self.cache["head_layers"][i], kv)
         for j, kv in enumerate(block_kv):
-            write(self.cache["blocks"][j], kv, self._head_n + j,
-                  stacked=True)
+            for i in range(kv["k"].shape[0]):    # one layer at a time
+                write({n: b[i] for n, b in self.cache["blocks"][j].items()},
+                      {n: a[i] for n, a in kv.items()})
 
     # -- decode --------------------------------------------------------
     def _decode_wave(self) -> List[Request]:
@@ -289,6 +344,8 @@ class ServeEngine:
             logits, self.cache = self._decode(
                 self.params, self.cache, self._dev(self._tok, torch.int64),
                 self._dev(self._pos, torch.int64))
+            if self.shard.layout == "batch" and self.rt.hdp_size > 1:
+                logits = self.rt.comm.all_gather(logits).flatten(0, 1)
             live = logits.index_select(0, self._dev(np.array(active),
                                                     torch.int64))
             lognp = live.float().cpu().numpy()
@@ -331,12 +388,16 @@ class ServeEngine:
         self._retire(req)
 
     def _scrub_slot(self, slot: int) -> None:
+        """Zero this rank's share of ``slot``."""
+        local = slot - self.shard.slot0
+        if not 0 <= local < self.shard.slots:
+            return                       # another rank's whole slot
         for layer in self.cache["head_layers"]:
             for buf in layer.values():
-                buf[slot].zero_()
+                buf[local].zero_()
         for layer in self.cache["blocks"]:
             for buf in layer.values():
-                buf[:, slot].zero_()
+                buf[:, local].zero_()
 
     def _retire(self, req: Request) -> None:
         if req.slot is not None:

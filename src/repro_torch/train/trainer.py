@@ -61,7 +61,7 @@ from repro_torch.data.loader import GlobalScheduler, WaveMaterializer
 from repro_torch.models.transformer import init_params
 from repro_torch.obs import get_metrics, get_recorder, get_tracer
 from repro_torch.obs import ledger as ledger_mod
-from repro_torch.obs.numerics import plan_fingerprint
+from repro_torch.obs.numerics import fingerprints_by_rank
 from repro_torch.optim import adamw
 from repro_torch.parallel.host_offload import HostOffload, PeakMeter
 from repro_torch.parallel.sharding import Runtime
@@ -245,10 +245,7 @@ class Trainer:
         wave's ring would hang them)."""
         if self.rt.hdp_size == 1:
             return
-        mine = int(plan_fingerprint(plan)[:15], 16)
-        got = self.rt.comm.all_gather(torch.tensor(
-            [mine], dtype=torch.int64, device=self.rt.device)).flatten()
-        got = [f"{x:015x}" for x in got.tolist()]
+        got = fingerprints_by_rank(self.rt.comm, plan, self.rt.device)
         if len(set(got)) > 1:
             raise RuntimeError(
                 f"step {self.step}: the HDP ranks planned different steps "

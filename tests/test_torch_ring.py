@@ -335,15 +335,16 @@ def test_planner_waves_liveness():
 
 def test_single_rank_entry_points_refuse_several_ranks():
     """Given a comm of 2 ranks, the trainer builds (rank 0's parameters
-    broadcast, each rank its ZeRO-1 shard of the optimiser state) and the
-    serving engine, single-rank until its multi-rank version lands,
-    raises."""
+    broadcast, each rank its ZeRO-1 shard of the optimiser state) and so
+    does the serving engine, each rank with its shard of the decode slab:
+    whole slots when they tile the ranks, else half of every slot's cache
+    positions."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.distribution import LengthDistribution
     from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_config("llama3.2-3b").reduced()
     ds = SyntheticDataset(LengthDistribution("tiny", 4.5, 0.8, 0.1, 1.5, 256),
@@ -357,8 +358,12 @@ def test_single_rank_entry_points_refuse_several_ranks():
         tr = Trainer(cfg, rt, AdamWConfig(), sched,
                      TrainerConfig(capacity=256),
                      params=init_params(cfg, seed=comm.rank, device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ServeEngine(params, cfg, rt)
+        for slots, shard in ((8, (4, 256)), (3, (3, 128))):
+            eng = ServeEngine(params, cfg, rt, ServeConfig(max_slots=slots))
+            k = eng.cache["blocks"][0]["k"]
+            assert tuple(k.shape) == (cfg.num_layers, *shard,
+                                      cfg.num_kv_heads,
+                                      cfg.resolved_head_dim)
         return tr.params["embed"], tr.opt_state["master"]["embed"]
 
     try:
