@@ -94,7 +94,8 @@ Phases (any failure raises and exits non-zero before the result line):
    parameters equal to rank 0's after each step; per rank exactly layers
    x (1 + its live visiting blocks) carry launches in the forward and as
    many in the remat recompute, as many dq and dkv, one CE each way, per
-   wave; applied == 1.  Prints per-rank peak memory and step wall.
+   wave; applied == 1.  Prints per-rank peak memory and step wall.  Its
+   four processes then run phase 10 (b).
 8. offload — selective activation offload on the card: llama3.2-3b at
    full width and depth, hdp = 1, github at context 16384, 16384 tokens a
    step, capacity 4096, balance, Eq. 3 on.  (a) The plan's waves
@@ -134,10 +135,31 @@ Phases (any failure raises and exits non-zero before the result line):
    (`launch/profile_serve.py::hold_to_single_rank`).  Prints prefill ms
    per wave by composition, decode ms per wave and TTFT at hdp = 4 and 1,
    the card's peak with the four ranks and the slab bytes.
-10. report — one JSON line of every kernel (launches on the paths that
+10. ckpt    — checkpoint and resume (`ckpt/checkpoint.py`, the
+   reference's format) at llama3.2-3b's width cut to 2 layers (seed 0):
+   arrays.npz of 595.3 M parameters x 16 bytes (9.52 GB), under the
+   checkout's build/ (free space checked first, directories deleted
+   after).  (a) hdp = 1, phase 5's data, calibration off: Trainer A
+   (``ckpt_every=2``) runs 3 steps, writing steps 2 and 3; one byte in
+   the middle of step 3's arrays.npz is flipped; a fresh Trainer B
+   resumes: step 3 skipped on a printed line, step 3 still the latest and
+   step 2 the latest valid, every restored tensor equal to the file's;
+   B's step 3 bit-equal to A's (loss, grad norm, every parameter) or,
+   were the kernels not run-to-run deterministic, within A's own spread
+   over two runs of that step.  (b) hdp = 4 -> 1 in phase 7's four
+   processes, after its gates: the Trainers save at the end of ``run``
+   (every rank gathers its ZeRO-1 shards, rank 0 writes), every rank's
+   params and master/m/v shards equal the file's (its `zero1_dim` slice);
+   the four run step 3; rank 0 alone resumes the file at hdp = 1 (state
+   equal to the file) and runs step 3: the same denom, loss and grad
+   norm within 1e-3 relative of hdp = 4's.  Exact launches per wave and
+   per rank in both.  Prints the snapshot (it blocks the step), write,
+   hash, restore and gather seconds, the file's GB and GB/s both ways.
+11. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
-   ring's, the hdp = 4 trainer's, the offloading trainer's and the hdp =
-   4 engine's; errors, times, bounds), then the result line.
+   ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
+   engine's and the checkpoint phase's; errors, times, bounds), then the
+   result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -1071,10 +1093,10 @@ HDP_COMPS = [(4,), (1, 1, 1, 1), (2, 2), (1, 2, 1)]   # step 1 holds them
 HDP_TIMEOUT_S = 240             # a rank left waiting in a collective fails
 
 
-def hdp_rank(rank: int, store: str):
-    """One rank of phase 7, a process of its own on the one card (rank 0
-    is this script's process, the others are spawned): a gloo group
-    through `HostStagedComm`.  Returns rank 0's results."""
+def hdp_rank(rank: int, store: str, ckpt_dir: str):
+    """One rank of phases 7 and 10 (b), a process of its own on the one
+    card (rank 0 is this script's process, the others are spawned): a
+    gloo group through `HostStagedComm`.  Returns rank 0's results."""
     import datetime
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
@@ -1088,7 +1110,7 @@ def hdp_rank(rank: int, store: str):
         "gloo", init_method=f"file://{store}", world_size=RING_HDP,
         rank=rank, timeout=datetime.timedelta(seconds=HDP_TIMEOUT_S))
     try:
-        return hdp_train_rank(torch, HostStagedComm())
+        return hdp_train_rank(torch, HostStagedComm(), ckpt_dir)
     finally:
         dist.destroy_process_group()
 
@@ -1129,12 +1151,14 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
 
 
-def hdp_train_rank(torch, comm):
+def hdp_train_rank(torch, comm, ckpt_dir):
     """Phase 7 on one rank: the port's `Trainer` at hdp = 4 under ZeRO-1,
     2 steps; on rank 0 every step also runs the hdp = 1 route over the same
     global waves (`hdp_reference`).  At step 1 the reduced gradients are
     held to the reference's and the ZeRO-1 apply to the unsharded apply on
-    those same gradients.  Returns rank 0's numbers (None elsewhere)."""
+    those same gradients.  Then, if rank 0's phase 7 gates pass, phase 10
+    (b) on the same trainers (`hdp_ckpt_rank`, checkpointing into
+    ``ckpt_dir``).  Returns rank 0's numbers of both (None elsewhere)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
     from repro_torch.launch import ring_check as RC
@@ -1161,7 +1185,8 @@ def hdp_train_rank(torch, comm):
     sched.plan_step = recorded
     opt = AdamWConfig(lr=3e-4, warmup_steps=0)
     tr = Trainer(cfg, Runtime(device=DEVICE, comm=comm), opt, sched,
-                 TrainerConfig(capacity=RC.RING_CAP, calibrate=False),
+                 TrainerConfig(capacity=RC.RING_CAP, calibrate=False,
+                               ckpt_dir=ckpt_dir),
                  seed=0)
     held = {"ref_wave_losses": [], "ref_grad_norm": [], "grad_rel_l2": [],
             "apply_bf16_over_hold": 0, "apply_bf16_past_one_ulp": 0,
@@ -1243,6 +1268,7 @@ def hdp_train_rank(torch, comm):
         torch.cuda.empty_cache()
         return out
 
+    plain_apply = tr.apply_step
     tr.apply_step = apply_step
 
     def same_as_rank0() -> float:
@@ -1263,58 +1289,73 @@ def hdp_train_rank(torch, comm):
             wave_losses.append(list(tr.last_numerics["wave_losses"]))
             applied.append(tr.last_numerics["applied"])
             same.append(same_as_rank0())
+        torch.cuda.synchronize()
+        counts = read_counts()
+        names = [n for n, *_ in KERNELS]
+        mine = [counts[n] for n in names] + [
+            torch.cuda.max_memory_allocated() / 1e9] + \
+            [r["wall_s"] for r in recs] + same + applied
+        got = comm.all_gather(torch.tensor(
+            mine, dtype=torch.float64, device=DEVICE)).cpu().numpy()
+        res = None
+        if rank == 0:
+            k, s = len(names), HDP_STEPS
+            res = {
+                "model": f"{cfg.name}, {cfg.num_layers} layers",
+                "compositions": [[list(w.composition) for w in plan.waves]
+                                 for plan in plans],
+                "wave_losses": wave_losses, "ref_wave_losses":
+                held["ref_wave_losses"],
+                "grad_norms": [r["grad_norm"] for r in recs],
+                "ref_grad_norms": held["ref_grad_norm"],
+                "tokens_per_step": [r["tokens"] for r in recs],
+                "grad_rel_l2_max_step1": max(held["grad_rel_l2"]),
+                "apply_bf16_elements_over_hold": held["apply_bf16_over_hold"],
+                "apply_bf16_elements_past_one_ulp":
+                held["apply_bf16_past_one_ulp"],
+                "apply_bf16_past_one_ulp_max_abs_value":
+                held["apply_bf16_past_one_ulp_max_abs"],
+                "apply_state_max_err_over_1e-6": held["apply_state_max_err"],
+                "launches_per_rank": {n: got[:, i].astype(int).tolist()
+                                      for i, n in enumerate(names)},
+                "want_launches_per_rank": ring_launches_want(
+                    tr, enumerate(plans), hdp),
+                "peak_mem_gb_per_rank": got[:, k].tolist(),
+                "step_wall_s_per_rank": got[:, k + 1:k + 1 + s].tolist(),
+                "params_same_as_rank0":
+                got[:, k + 1 + s:k + 1 + 2 * s].tolist(),
+                "applied": got[:, k + 1 + 2 * s:].tolist()}
+        # phase 10 (b) runs only on a trainer that passed phase 7's gates
+        ok = comm.all_gather(torch.tensor(
+            [float(rank == 0 and not hdp_gates(res))], dtype=torch.float64,
+            device=DEVICE)).cpu().numpy()[0, 0]
+        tr.apply_step = plain_apply
+        ckpt = hdp_ckpt_rank(torch, comm, tr, plans) if ok else None
     finally:
         sched.stop()
-    torch.cuda.synchronize()
-    counts = read_counts()
-    names = [n for n, *_ in KERNELS]
-    mine = [counts[n] for n in names] + [
-        torch.cuda.max_memory_allocated() / 1e9] + \
-        [r["wall_s"] for r in recs] + same + applied
-    got = comm.all_gather(torch.tensor(
-        mine, dtype=torch.float64, device=DEVICE)).cpu().numpy()
-    if rank != 0:
-        return None
+    return (res, ckpt) if rank == 0 else None
 
-    # what each rank must have launched: per wave, layers x (1 + its live
-    # visiting blocks) carry launches in the forward and as many again in
-    # the remat recompute, layers x that dq and dkv, one CE each way
-    want = {n: [0] * hdp for n in names}
-    for step, plan in enumerate(plans):
+
+def ring_launches_want(tr, step_plans, hdp) -> dict:
+    """What each rank must launch over ``step_plans`` ((step, plan)
+    pairs): per wave, layers x (1 + its live visiting blocks) carry
+    launches in the forward and as many again in the remat recompute,
+    layers x that dq and dkv, one CE each way."""
+    from repro_torch.launch import ring_check as RC
+    want = {n: [0] * hdp for n, *_ in KERNELS}
+    for step, plan in step_plans:
         for wave in plan.waves:
             lw = tr.loader.materialize(step, wave)
             live = RC.expected_launches(
                 tuple(wave.composition), lw.batch["seg"], lw.batch["pos"],
                 c=RC.RING_CAP * wave.c_mult)
             for r in range(hdp):
-                n = cfg.num_layers * live[r]
+                n = tr.cfg.num_layers * live[r]
                 for name, add in (("flash_fwd_carry", 2 * n),
                                   ("flash_bwd_dq", n), ("flash_bwd_dkv", n),
                                   ("fused_ce_fwd", 1), ("fused_ce_bwd", 1)):
                     want[name][r] += add
-    k, s = len(names), HDP_STEPS
-    return {
-        "model": f"{cfg.name}, {cfg.num_layers} layers",
-        "compositions": [[list(w.composition) for w in plan.waves]
-                         for plan in plans],
-        "wave_losses": wave_losses, "ref_wave_losses":
-        held["ref_wave_losses"],
-        "grad_norms": [r["grad_norm"] for r in recs],
-        "ref_grad_norms": held["ref_grad_norm"],
-        "tokens_per_step": [r["tokens"] for r in recs],
-        "grad_rel_l2_max_step1": max(held["grad_rel_l2"]),
-        "apply_bf16_elements_over_hold": held["apply_bf16_over_hold"],
-        "apply_bf16_elements_past_one_ulp": held["apply_bf16_past_one_ulp"],
-        "apply_bf16_past_one_ulp_max_abs_value":
-        held["apply_bf16_past_one_ulp_max_abs"],
-        "apply_state_max_err_over_1e-6": held["apply_state_max_err"],
-        "launches_per_rank": {n: got[:, i].astype(int).tolist()
-                              for i, n in enumerate(names)},
-        "want_launches_per_rank": want,
-        "peak_mem_gb_per_rank": got[:, k].tolist(),
-        "step_wall_s_per_rank": got[:, k + 1:k + 1 + s].tolist(),
-        "params_same_as_rank0": got[:, k + 1 + s:k + 1 + 2 * s].tolist(),
-        "applied": got[:, k + 1 + 2 * s:].tolist()}
+    return want
 
 
 def hdp_gates(res) -> list:
@@ -1353,8 +1394,9 @@ def hdp_gates(res) -> list:
 
 
 def phase_hdp_train(torch, card):
-    """Phase 7: 4 processes share the card, rank 0 this one.  -> launches
-    summed over the ranks."""
+    """Phase 7, and phase 10 (b) after its gates: 4 processes share the
+    card, rank 0 this one.  -> (phase 7's launches, phase 10 (b)'s),
+    each summed over the ranks."""
     import tempfile
     mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
                            "--format=csv,noheader"], capture_output=True,
@@ -1368,12 +1410,15 @@ def phase_hdp_train(torch, card):
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         store = str(Path(tmp) / "store")
-        procs = [mp.Process(target=hdp_rank, args=(r, store), daemon=True)
+        ckpt_dir = str(Path(tmp) / "ckpt")
+        check_disk(ckpt_bytes(HDP_LAYERS), tmp)
+        procs = [mp.Process(target=hdp_rank, args=(r, store, ckpt_dir),
+                            daemon=True)
                  for r in range(1, RING_HDP)]
         for pr in procs:
             pr.start()
         try:
-            res = hdp_rank(0, store)
+            res, ckpt = hdp_rank(0, store, ckpt_dir)
             for pr in procs:
                 pr.join(HDP_TIMEOUT_S)
         finally:
@@ -1394,8 +1439,12 @@ def phase_hdp_train(torch, card):
     fails = hdp_gates(res)
     if fails:
         raise AssertionError("phase 7: " + "; ".join(fails))
-    return {name: int(sum(v)) for name, v in
-            res["launches_per_rank"].items()}
+    log(f"[ckpt] (b) hdp = 4 -> 1: {json.dumps(ckpt)}")
+    fails = ckpt_b_gates(ckpt)
+    if fails:
+        raise AssertionError("phase 10 (b): " + "; ".join(fails))
+    return ({name: int(sum(v)) for name, v in
+             res["launches_per_rank"].items()}, ckpt["launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -1850,15 +1899,299 @@ def phase_hdp_serve(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 10. report
+# 10. ckpt
+# ---------------------------------------------------------------------------
+
+CKPT_LAYERS = 2                 # (a): llama3.2-3b's width, 2 layers
+CKPT_HDP_TOL = 1e-3             # (b): hdp = 1 against hdp = 4, relative
+                                # (the ring's loss hold,
+                                # tests/test_ring_flash.py)
+
+
+def ckpt_bytes(layers: int) -> int:
+    """arrays.npz of llama3.2-3b at full width and ``layers`` layers:
+    every parameter as float32, plus master, m and v (16 bytes each)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("llama3.2-3b")
+    per_layer = (cfg.d_model * cfg.num_heads * cfg.head_dim * 2
+                 + cfg.d_model * 2 * cfg.num_kv_heads * cfg.head_dim
+                 + 3 * cfg.d_model * cfg.d_ff + 2 * cfg.d_model)
+    n = cfg.vocab_size * cfg.d_model + layers * per_layer + cfg.d_model
+    return 16 * n
+
+
+def check_disk(need: int, where) -> None:
+    import shutil
+    free = shutil.disk_usage(where).free
+    log(f"[ckpt] {need / 1e9:.2f} GB of checkpoints under {where}: "
+        f"{free / 1e9:.1f} GB free")
+    if free < need * 1.05:
+        raise AssertionError(f"phase 10: {need / 1e9:.2f} GB of "
+                             f"checkpoints need more than the "
+                             f"{free / 1e9:.1f} GB free under {where}")
+
+
+def file_mismatches(torch, path: str, tr, comm) -> int:
+    """Leaves of ``tr``'s params and optimiser state that differ from the
+    checkpoint file at ``path`` (for the state: this rank's `zero1_dim`
+    slice of the file's leaf), read one leaf at a time."""
+    import numpy as np
+    from repro_torch.ckpt.checkpoint import named_leaves
+    from repro_torch.parallel import zero1
+    hdp, rank = (1, 0) if comm is None else (comm.size, comm.rank)
+    state = {k: dict(named_leaves(tr.opt_state[k]))
+             for k in ("master", "m", "v")}
+    bad = 0
+    with np.load(path) as f:
+        for key, p in named_leaves(tr.params):
+            bad += not torch.equal(torch.from_numpy(f["params/" + key]),
+                                   p.float().cpu())
+            dim = zero1.zero1_dim(p.shape, hdp)
+            for k in ("master", "m", "v"):
+                x = torch.from_numpy(f[f"opt/{k}/{key}"])
+                if dim is not None:
+                    x = zero1.shard(x, dim, rank, hdp)
+                bad += not torch.equal(x, state[k][key].cpu())
+        bad += int(f["opt/step"]) != int(tr.opt_state["step"])
+    return bad
+
+
+def wave_launches_want(layers: int, waves: int) -> dict:
+    """Launches of ``waves`` hdp = 1 training waves at ``layers`` layers."""
+    return {n: waves * (2 * layers if n == "flash_fwd_carry" else
+                        layers if n.startswith("flash_bwd") else
+                        0 if n == "flash_fwd" else 1)
+            for n, *_ in KERNELS}
+
+
+def hdp_ckpt_rank(torch, comm, tr, plans):
+    """Phase 10 (b) on one rank, after phase 7's 2 steps: the Trainers
+    save at the end of ``run`` (every rank gathers, rank 0 writes); every
+    rank holds its params and state shards to the file exactly; the four
+    run step 3 at hdp = 4; rank 0 alone resumes the file in an hdp = 1
+    Trainer, holds its state to the file and runs step 3.  -> rank 0's
+    numbers (None elsewhere)."""
+    import numpy as np
+    from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    from repro_torch.launch import ring_check as RC
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    rank, hdp = comm.rank, comm.size
+    names = [n for n, *_ in KERNELS]
+    t0 = time.perf_counter()
+    for _ in tr.run(0):             # the save at the end of run
+        pass
+    save_wall = time.perf_counter() - t0
+    path = str(Path(tr.ckpt.dir) / f"step_{tr.step}" / "arrays.npz")
+    bad = file_mismatches(torch, path, tr, comm)
+    zero_counts()
+    rec = tr.train_step()           # step 3 at hdp = 4
+    torch.cuda.synchronize()
+    counts = read_counts()
+    got = comm.all_gather(torch.tensor(
+        [bad] + [counts[n] for n in names], dtype=torch.float64,
+        device=DEVICE)).cpu().numpy()
+    out = None
+    if rank == 0:
+        sched = GlobalScheduler(tr.sched.ds, tr.cfg, capacity=RC.RING_CAP,
+                                hdp=1, strategy="balance", use_offload=False)
+        one = Trainer(tr.cfg, Runtime(device=DEVICE), tr.opt_cfg, sched,
+                      TrainerConfig(capacity=RC.RING_CAP, calibrate=False,
+                                    ckpt_dir=tr.ckpt.dir, ckpt_save=False))
+        try:
+            resumed = one.resume_if_possible()
+            bad1 = file_mismatches(torch, path, one, None)
+            zero_counts()
+            rec1 = one.train_step()
+            torch.cuda.synchronize()
+            counts1 = read_counts()
+        finally:
+            sched.stop()
+        want1 = wave_launches_want(tr.cfg.num_layers, rec1["waves"])
+        launches = {n: int(got[:, 1 + i].sum()) + counts1[n]
+                    for i, n in enumerate(names)}
+        stats = tr.ckpt_stats
+        out = {
+            "step": rec["step"], "resumed": resumed,
+            "resumed_at": one.ckpt_stats.get("resumed_at"),
+            "gather_s": stats["gather_s"],
+            "gathered_gb": stats["gathered_bytes"] / 1e9,
+            "snapshot_s": stats["snapshot_s"], "write_s": stats["write_s"],
+            "hash_s": stats["hash_s"], "file_gb": stats["bytes"] / 1e9,
+            "save_wall_s": save_wall,
+            "restore_s_hdp1": one.ckpt_stats["restore_s"],
+            "leaves_unlike_the_file_per_rank": got[:, 0].astype(int).tolist(),
+            "leaves_unlike_the_file_hdp1": bad1,
+            "denom_hdp4": rec["tokens"], "denom_hdp1": rec1["tokens"],
+            "loss_hdp4": rec["loss"], "loss_hdp1": rec1["loss"],
+            "grad_norm_hdp4": rec["grad_norm"],
+            "grad_norm_hdp1": rec1["grad_norm"],
+            "compositions_hdp4": [list(w.composition)
+                                  for w in plans[-1].waves],
+            "waves_hdp1": rec1["waves"],
+            "launches_per_rank": {n: got[:, 1 + i].astype(int).tolist()
+                                  for i, n in enumerate(names)},
+            "want_launches_per_rank": ring_launches_want(
+                tr, [(tr.step - 1, plans[-1])], hdp),
+            "launches_hdp1": counts1, "want_launches_hdp1": want1,
+            "launches": launches}
+        del one
+        torch.cuda.empty_cache()
+    comm.all_gather(torch.zeros(1, device=DEVICE))   # rank 0 is done
+    return out
+
+
+def ckpt_b_gates(res) -> list:
+    fails = []
+    if not res["resumed"] or res["resumed_at"] != res["step"] - 1:
+        fails.append("the hdp = 1 Trainer did not resume the hdp = 4 step")
+    if any(res["leaves_unlike_the_file_per_rank"]) or \
+            res["leaves_unlike_the_file_hdp1"]:
+        fails.append("a restored or live leaf differs from the file")
+    if res["denom_hdp1"] != res["denom_hdp4"]:
+        fails.append(f"denom {res['denom_hdp1']} at hdp = 1, "
+                     f"{res['denom_hdp4']} at hdp = 4")
+    for k in ("loss", "grad_norm"):
+        a, b = res[f"{k}_hdp1"], res[f"{k}_hdp4"]
+        if not abs(a - b) <= CKPT_HDP_TOL * abs(b):
+            fails.append(f"{k} {a} at hdp = 1, {b} at hdp = 4")
+    if res["launches_per_rank"] != res["want_launches_per_rank"]:
+        fails.append(f"hdp = 4 launches {res['launches_per_rank']}, want "
+                     f"{res['want_launches_per_rank']}")
+    if res["launches_hdp1"] != res["want_launches_hdp1"]:
+        fails.append(f"hdp = 1 launches {res['launches_hdp1']}, want "
+                     f"{res['want_launches_hdp1']}")
+    return fails
+
+
+def ckpt_trainer(cfg, ckpt_dir, **tcfg):
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    return Trainer(cfg, Runtime(device=DEVICE),
+                   AdamWConfig(lr=3e-4, warmup_steps=0), train_setup(cfg),
+                   TrainerConfig(capacity=4096, ckpt_dir=ckpt_dir,
+                                 calibrate=False, **tcfg), seed=0)
+
+
+def flip_middle_byte(path: str) -> None:
+    import os
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase_ckpt(torch, card):
+    """Phase 10 (a): checkpoint and resume at hdp = 1 through the kernels
+    (see the module docstring).  -> its launches."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=CKPT_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        check_disk(2 * ckpt_bytes(CKPT_LAYERS), tmp)
+        a = ckpt_trainer(cfg, tmp, ckpt_every=2)
+        zero_counts()
+        try:
+            hist_a = list(a.run(3))
+        finally:
+            a.sched.stop()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        saved = dict(a.ckpt_stats)
+        flip_middle_byte(str(Path(tmp) / "step_3" / "arrays.npz"))
+        b = ckpt_trainer(cfg, tmp, ckpt_save=False)
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            resumed = b.resume_if_possible()
+        log(f"[ckpt] resume: {said.getvalue().strip()}")
+        path2 = str(Path(tmp) / "step_2" / "arrays.npz")
+        res = {"model": f"{cfg.name}, {cfg.num_layers} layers",
+               "resumed": resumed, "resumed_at": b.step,
+               "skip_printed": "checkpoint step 3 skipped" in said.getvalue(),
+               "latest_step": b.ckpt.latest_step(),
+               "latest_valid_step": b.ckpt.latest_valid_step(),
+               "leaves_unlike_the_file": file_mismatches(torch, path2, b,
+                                                         None)}
+        try:
+            zero_counts()
+            rec = b.train_step()
+            torch.cuda.synchronize()
+            counts_b = read_counts()
+
+            def diff():
+                return max(float((x.float() - y.float()).abs().max())
+                           for x, y in zip(leaves(b.params),
+                                           leaves(a.params)))
+            res["max_abs_param_diff"] = diff()
+            res["bit_equal"] = (rec["loss"] == hist_a[2]["loss"]
+                                and rec["grad_norm"] == hist_a[2]["grad_norm"]
+                                and res["max_abs_param_diff"] == 0.0)
+            if not res["bit_equal"]:
+                # phase 8's rule: within A's own spread over two runs of
+                # the same step (a second resume of step 2 and step 3)
+                b.resume_if_possible()
+                b.train_step()
+                res["own_spread_max_abs"] = diff()
+        finally:
+            b.sched.stop()
+        for n, c in counts_b.items():
+            launches[n] += c
+        waves = sum(r["waves"] for r in hist_a) + rec["waves"]
+        res.update({
+            "losses_a": [r["loss"] for r in hist_a], "loss_b": rec["loss"],
+            "grad_norm_a3": hist_a[2]["grad_norm"],
+            "grad_norm_b": rec["grad_norm"],
+            "snapshot_s": saved["snapshot_s"], "write_s": saved["write_s"],
+            "hash_s": saved["hash_s"], "file_gb": saved["bytes"] / 1e9,
+            "write_gb_per_s": saved["bytes"] / saved["write_s"] / 1e9,
+            "restore_s": b.ckpt_stats["restore_s"],
+            # the restore hashes damaged step 3, then hashes and reads 2
+            "restore_read_gb_per_s": 3 * saved["bytes"]
+            / b.ckpt_stats["restore_s"] / 1e9,
+            "launches": launches,
+            "want_launches": wave_launches_want(cfg.num_layers, waves)})
+        del a, b
+        torch.cuda.empty_cache()
+    res["phase_wall_s"] = time.perf_counter() - t0
+    log(f"[ckpt] (a) {card}: {json.dumps(res)}")
+    fails = []
+    if not (res["resumed"] and res["resumed_at"] == 2
+            and res["skip_printed"] and res["latest_step"] == 3
+            and res["latest_valid_step"] == 2):
+        fails.append("the damaged step 3 was not skipped for step 2")
+    if res["leaves_unlike_the_file"]:
+        fails.append(f"{res['leaves_unlike_the_file']} restored leaves "
+                     f"differ from the file")
+    if not res["bit_equal"] and not (
+            res["max_abs_param_diff"] <= res["own_spread_max_abs"]):
+        fails.append(f"the resumed step 3 differs from the original by "
+                     f"{res['max_abs_param_diff']}, beyond its own spread")
+    if launches != res["want_launches"]:
+        fails.append(f"launches {launches}, want {res['want_launches']}")
+    if fails:
+        raise AssertionError("phase 10 (a): " + "; ".join(fails))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 11. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
-                 hdp_launches, offload_launches, hdp_serve_launches):
+                 hdp_launches, offload_launches, hdp_serve_launches,
+                 ckpt_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
-    its ranks), the offloading trainer's and the hdp = 4 engine's (summed
-    over its ranks)."""
+    its ranks), the offloading trainer's, the hdp = 4 engine's (summed
+    over its ranks) and the checkpoint phase's."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -1871,7 +2204,7 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             "replaces": replaces,
             "launches": launches[name] + ring_launches[name]
             + hdp_launches[name] + offload_launches[name]
-            + hdp_serve_launches[name],
+            + hdp_serve_launches[name] + ckpt_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -1899,15 +2232,20 @@ def main() -> int:
     log(f"[train] done at {time.perf_counter() - t0:.1f} s")
     ring_launches = phase_ring(torch, card)
     log(f"[ring] done at {time.perf_counter() - t0:.1f} s")
-    hdp_launches = phase_hdp_train(torch, card)
+    hdp_launches, ckpt_b_launches = phase_hdp_train(torch, card)
     log(f"[hdp_train] done at {time.perf_counter() - t0:.1f} s")
     offload_launches = phase_offload(torch, card)
     log(f"[offload] done at {time.perf_counter() - t0:.1f} s")
     hdp_serve_launches = phase_hdp_serve(torch, card)
     log(f"[hdp_serve] done at {time.perf_counter() - t0:.1f} s")
+    ckpt_launches = phase_ckpt(torch, card)
+    for name, n in ckpt_b_launches.items():
+        ckpt_launches[name] += n
+    log(f"[ckpt] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
-                                offload_launches, hdp_serve_launches)))
+                                offload_launches, hdp_serve_launches,
+                                ckpt_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

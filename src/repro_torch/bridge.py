@@ -1,8 +1,9 @@
 """Parameter bridge between the reference's flat checkpoint keys and the
 port's parameter tree.
 
-Keys follow the reference's checkpoint flattening (``ckpt/checkpoint.py``):
-the tree path joined with "/", list positions as integers, e.g.
+Keys follow the checkpoint flattening (``ckpt/checkpoint.py::flatten``,
+the reference's scheme): the tree path joined with "/", list positions
+as integers, e.g.
 ``blocks/0/attn/w_q`` or ``final_norm/scale``.  Leaves are numpy arrays;
 bf16 leaves travel as float32 (npz has no bf16) and are cast back to
 ``cfg.dtype`` here.  The port keeps the reference's layouts, so every
@@ -16,6 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import flatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import resolve_device
@@ -55,23 +57,7 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
 
 
 def params_to_flat(params) -> Dict[str, np.ndarray]:
-    """The port's parameter tree -> flat {key: array}; bf16 leaves as
-    float32, like the reference's checkpoint flattening.  The arrays are
-    copies: a later in-place update of the tree does not show in them."""
-    flat: Dict[str, np.ndarray] = {}
-
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], prefix + [str(k)])
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, prefix + [str(i)])
-        else:
-            t = node.detach().cpu()
-            if t.dtype in (torch.bfloat16, torch.float16):
-                t = t.float()
-            flat["/".join(prefix)] = np.array(t.numpy())
-
-    walk(params, [])
-    return flat
+    """The port's parameter tree -> flat {key: array} (`ckpt.flatten`):
+    bf16 leaves as float32, copies, so a later in-place update of the
+    tree does not show in them."""
+    return flatten(params)

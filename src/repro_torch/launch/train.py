@@ -3,7 +3,7 @@
     python -m repro_torch.launch.train --arch llama3.2-3b [--reduced] \\
         --steps N --capacity C --tokens-per-step N --context L \\
         --dataset D --strategy S --lr X --attn-impl {flash,ref} \\
-        [--offload] [--mesh NxM] [--device cpu]
+        [--offload] [--mesh NxM] [--ckpt-dir D] [--device cpu]
 
 Port of `repro/launch/train.py` (mode ``dp``, no PP).  Runs on ``cuda``
 unless ``--device cpu`` is given, and refuses to start without a GPU
@@ -24,13 +24,22 @@ periods k; ms per warm wave by composition (the slowest rank's); every
 rank's peak device memory; the pinned host memory the offload buffers
 hold; the ZeRO-1 bytes of a step; the ledger's
 totals (predicted and measured ring and offload bytes, predicted and
-measured peak memory).  M > 1 (tensor parallelism) is not ported.
+measured peak memory); the step it resumed at, the checkpoint's seconds
+(gather, snapshot, write, hash, restore) and bytes, and rank 0's peak
+host memory.  M > 1 (tensor parallelism) is not ported.
+
+``--ckpt-dir D`` (the reference's) checkpoints into D every 5 steps and
+after the last, and first resumes from the newest valid checkpoint in D,
+printing "resumed at step N"; ``--steps`` is the step to reach, as in
+the reference.  A checkpoint holds the ZeRO-1 state whole, so a run
+written at ``--mesh 4x1`` resumes at ``--mesh 2x1`` or ``1x1``.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import resource
 import subprocess
 import tempfile
 from collections import defaultdict
@@ -97,7 +106,13 @@ def train(args, comm=None, say=print):
         trainer = Trainer(cfg, rt, AdamWConfig(lr=args.lr,
                                                total_steps=args.steps),
                           sched, TrainerConfig(capacity=args.capacity,
-                                               use_offload=args.offload))
+                                               use_offload=args.offload,
+                                               ckpt_dir=args.ckpt_dir))
+        if args.ckpt_dir and trainer.resume_if_possible():
+            say(f"resumed at step {trainer.step}", flush=True)
+        if args.steps <= trainer.step:
+            raise ValueError(f"--steps {args.steps}: the checkpoint is at "
+                             f"step {trainer.step} already")
 
         def telemetry(ws, measured, fresh, wall_s=None):
             w = ws[0]
@@ -106,7 +121,7 @@ def train(args, comm=None, say=print):
             step_waves.append((str(tuple(w.composition)), fresh,
                                (w.c_mult, w.offload_ratio, k)))
         trainer.telemetry_fn = telemetry
-        for rec in trainer.run(args.steps):
+        for rec in trainer.run(args.steps - trainer.step):
             secs = trainer.last_numerics["wave_seconds"]
             waves += [(comp, fresh, np.atleast_1d(s).tolist(), key)
                       for (comp, fresh, key), s in zip(step_waves, secs)]
@@ -148,6 +163,10 @@ def summary(args, trainer, waves, peaks) -> dict:
         if trainer.offload_store is not None else 0.0,
         "peak_mem_gb_by_rank": peaks,
         "zero1_bytes": zero1_bytes(trainer.params, hdp),
+        "resumed_at": trainer.ckpt_stats.get("resumed_at"),
+        "ckpt": trainer.ckpt_stats,
+        "host_peak_rss_gb": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1e6,
         "ledger": {"pred": totals["pred"], "meas": totals["meas"],
                    "hbm_pred_peak_gb": led["hbm_pred_peak"] / 1e9,
                    "hbm_meas_peak_gb": led["hbm_meas_peak"] / 1e9,
@@ -208,6 +227,10 @@ def main(argv=None):
     ap.add_argument("--mesh", default="1x1",
                     help="NxM: N HDP ranks, one process each (M, tensor "
                          "parallelism, must be 1)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory: resume from its newest "
+                         "valid checkpoint, save every 5 steps and at the "
+                         "end")
     ap.add_argument("--device", default=None,
                     help="default cuda; pass cpu to run on the CPU")
     args = ap.parse_args(argv)

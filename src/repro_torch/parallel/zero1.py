@@ -7,6 +7,9 @@ reference's `zero1_spec` at tp = 1); a leaf with no such dimension stays
 replicated.  Each step reduce-scatters the fp32 gradients into this rank's
 shard (`reduce_grad`), updates the shard of master, m and v
 (`optim/adamw.py`), and all-gathers the bf16 parameters (`gather_leaf`).
+A checkpoint holds the state whole: `gather_to_host` gathers it to rank
+0's host memory, and a restore gives each rank its `shard` of the file's
+leaf, so the state restores at any HDP size.
 
 Where the reference lets XLA lay the collectives out, here a leaf sharded on
 a dimension d > 0 is brought into rank-major order block by block (at most
@@ -18,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.parallel.comm import HdpComm
@@ -48,16 +52,15 @@ def shard_shape(shape: Sequence[int], dim: int, hdp: int) -> tuple:
     return tuple(s // hdp if i == dim else s for i, s in enumerate(shape))
 
 
-def _blocks(x: torch.Tensor, dim: int, hdp: int):
-    """``x`` (contiguous, full) viewed [P, hdp, M] — P the product of the
+def _blocks(shape: Sequence[int], dim: int, hdp: int):
+    """A leaf of ``shape`` viewed [P, hdp, M] — P the product of the
     dimensions before ``dim``, M the elements of one rank's share of the
-    rest, so rank r's shard is [:, r, :] — and the (p, column slice) blocks
-    that cover it, at most `_CHUNK` elements each."""
-    p = math.prod(x.shape[:dim])
-    view = x.view(p, hdp, -1)
-    m = view.shape[2]
+    rest, so rank r's shard is [:, r, :] — -> (P, M, the (p, column
+    slice) blocks that cover a shard, at most `_CHUNK` elements each)."""
+    p = math.prod(shape[:dim])
+    m = math.prod(shape) // (p * hdp)
     step = max(1, _CHUNK // hdp)
-    return view, [(i, slice(j, min(m, j + step))) for i in range(p)
+    return p, m, [(i, slice(j, min(m, j + step))) for i in range(p)
                   for j in range(0, m, step)]
 
 
@@ -68,12 +71,24 @@ def reduce_grad(g: torch.Tensor, comm: HdpComm) -> torch.Tensor:
     dim = zero1_dim(g.shape, comm.size)
     if dim is None:
         return comm.all_reduce(g)
-    view, blocks = _blocks(g, dim, comm.size)
-    out = torch.empty((view.shape[0], view.shape[2]), dtype=g.dtype,
-                      device=g.device)
+    p, m, blocks = _blocks(g.shape, dim, comm.size)
+    view = g.view(p, comm.size, m)
+    out = torch.empty((p, m), dtype=g.dtype, device=g.device)
     for i, cols in blocks:
         out[i, cols] = comm.reduce_scatter(view[i, :, cols].contiguous())[0]
     return out.view(shard_shape(g.shape, dim, comm.size))
+
+
+def _gather_blocks(part: torch.Tensor, shape, dim: int, comm: HdpComm):
+    """Every rank's shard ``part`` (contiguous) of a leaf of ``shape``,
+    block by block -> (i, cols, the block [hdp, cols] on the device)."""
+    p, m, blocks = _blocks(shape, dim, comm.size)
+    src = part.view(p, m)
+    for i, cols in blocks:
+        new = torch.empty((comm.size, cols.stop - cols.start),
+                          dtype=part.dtype, device=part.device)
+        comm.all_gather_into(new.view(-1), src[i, cols].contiguous())
+        yield i, cols, new
 
 
 def gather_leaf(out: torch.Tensor, part: torch.Tensor, dim: int,
@@ -81,18 +96,35 @@ def gather_leaf(out: torch.Tensor, part: torch.Tensor, dim: int,
     """Writes every rank's shard ``part`` (contiguous) of the contiguous
     leaf ``out`` into it.  ``sq``: returns Σ (new − old)² of ``out`` in
     fp32 over the whole leaf, the same on every rank."""
-    view, blocks = _blocks(out, dim, comm.size)
-    src = part.view(view.shape[0], view.shape[2])
+    view = out.view(math.prod(out.shape[:dim]), comm.size, -1)
     acc = []
-    for i, cols in blocks:
-        new = torch.empty((comm.size, cols.stop - cols.start),
-                          dtype=out.dtype, device=out.device)
-        comm.all_gather_into(new.view(-1), src[i, cols].contiguous())
+    for i, cols, new in _gather_blocks(part, out.shape, dim, comm):
         if sq:
             acc.append(torch.linalg.vector_norm(
                 new.float() - view[i, :, cols].float()).square())
         view[i, :, cols] = new
     return torch.stack(acc).sum() if sq else None
+
+
+def gather_to_host(part: torch.Tensor, full_shape: Sequence[int],
+                   comm: HdpComm) -> Optional[np.ndarray]:
+    """The whole leaf of ``full_shape`` from every rank's ZeRO-1 shard
+    ``part`` (contiguous; the whole leaf where `zero1_dim` shards none)
+    as a host array on rank 0, None on the other ranks.  Every rank must
+    call it.  Block by block, so the device never holds the whole leaf
+    (the checkpoint's gather; `shard` of the host array is its
+    inverse)."""
+    dim = zero1_dim(full_shape, comm.size)
+    if dim is None:
+        return part.detach().to("cpu", copy=True).numpy() \
+            if comm.rank == 0 else None
+    view = torch.empty(tuple(full_shape), dtype=part.dtype).view(
+        math.prod(full_shape[:dim]), comm.size, -1) \
+        if comm.rank == 0 else None
+    for i, cols, new in _gather_blocks(part, full_shape, dim, comm):
+        if view is not None:
+            view[i, :, cols] = new
+    return None if view is None else view.view(tuple(full_shape)).numpy()
 
 
 def zero1_bytes(params, hdp: int) -> dict:

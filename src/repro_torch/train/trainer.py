@@ -37,12 +37,20 @@ device memory (the largest over the ranks).  ``peak.high_water()`` is the
 peak over the whole run, which the per-dispatch resets hide from
 ``torch.cuda.max_memory_allocated``.
 
+Checkpoints (``ckpt_dir``; `ckpt/checkpoint.py`, the reference's format)
+are written every ``ckpt_every`` steps and at the end of ``run``, and
+``resume_if_possible`` restores the newest one that passes integrity.
+Over several ranks every rank gathers its ZeRO-1 shards of master, m and
+v to rank 0, which alone writes; on restore every rank reads the file,
+takes its own shards and checks that the others chose the same step.  So
+a run changes its HDP size by a relaunch at hdp' that restores the
+checkpoint.
+
 What the port does not run yet raises `NotImplementedError` naming the
-ROADMAP queue item that brings it: checkpointing (``ckpt_dir``, queue 1
-item 5), pipeline parallelism (queue 1 item 7), ``resize`` to another HDP
-size (queue 1 items 5 and 9) and the planner thread with calibration over
-several ranks (queue 1 item 9).  The numerics monitor and step provenance
-come with queue 1 item 9.
+ROADMAP queue item that brings it: pipeline parallelism (queue 1 item 7),
+the in-place ``resize`` to another HDP size and the planner thread with
+calibration over several ranks (queue 1 item 9).  The numerics monitor
+and step provenance come with queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.offload import offload_periods
 from repro_torch.data.loader import GlobalScheduler, WaveMaterializer
@@ -65,17 +74,18 @@ from repro_torch.obs.numerics import fingerprints_by_rank
 from repro_torch.optim import adamw
 from repro_torch.parallel.host_offload import HostOffload, PeakMeter
 from repro_torch.parallel.sharding import Runtime
-from repro_torch.parallel.zero1 import zero1_bytes
+from repro_torch.parallel.zero1 import gather_to_host, zero1_bytes, zero1_dim
 from repro_torch.sched.calibrate import OnlineCalibrator, fit_length_of
 from repro_torch.train.train_step import make_accum_steps, zeros_accum
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 
 @dataclass
 class TrainerConfig:
     capacity: int = 512
     steps: int = 10
-    ckpt_dir: Optional[str] = None   # checkpointing: not ported yet
+    ckpt_every: int = 5
+    ckpt_dir: Optional[str] = None
     mode: str = "dp"                 # balance mode ("pp": not ported yet)
     use_offload: bool = False        # offload remat (Eq. 3 plans, the
                                      # leading periods' inputs in pinned
@@ -91,6 +101,9 @@ class TrainerConfig:
                                      # the scheduler
     recalibrate_every: int = 8       # refit Eq. 3 CostCoeffs every N steps
                                      # (0 = never)
+    ckpt_save: bool = True           # False: restore only (the same on
+                                     # every rank; over several ranks
+                                     # rank 0 alone writes)
     numerics_guard: bool = True      # skip the optimizer apply when any
                                      # grad element is non-finite
     nan_fault: Optional[Dict] = None  # fault injection: {"step": k,
@@ -108,10 +121,6 @@ class Trainer:
         init; over several ranks rank 0's are broadcast to every rank
         either way, and the optimiser state (this rank's ZeRO-1 shards)
         is built from them."""
-        if tcfg.ckpt_dir is not None:
-            raise NotImplementedError(
-                "checkpointing (ckpt_dir) comes with the port of "
-                "ckpt/checkpoint.py, ROADMAP queue 1 item 5")
         if scheduler.spec.num_stages > 1 or tcfg.mode == "pp":
             raise NotImplementedError(
                 "pipeline parallelism comes with ROADMAP queue 1 item 7")
@@ -148,6 +157,12 @@ class Trainer:
         self.grad_step, self.apply_step = make_accum_steps(
             cfg, self.rt, opt_cfg, guard=tcfg.numerics_guard)
         self._exec_cache: Dict[tuple, Runtime] = {}
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir) \
+            if tcfg.ckpt_dir else None
+        self._check_ckpt_config()
+        self.last_ckpt_step: Optional[int] = None
+        self.ckpt_stats: Dict[str, float] = {}   # the last save's and
+        # restore's seconds and bytes (`_save`, `resume_if_possible`)
         self.history: list = []
         self.calib = OnlineCalibrator(
             scheduler.spec.coeffs, self.rt.hdp_size, cfg.num_layers,
@@ -202,13 +217,15 @@ class Trainer:
         """Elastic rescale at the same HDP size: the new scheduler and a
         fresh calibrator take over, params and optimiser state carry on
         (the reference's `resize`).  Another size raises: it needs a new
-        process group and a ZeRO-1 re-shard through a checkpoint."""
+        process group, so it is a relaunch at that size that restores the
+        checkpoint (`resume_if_possible` re-shards ZeRO-1)."""
         if new_hdp_scheduler.hdp != self.rt.hdp_size:
             raise NotImplementedError(
                 f"resize from {self.rt.hdp_size} to {new_hdp_scheduler.hdp} "
-                f"HDP ranks needs a new process group and a ZeRO-1 re-shard "
-                f"through a checkpoint: ROADMAP queue 1 items 5 "
-                f"(ckpt/checkpoint.py) and 9 (ctrl/elastic.py)")
+                f"HDP ranks needs a new process group: relaunch at "
+                f"{new_hdp_scheduler.hdp} ranks and restore the checkpoint "
+                f"(resume_if_possible re-shards ZeRO-1); the in-place "
+                f"resize comes with ROADMAP queue 1 item 9 (ctrl/elastic.py)")
         if new_hdp_scheduler is not self.sched:
             self.sched.stop()   # old planner thread + pre-built buffers
         self.sched = new_hdp_scheduler
@@ -219,6 +236,114 @@ class Trainer:
             ema=self.tcfg.straggler_ema)
         if self.tcfg.sched_async:
             new_hdp_scheduler.service.attach_materializer(self.loader)
+
+    # ------------------------------------------------------------------
+    def _lead(self) -> bool:
+        """Rank 0 (or the only rank): the one that writes checkpoints."""
+        return self.rt.comm is None or self.rt.comm.rank == 0
+
+    def _all_gather_ints(self, values) -> list:
+        """Every rank's ``values`` (a list of ints) -> one row a rank."""
+        return self.rt.comm.all_gather(torch.tensor(
+            values, dtype=torch.int64, device=self.rt.device)).tolist()
+
+    def _check_ckpt_config(self) -> None:
+        """Over several ranks every rank must take part in every save's
+        gathers: a rank without ``ckpt_dir``, or with another
+        ``ckpt_save``, would leave the others waiting in them."""
+        if self.rt.hdp_size == 1:
+            return
+        got = self._all_gather_ints([self.ckpt is not None,
+                                     self.tcfg.ckpt_save])
+        if any(row != got[0] for row in got):
+            raise ValueError(f"ckpt_dir set and ckpt_save must agree on "
+                             f"every HDP rank (by rank {got})")
+
+    def data_state(self) -> Dict:
+        """Checkpoint data_state: the step cursor plus the calibrator's and
+        the scheduler service's warm state."""
+        return {"step": self.step, "calib": self.calib.state_dict(),
+                "sched": self.sched.service.state_dict()}
+
+    def load_ctrl_state(self, data_state: Dict) -> None:
+        """Warm-start the calibrator and scheduler service from a
+        checkpoint's data_state (no-ops on geometry mismatch)."""
+        calib_state = data_state.get("calib")
+        if calib_state:
+            self.calib.load_state(calib_state)
+        sched_state = data_state.get("sched")
+        if sched_state:
+            self.sched.service.load_state(sched_state)
+            if self.tcfg.calibrate and self.calib.n_observed > 0:
+                self.sched.update_rank_speed(self.calib.rank_speed())
+
+    def resume_if_possible(self) -> bool:
+        """Restore the newest checkpoint that passes integrity (a damaged
+        newest one falls back to the last good one) into the params and
+        optimiser state, each rank its ZeRO-1 shards of the file's whole
+        leaves, so the checkpoint may come from any HDP size.  Over
+        several ranks every rank all-gathers the step it restored, and a
+        disagreement raises on every rank.  Calibrator and scheduler state
+        restore warm when the HDP size still matches."""
+        if self.ckpt is None:
+            return False
+        t0 = self._clock()
+        res = self.ckpt.restore_latest(self.params, self.opt_state,
+                                       comm=self.rt.comm)
+        if self.rt.hdp_size > 1:
+            got = [row[0] for row in self._all_gather_ints(
+                [-1 if res is None else res[0]])]
+            if len(set(got)) > 1:
+                raise RuntimeError(f"the HDP ranks restored different "
+                                   f"checkpoints (steps by rank {got})")
+        if res is None:
+            return False
+        _, self.params, self.opt_state, data_state = res
+        self.step = int(data_state["step"])
+        self.last_ckpt_step = self.step
+        self.load_ctrl_state(data_state)
+        self.ckpt_stats.update(resumed_at=self.step,
+                               restore_s=self._clock() - t0)
+        return True
+
+    def _gathered_state(self):
+        """The optimiser state with whole leaves: this rank's own at one
+        rank; over several, every rank's ZeRO-1 shards gathered to rank 0
+        (host arrays there, None elsewhere).  Every rank must call it."""
+        comm = self.rt.comm
+        if comm is None:
+            return self.opt_state
+        out = {"step": self.opt_state["step"]}
+        for k in ("master", "m", "v"):
+            got = iter([gather_to_host(x, p.shape, comm) for x, p in
+                        zip(leaves(self.opt_state[k]), leaves(self.params))])
+            out[k] = tree_map(lambda _: next(got), self.opt_state[k])
+        return out
+
+    def _save(self, block: bool = False) -> None:
+        """Checkpoint the current step.  Over several ranks every rank
+        must call it: the ZeRO-1 shards are gathered to rank 0, which
+        alone writes (after its previous write has finished, so its host
+        holds one snapshot at a time)."""
+        t0 = self._clock()
+        if self._lead():
+            self.ckpt.wait()
+        stats = {}
+        t1 = self._clock()
+        opt = self._gathered_state()
+        if self.rt.hdp_size > 1:
+            stats["gather_s"] = self._clock() - t1
+            stats["gathered_bytes"] = 3.0 * sum(
+                p.numel() * 4 for p in leaves(self.params)
+                if zero1_dim(p.shape, self.rt.hdp_size) is not None)
+        if self._lead():
+            self.ckpt.save(self.step, self.params, opt, self.data_state(),
+                           block=block)
+            stats.update(self.ckpt.last_save)
+        del opt
+        self.last_ckpt_step = self.step
+        stats["save_s"] = self._clock() - t0
+        self.ckpt_stats.update(stats)
 
     # ------------------------------------------------------------------
     def _observe(self, waves, measured, fresh_compile: bool,
@@ -468,9 +593,26 @@ class Trainer:
                               loss=rec["loss"], waves=rec["waves"],
                               wall_s=rec["wall_s"])
         mx.export_step(self.step)
+        if self.ckpt is not None and self.tcfg.ckpt_save \
+                and self.step % self.tcfg.ckpt_every == 0:
+            with tr.span("checkpoint", step=self.step):
+                self._save()
         return rec
 
     def run(self, steps: Optional[int] = None):
+        """``steps`` more steps, then (with ``ckpt_dir`` and ``ckpt_save``)
+        a blocking save of the last one, unless the periodic save already
+        wrote it.  Over several ranks one collective follows rank 0's
+        write, so no rank returns before the checkpoint is on disk."""
         n = steps if steps is not None else self.tcfg.steps
         for _ in range(n):
             yield self.train_step()
+        if self.ckpt is None or not self.tcfg.ckpt_save:
+            return
+        if self.last_ckpt_step != self.step:
+            self._save(block=True)
+        if self._lead():
+            self.ckpt.wait()
+            self.ckpt_stats.update(self.ckpt.last_save)
+        if self.rt.hdp_size > 1:
+            self._all_gather_ints([self.step])

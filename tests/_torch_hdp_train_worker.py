@@ -11,6 +11,10 @@ light.  Every scenario waits for the reference's initial parameters
 the offload runs; written by the JAX side before it trains), so both sides
 start from the same weights.  Each rank writes ``OUT_DIR/torch_rank{r}.npz``.
 
+The checkpoint scenario (`ckpt_check`) writes under ``OUT_DIR/ckpt4``
+(hdp = 4, steps 1 and 2) and ``OUT_DIR/ckpt1`` (hdp = 1, step 2), which
+the JAX side resumes once they appear.
+
 ``--ledger`` runs only the offload scenario, with the bytes ledger on and
 seeded weights (`tests/test_torch_ledger.py`); each rank writes
 ``OUT_DIR/ledger_rank{r}.npz``.
@@ -47,22 +51,22 @@ def config(dtype: str = "float32", layers: int = 0):
 
 
 def scheduler(cfg, seed: int = 0, sched_async: bool = False,
-              use_offload: bool = False):
+              use_offload: bool = False, hdp: int = R):
     from repro_torch.data.distribution import LengthDistribution
     from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
     tokens, context = (OFF_TOKENS, OFF_CONTEXT) if use_offload \
         else (TOKENS, CONTEXT)
     ds = SyntheticDataset(LengthDistribution(*DIST), cfg.vocab_size,
                           tokens_per_step=tokens, context=context, seed=seed)
-    return GlobalScheduler(ds, cfg, capacity=CAP, hdp=R,
+    return GlobalScheduler(ds, cfg, capacity=CAP, hdp=hdp,
                            use_offload=use_offload, sched_async=sched_async)
 
 
 def trainer(comm, flat, impl="ref", seed=0, **tcfg):
-    """The port's `Trainer` on ``comm``'s ranks from the reference's
-    parameters (seeded ones if ``flat`` is None), recording each step's
-    plan fingerprint in ``.plans``.  ``use_offload`` runs the offload
-    scenario's model and data."""
+    """The port's `Trainer` on ``comm``'s ranks (one rank if None) from
+    the reference's parameters (seeded ones if ``flat`` is None),
+    recording each step's plan fingerprint in ``.plans``.
+    ``use_offload`` runs the offload scenario's model and data."""
     from repro_torch import bridge
     from repro_torch.obs.numerics import plan_fingerprint
     from repro_torch.optim.adamw import AdamWConfig
@@ -70,7 +74,8 @@ def trainer(comm, flat, impl="ref", seed=0, **tcfg):
     from repro_torch.train.trainer import Trainer, TrainerConfig
     off = tcfg.get("use_offload", False)
     cfg = config(layers=OFF_LAYERS if off else 0)
-    sched = scheduler(cfg, seed, tcfg.get("sched_async", False), off)
+    sched = scheduler(cfg, seed, tcfg.get("sched_async", False), off,
+                      1 if comm is None else comm.size)
     plans = []
     plan_step = sched.plan_step
 
@@ -299,6 +304,85 @@ def async_check(comm, flat, res) -> None:
         sched.stop()
 
 
+CKPT_RUNS = ("h2", "h1", "h4_from_h1")   # resumes held to the reference's
+
+
+def resume_and_step(comm, ckpt_dir: str, res: dict, run: str) -> None:
+    """A Trainer on ``comm``'s ranks (one if None) resumes ``ckpt_dir``
+    and trains one step: its restored state shards, then the step's loss,
+    grad norm and waves and the parameters after it."""
+    from repro_torch import bridge
+    tr = trainer(comm, None, "ref", ckpt_dir=ckpt_dir, ckpt_save=False)
+    try:
+        assert tr.resume_if_possible()
+        res[f"ckpt/{run}/resumed_at"] = tr.step
+        res[f"ckpt/{run}/opt_step"] = int(tr.opt_state["step"])
+        for key, v in state_flat(tr.opt_state).items():
+            res[f"ckpt/{run}/state/{key}"] = v
+        rec = tr.train_step()
+        for k in ("loss", "grad_norm", "waves"):
+            res[f"ckpt/{run}/{k}"] = rec[k]
+        for key, v in bridge.params_to_flat(tr.params).items():
+            res[f"ckpt/{run}/after/{key}"] = v
+    finally:
+        tr.sched.stop()
+
+
+def ckpt_check(comm, flat, res, out_dir: str) -> None:
+    """Save at hdp = 4, restore at other sizes:
+
+    1. every rank: hdp = 4, 2 steps, a checkpoint each (rank 0 writes
+       ``ckpt4``); each rank's state shards and the save's numbers;
+    2. ranks 0 and 1 resume ``ckpt4`` at hdp = 2 (a group of their own)
+       and rank 2 at hdp = 1, each training one step; rank 3 trains 2
+       steps at hdp = 1 and saves ``ckpt1``;
+    3. every rank resumes ``ckpt1`` at hdp = 4 and trains one step;
+    4. rank 1 resumes a directory holding only ``ckpt4``'s step 1, the
+       others ``ckpt4`` (step 2): every rank must raise."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import ProcessGroupComm
+    ckpt4, ckpt1 = f"{out_dir}/ckpt4", f"{out_dir}/ckpt1"
+    tr = trainer(comm, flat, "ref", ckpt_dir=ckpt4, ckpt_every=1)
+    try:
+        for _ in tr.run(2):
+            pass
+    finally:
+        tr.sched.stop()
+    for key, v in state_flat(tr.opt_state).items():
+        res[f"ckpt/h4/state/{key}"] = v
+    res["ckpt/h4/gathered_bytes"] = tr.ckpt_stats["gathered_bytes"]
+    res["ckpt/h4/last_ckpt_step"] = tr.last_ckpt_step
+    pair = dist.new_group([0, 1])
+    if comm.rank in (0, 1):
+        resume_and_step(ProcessGroupComm(pair), ckpt4, res, "h2")
+    elif comm.rank == 2:
+        resume_and_step(None, ckpt4, res, "h1")
+    else:
+        one = trainer(None, flat, "ref", ckpt_dir=ckpt1)
+        try:
+            for _ in one.run(2):
+                pass
+        finally:
+            one.sched.stop()
+    comm.all_gather(torch.zeros(1))     # ckpt1 is on disk
+    resume_and_step(comm, ckpt1, res, "h4_from_h1")
+    planted = f"{out_dir}/planted"
+    if comm.rank == 1:
+        os.makedirs(planted)
+        shutil.copytree(f"{ckpt4}/step_1", f"{planted}/step_1")
+    tr = trainer(comm, None, "ref", ckpt_save=False,
+                 ckpt_dir=planted if comm.rank == 1 else ckpt4)
+    try:
+        tr.resume_if_possible()
+        res["ckpt/planted/error"] = ""
+    except RuntimeError as e:
+        res["ckpt/planted/error"] = str(e)
+    finally:
+        tr.sched.stop()
+
+
 def _wait_for(path: str, timeout: float = 300.0) -> None:
     t0 = time.monotonic()
     while not os.path.exists(path):
@@ -332,6 +416,7 @@ def _rank_main(rank: int, out_dir: str) -> None:
         guard_check(comm, flat, res)
         mismatch_check(comm, flat, res)
         async_check(comm, flat, res)
+        ckpt_check(comm, flat, res, out_dir)
         np.savez(f"{out_dir}/torch_rank{rank}.npz",
                  **{k: np.asarray(v) for k, v in res.items()})
     finally:

@@ -27,7 +27,16 @@
   guarded skip is bit-exact on every rank; planted mismatched plans make
   every rank raise, none hanging; ``sched_async`` without calibration
   gives the synchronous history, with calibration it is refused.
-* The launcher's ``--mesh 2x1`` on 2 gloo ranks.
+* Checkpoints across HDP sizes: hdp = 4 saves (rank 0 writes the ZeRO-1
+  state whole: the file's master, m and v are exactly the ranks' shards
+  put together); the file resumes at hdp = 2 and 1, and an hdp = 1
+  checkpoint at hdp = 4, each rank's restored shards exact slices of the
+  file and the next step within 1e-4 relative (loss, grad norm) and
+  1e-3 relative L2 per leaf (update) of the reference's `Trainer`
+  resuming the same file at that size; ranks that restore different
+  steps all raise.
+* The launcher's ``--mesh 2x1`` on 2 gloo ranks, checkpointing, and its
+  resume at ``--mesh 1x1``.
 
 The reference, the gloo ranks and the launcher run as three subprocesses
 started together by one module fixture.
@@ -65,9 +74,10 @@ APPLY_TOL = 1e-6                # sharded vs unsharded apply: fp32; a bf16
                                 # own hold admits more there)
 
 JAX_SCRIPT = r"""
-import os, sys
+import os, sys, time
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import dataclasses
+import jax
 import numpy as np
 from repro import compat
 from repro.ckpt.checkpoint import _flatten
@@ -143,21 +153,60 @@ for side in ("pred", "meas"):
     res["off/ledger/" + side] = [[r[side][k] for k in W.LEDGER_KINDS]
                                  for r in recs]
 res["off/offload_ok"] = tr_off.offload_ok
+
+# the port's checkpoints, resumed at the port's sizes: one step each
+def resume_step(hdp, ckpt_dir, run):
+    t0 = time.monotonic()
+    while not os.path.exists(ckpt_dir + "/step_2/manifest.json"):
+        if time.monotonic() - t0 > 300:
+            raise TimeoutError(ckpt_dir + "/step_2 did not appear")
+        time.sleep(0.2)
+    m = compat.make_mesh((hdp, 1), ("data", "model"),
+                         axis_types=compat.auto_axis_types(2),
+                         devices=jax.devices()[:hdp])
+    compat.set_mesh(m)
+    ds = SyntheticDataset(LengthDistribution(*W.DIST), cfg.vocab_size,
+                          tokens_per_step=W.TOKENS, context=W.CONTEXT)
+    sched = GlobalScheduler(ds, cfg, capacity=W.CAP, hdp=hdp,
+                            use_offload=False)
+    tr = Trainer(cfg, Runtime(mesh=m, hdp_axes=("data",), model_axis="model"),
+                 AdamWConfig(lr=W.LR, total_steps=W.TOTAL_STEPS), sched,
+                 TrainerConfig(capacity=W.CAP, attn_impl="ref",
+                               calibrate=False, ckpt_dir=ckpt_dir,
+                               ckpt_save=False))
+    assert tr.resume_if_possible()
+    res[f"ckpt/{run}/resumed_at"] = tr.step
+    rec = tr.train_step()
+    for k in ("loss", "grad_norm", "waves"):
+        res[f"ckpt/{run}/{k}"] = rec[k]
+    for key, v in _flatten(tr.params).items():
+        res[f"ckpt/{run}/after/{key}"] = v
+    sched.stop()
+
+for hdp, d, run in ((2, "ckpt4", "h2"), (1, "ckpt4", "h1"),
+                    (4, "ckpt1", "h4_from_h1")):
+    resume_step(hdp, f"{out}/{d}", run)
 np.savez(out + "/jax_train.npz", **{k: np.asarray(v) for k, v in res.items()})
 """
 
 LAUNCH_ARGS = ["--arch", "llama3.2-3b", "--reduced", "--steps", "2",
                "--capacity", "256", "--tokens-per-step", "1024",
                "--context", "512", "--dataset", "tiny", "--device", "cpu",
-               "--attn-impl", "ref", "--mesh", "2x1"]
+               "--attn-impl", "ref"]
+LAUNCH_CKPT = "launch_ckpt"     # the launcher's --ckpt-dir, in its cwd
 
 
 @pytest.fixture(scope="module")
-def results(tmp_path_factory):
+def out_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("hdp_train")
+
+
+@pytest.fixture(scope="module")
+def results(out_dir):
     """Start the reference (4 host devices), the port (4 gloo ranks) and
-    the launcher (2 gloo ranks) together; -> (reference results, per-rank
-    port results, the launcher's stdout)."""
-    out = tmp_path_factory.mktemp("hdp_train")
+    the launcher (2 gloo ranks, checkpointing) together; -> (reference
+    results, per-rank port results, the launcher's stdout)."""
+    out = out_dir
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "JAX_PLATFORMS": "cpu"}
     procs, logs = {}, {}
@@ -167,7 +216,8 @@ def results(tmp_path_factory):
                        str(ROOT / "tests" / "_torch_hdp_train_worker.py"),
                        str(out)]),
             ("launch", [sys.executable, "-m", "repro_torch.launch.train",
-                        *LAUNCH_ARGS])):
+                        *LAUNCH_ARGS, "--mesh", "2x1",
+                        "--ckpt-dir", LAUNCH_CKPT])):
         logs[part] = out / f"{part}.log"
         with open(logs[part], "w") as log, \
                 open(out / f"{part}.err", "w") as err:
@@ -424,12 +474,135 @@ def test_launcher_trains_on_two_gloo_ranks(results):
     assert rec["zero1_bytes"]["zero1_param_gather"] > 0
 
 
+def test_launcher_checkpoints_and_resumes_at_another_mesh(results, out_dir,
+                                                         capsys):
+    """The 2x1 run's checkpoint (its summary: not resumed, the gather,
+    write and bytes of the save) resumes at 1x1 to train step 3."""
+    *_, stdout = results
+    rec = json.loads([ln for ln in stdout.splitlines()
+                      if ln.startswith("{")][-1])
+    assert rec["resumed_at"] is None
+    assert rec["ckpt"]["bytes"] > 0 and rec["ckpt"]["gather_s"] > 0
+    assert rec["ckpt"]["gathered_bytes"] > 0 and rec["host_peak_rss_gb"] > 0
+    args = LAUNCH_ARGS[:LAUNCH_ARGS.index("--steps")] + [
+        "--steps", "3", *LAUNCH_ARGS[LAUNCH_ARGS.index("--steps") + 2:],
+        "--mesh", "1x1", "--ckpt-dir", str(out_dir / LAUNCH_CKPT)]
+    tr = launch_train.main(args)
+    out = capsys.readouterr().out
+    assert "resumed at step 2" in out
+    assert [r["step"] for r in tr.history] == [3]
+    assert np.isfinite(tr.history[0]["loss"])
+    assert sorted(tr.ckpt.steps()) == [2, 3]
+
+
 def test_launcher_refuses_tensor_parallelism():
     with pytest.raises(NotImplementedError, match="item 7"):
         launch_train.main(["--arch", "llama3.2-3b", "--reduced", "--mesh",
                            "2x2", "--device", "cpu"])
     with pytest.raises(ValueError, match="NxM"):
         launch_train.main(["--arch", "llama3.2-3b", "--mesh", "four"])
+
+
+# ---------------------------------------------------------------------------
+# (e) checkpoints across HDP sizes
+# ---------------------------------------------------------------------------
+
+def _file(out_dir, name, step=2):
+    with np.load(out_dir / name / f"step_{step}" / "arrays.npz") as f:
+        return {k: f[k] for k in f.files}
+
+
+def _state_keys(rk, run):
+    return _leaf_keys(rk, f"ckpt/{run}/state/master/")
+
+
+def test_hdp4_checkpoint_holds_the_state_whole(results, out_dir):
+    """Rank 0 wrote the file; its master, m and v are exactly the four
+    ranks' shards put together on `zero1_dim`, its parameters those of
+    the same two steps in the "ref" run, and the periodic saves wrote
+    steps 1 and 2."""
+    _, ranks, _ = results
+    assert sorted(os.listdir(out_dir / "ckpt4")) == ["step_1", "step_2"]
+    f = _file(out_dir, "ckpt4")
+    keys = _state_keys(ranks[0], "h4")
+    assert len(keys) > 5 and f["opt/step"] == 2
+    sharded = 0
+    for key in keys:
+        full = f[f"params/{key}"]
+        np.testing.assert_array_equal(full, ranks[0][f"ref/p2/{key}"],
+                                      err_msg=key)
+        dim = zero1.zero1_dim(full.shape, W.R)
+        for k in ("master", "m", "v"):
+            parts = [rk[f"ckpt/h4/state/{k}/{key}"] for rk in ranks]
+            want = parts[0] if dim is None else np.concatenate(parts, dim)
+            np.testing.assert_array_equal(f[f"opt/{k}/{key}"], want,
+                                          err_msg=f"{k} {key}")
+        sharded += (dim is not None) * full.size * 4 * 3
+    assert float(ranks[0]["ckpt/h4/gathered_bytes"]) == sharded > 0
+    assert all(int(rk["ckpt/h4/last_ckpt_step"]) == 2 for rk in ranks)
+
+
+# (checkpoint, ranks that resumed it, their HDP size)
+RESUMES = {"h2": ("ckpt4", (0, 1), 2), "h1": ("ckpt4", (2,), 1),
+           "h4_from_h1": ("ckpt1", (0, 1, 2, 3), 4)}
+
+
+@pytest.mark.parametrize("run", W.CKPT_RUNS)
+def test_each_rank_restores_its_slice_of_the_file(results, out_dir, run):
+    _, ranks, _ = results
+    name, who, hdp = RESUMES[run]
+    f = _file(out_dir, name)
+    for r in who:
+        rk = ranks[r]
+        rank = who.index(r)
+        assert int(rk[f"ckpt/{run}/resumed_at"]) == 2
+        assert int(rk[f"ckpt/{run}/opt_step"]) == 2
+        keys = _state_keys(rk, run)
+        assert len(keys) > 5
+        for key in keys:
+            full = f[f"params/{key}"]
+            dim = zero1.zero1_dim(full.shape, hdp)
+            for k in ("master", "m", "v"):
+                want = f[f"opt/{k}/{key}"]
+                if dim is not None:
+                    n = full.shape[dim] // hdp
+                    want = np.take(want, range(rank * n, (rank + 1) * n),
+                                   axis=dim)
+                np.testing.assert_array_equal(
+                    rk[f"ckpt/{run}/state/{k}/{key}"], want,
+                    err_msg=f"rank {r} {k} {key}")
+
+
+@pytest.mark.parametrize("run", W.CKPT_RUNS)
+def test_resumed_step_matches_the_reference_resuming_the_file(
+        results, out_dir, run):
+    ref, ranks, _ = results
+    name, who, _ = RESUMES[run]
+    f = _file(out_dir, name)
+    assert int(ref[f"ckpt/{run}/resumed_at"]) == 2
+    for r in who:
+        rk = ranks[r]
+        assert int(rk[f"ckpt/{run}/waves"]) == int(ref[f"ckpt/{run}/waves"])
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(rk[f"ckpt/{run}/{k}"]),
+                                       float(ref[f"ckpt/{run}/{k}"]),
+                                       rtol=F32_TOL, err_msg=f"{r} {k}")
+        keys = _leaf_keys(rk, f"ckpt/{run}/after/")
+        assert len(keys) > 5 and keys == _leaf_keys(ref, f"ckpt/{run}/after/")
+        for key in keys:
+            base = f[f"params/{key}"]
+            got = rk[f"ckpt/{run}/after/{key}"] - base
+            want = ref[f"ckpt/{run}/after/{key}"] - base
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= UPDATE_TOL, (r, key, rel)
+
+
+def test_ranks_restoring_different_steps_all_raise(results):
+    _, ranks, _ = results
+    for r, rk in enumerate(ranks):
+        err = str(rk["ckpt/planted/error"])
+        assert "restored different checkpoints" in err, r
+        assert "[2, 1, 2, 2]" in err, (r, err)
 
 
 # ---------------------------------------------------------------------------

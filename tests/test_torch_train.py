@@ -285,7 +285,7 @@ def test_three_steps_match_jax_trainer(jax_history, impl):
     assert all(np.isfinite(tr.last_numerics["wave_losses"]))
 
 
-def test_entry_points_refuse_a_missing_gpu_and_unported_settings():
+def test_entry_points_refuse_a_missing_gpu_and_unported_settings(tmp_path):
     _, cfg = _cfgs()
     ds = SyntheticDataset(LengthDistribution(*DIST), cfg.vocab_size,
                           tokens_per_step=512, context=256)
@@ -298,10 +298,27 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1"])
     rt = Runtime(device="cpu")
-    for tcfg in (TrainerConfig(capacity=256, ckpt_dir="ckpt"),
-                 TrainerConfig(capacity=256, mode="pp")):
-        with pytest.raises(NotImplementedError, match="queue 1 item"):
-            Trainer(cfg, rt, opt, sched, tcfg)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        Trainer(cfg, rt, opt, sched, TrainerConfig(capacity=256, mode="pp"))
+    # checkpointing is ported: ckpt_dir saves at the end of run, and a
+    # fresh Trainer resumes there with the same parameters and state
+    saver = Trainer(cfg, rt, opt, GlobalScheduler(ds, cfg, capacity=256,
+                                                  hdp=1),
+                    TrainerConfig(capacity=256, ckpt_dir=str(tmp_path)))
+    for _ in saver.run(1):
+        pass
+    saver.sched.stop()
+    assert saver.ckpt.latest_valid_step() == 1
+    resumed = Trainer(cfg, rt, opt, GlobalScheduler(ds, cfg, capacity=256,
+                                                    hdp=1),
+                      TrainerConfig(capacity=256, ckpt_dir=str(tmp_path),
+                                    ckpt_save=False), seed=1)
+    assert resumed.resume_if_possible() and resumed.step == 1
+    resumed.sched.stop()
+    for a, b in ((saver.params, resumed.params),
+                 (saver.opt_state, resumed.opt_state)):
+        for x, y in zip(leaves(a), leaves(b)):
+            assert torch.equal(x, y)
     # offload execution is ported: the runtime takes remat="offload", and
     # a Trainer with use_offload keeps the spec's Eq. 3 offload term, at
     # construction and through a resize
@@ -320,14 +337,15 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings():
     assert not sched.spec.use_offload
     # resize: a scheduler of the same HDP size swaps in (with a fresh
     # calibrator), as the reference's does; another size needs a new
-    # process group and a ZeRO-1 re-shard through a checkpoint
+    # process group: a relaunch at that size restores the checkpoint
     sched2 = GlobalScheduler(ds, cfg, capacity=256, hdp=1)
     calib = tr.calib
     tr.resize(sched2)
     assert tr.sched is sched2 and tr.calib is not calib
     assert not sched2.spec.use_offload
     sched4 = GlobalScheduler(ds, cfg, capacity=256, hdp=4)
-    with pytest.raises(NotImplementedError, match="items 5 .* and 9"):
+    with pytest.raises(NotImplementedError,
+                       match="relaunch at 4 ranks .* item 9"):
         tr.resize(sched4)
     assert tr.sched is sched2
     for s in (sched, sched2, sched4, sched_off):
