@@ -155,23 +155,54 @@ Phases (any failure raises and exits non-zero before the result line):
    norm within 1e-3 relative of hdp = 4's.  Exact launches per wave and
    per rank in both.  Prints the snapshot (it blocks the step), write,
    hash, restore and gather seconds, the file's GB and GB/s both ways.
-11. report — one JSON line of every kernel (launches on the paths that
+11. moe     — Mistral-8x7B at full width (d 4096, 32/8 heads, 8
+   experts, top-2, d_expert 14336, vocab 32000; seed 0), ~20 s.  (a) The
+   MoE block alone on 4096 bf16 rows against a float32 loop over the
+   experts on the same top-k indices and capacity rule: keep masks equal,
+   relative L2 within 2e-2, at capacity factor 1.25 and 0.25 (which must
+   drop pairs).  (b) Serving at 8 layers (11.9 G parameters), phase 4's
+   pool at hdp = 1 at the config's capacity factor 1.25: phase 4's gates
+   (carry launches 8 per prefill wave), the pairs of tokens its capacity
+   dropped counted.  The drain again with every MoE call recorded, its
+   tokens and logits bit-equal to the first: each call's kept pairs are
+   the capacity rule's over the reference's group (a prefill wave; the
+   decode slab), and each request's greedy tokens are held to the argmax
+   of its bf16 teacher-forced forward replaying, row by row, the experts
+   and the kept pairs the engine computed (near-ties below 0.08 printed;
+   logits within 0.08 rms): a capacity drop depends on the group a row
+   routes in, and a routing margin within bf16's error flips an expert
+   between two evaluations.  (d) Serving at hdp = 4 through
+   `ThreadRanks(4)`, 8 slots ("batch", the decode slab's routing from
+   the ranks' all-gathered top-k indices): exact carry launches per
+   rank, ranks bit-identical, held to hdp = 1 only if neither run dropped
+   a pair of a token (both counts printed); then recorded and held as in
+   (b), each rank's prefill rows one group, the ranks' decode rows
+   together the slab.  (c) Training at 2 layers (3.17 G parameters),
+   phase 5's data, 3 `Trainer` steps: finite losses, exactly 4/2/2/1/1
+   launches a wave; then one wave, the kernel
+   route against the float32 plain route replaying its expert choices:
+   loss within 1e-2, every gradient leaf within 5e-2 relative L2, with
+   the share of (token, k) pairs the float32 route's own routing sends to
+   another expert printed.
+12. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
-   engine's and the checkpoint phase's; errors, times, bounds), then the
-   result line.
+   engine's, the checkpoint phase's and the MoE phase's; errors, times,
+   bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -651,9 +682,10 @@ def phase_kernels(torch, ptxas):
 # 4. serve
 # ---------------------------------------------------------------------------
 
-def serve_pool(torch, cfg, params, rt):
+def serve_pool(torch, cfg, params, rt, during=None):
     """The 8-request pool through `ServeEngine`, drained; launch counts
-    are zeroed just before the drain and read just after."""
+    are zeroed just before the drain and read just after.  ``during(eng,
+    rids)``: a context manager kept open over the drain."""
     import numpy as np
     from repro_torch.serve import ServeConfig, ServeEngine
 
@@ -666,7 +698,9 @@ def serve_pool(torch, cfg, params, rt):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    eng.drain(max_steps=200)
+    with (contextlib.nullcontext() if during is None
+          else during(eng, rids)):
+        eng.drain(max_steps=200)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -819,12 +853,13 @@ def train_setup(cfg, *, tokens_per_step=16384, capacity=4096):
                            strategy="balance", use_offload=False)
 
 
-def train_full(torch, cfg, steps=3, sched=None, tcfg=None, tag="train"):
+def train_full(torch, cfg, steps=3, sched=None, tcfg=None, tag="train",
+               want=None):
     """Full width and depth through `Trainer.train_step` (phase 5's
     scheduler and config unless given); per-wave launch counts through the
     trainer's telemetry hook (zeroed before the run, read after every
-    wave).  -> (launches, the run's record, its ledger records if the
-    ledger is on)."""
+    wave), each held to ``want`` (default: llama3.2-3b's).  -> (launches,
+    the run's record, its ledger records if the ledger is on)."""
     import numpy as np
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import Runtime
@@ -875,10 +910,11 @@ def train_full(torch, cfg, steps=3, sched=None, tcfg=None, tag="train"):
                 and np.isfinite(s["grad_norm"])):
             raise AssertionError(f"step {s['step']}: non-finite loss or "
                                  f"grad norm {s}")
+    want = TRAIN_WAVE_LAUNCHES if want is None else want
     for i, w in enumerate(waves):
-        if w["counts"] != TRAIN_WAVE_LAUNCHES:
+        if w["counts"] != want:
             raise AssertionError(f"wave {i} of step {w['step']}: launches "
-                                 f"{w['counts']}, want {TRAIN_WAVE_LAUNCHES}")
+                                 f"{w['counts']}, want {want}")
     warm = [w["wall_s"] for w in waves if not w["fresh"]]
     res = {"steps": len(steps_out),
            "waves_per_step": [s["waves"] for s in steps_out],
@@ -1747,9 +1783,10 @@ def rank_counts_comm(comm):
     return RankCounts()
 
 
-def hdp_serve_engine(torch, params, cfg, comm, slots, pool):
+def hdp_serve_engine(torch, params, cfg, comm, slots, pool, during=None):
     """The pool through one rank's `ServeEngine`, drained -> its results,
-    the plans it admitted with and (over several ranks) its launches."""
+    the plans it admitted with and (over several ranks) its launches.
+    ``during(eng, rids)``: a context manager kept open over the drain."""
     from repro_torch.launch.profile_serve import tokens_and_logits
     from repro_torch.parallel.sharding import Runtime
     from repro_torch.serve import ServeConfig, ServeEngine
@@ -1769,7 +1806,9 @@ def hdp_serve_engine(torch, params, cfg, comm, slots, pool):
         return plan
     eng.service.plan_pool = recorded
     rids = [eng.submit(p, NEW_TOKENS) for p in pool]
-    eng.drain(max_steps=200)
+    with (contextlib.nullcontext() if during is None
+          else during(eng, rids)):
+        eng.drain(max_steps=200)
     reqs = [eng.pool.get(r) for r in rids]
     return {"out": tokens_and_logits(reqs), "errors": [r.error for r in reqs],
             "ttft_s": [r.t_first - r.t_submit for r in reqs],
@@ -1777,6 +1816,7 @@ def hdp_serve_engine(torch, params, cfg, comm, slots, pool):
             / eng.stats["decode_waves"],
             "prefill_log": eng.prefill_log, "plans": plans,
             "layout": eng.shard.layout, "slab_bytes": cache_bytes(eng.cache),
+            "rids": rids,
             "launches": None if counts is None else counts.finish()}
 
 
@@ -2086,7 +2126,6 @@ def flip_middle_byte(path: str) -> None:
 def phase_ckpt(torch, card):
     """Phase 10 (a): checkpoint and resume at hdp = 1 through the kernels
     (see the module docstring).  -> its launches."""
-    import contextlib
     import io
     import tempfile
     from repro_torch.configs.registry import get_config
@@ -2182,16 +2221,593 @@ def phase_ckpt(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 11. report
+# 11. moe
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mistral-8x7b"
+MOE_ROWS = 4096                 # (a): rows through the MoE block alone
+MOE_DROP_CF = 0.25              # (a): a capacity factor that drops pairs
+MOE_SERVE_LAYERS = 8            # (b), (d): 11.9 G parameters, 23.7 GB
+MOE_TRAIN_LAYERS = 2            # (c): 3.17 G parameters, ~57 GB of state
+
+
+@contextlib.contextmanager
+def moe_drop_counter(torch):
+    """While open, counts on the device (no host sync) the (token, k)
+    pairs the MoE drops of rows that are no padding: seg > 0 in a packed
+    forward (its seg taken from `models/transformer.py::block_forward`,
+    per thread, as `ThreadRanks` runs each rank in a thread of its own),
+    every row of a decode slab.  Wraps `models/moe.py::moe_experts`;
+    yields the count, a device tensor."""
+    import threading
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    local = threading.local()
+    experts, block = M.moe_experts, T.block_forward
+    total = torch.zeros((), dtype=torch.int64, device=DEVICE)
+
+    def block_forward(bp, cfg, rt, x, seg, pos, layer_idx, collect=None):
+        local.seg = seg
+        try:
+            return block(bp, cfg, rt, x, seg, pos, layer_idx,
+                         collect=collect)
+        finally:
+            local.seg = None
+
+    def counted(params, cfg, x, gates, idx, pos, cap):
+        dropped = pos >= cap
+        seg = getattr(local, "seg", None)
+        if seg is not None:
+            dropped &= (seg > 0).repeat_interleave(cfg.moe.top_k)
+        total.add_(dropped.sum())
+        return experts(params, cfg, x, gates, idx, pos, cap)
+
+    M.moe_experts, T.block_forward = counted, block_forward
+    try:
+        yield total
+    finally:
+        M.moe_experts, T.block_forward = experts, block
+
+
+@contextlib.contextmanager
+def moe_routes(torch, record=None, replay=None):
+    """While open, `models/moe.py::moe_route` appends each call's top-k
+    indices to ``record``; with ``replay`` each call takes its indices
+    from the front of that list instead and its gates from its own fp32
+    softmax at them (renormalised as the route does).  A replayed entry
+    ``(idx, keep)`` also fixes the pairs the experts keep, ``keep`` [T, k],
+    whatever this call's group and capacity: each kept pair gets a buffer
+    row of its own (the capacity is T), the rest are dropped."""
+    from repro_torch.models import moe as M
+    route, experts = M.moe_route, M.moe_experts
+    kept = []
+
+    def routed(params, cfg, x):
+        gates, idx = route(params, cfg, x)
+        if replay is not None:
+            idx = replay.pop(0)
+            if isinstance(idx, tuple):
+                idx, keep = idx
+                kept.append(keep.reshape(-1))
+            probs = torch.softmax(x.float() @ params["router"], dim=-1)
+            gates = probs.gather(1, idx)
+            if cfg.moe.router_norm_topk:
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        if record is not None:
+            record.append(idx)
+        return gates, idx
+
+    def fixed(params, cfg, x, gates, idx, pos, cap):
+        if kept:
+            n = x.shape[0]
+            pos = torch.where(kept.pop(0),
+                              M.moe_positions(idx, cfg.moe.num_experts), n)
+            cap = n
+        return experts(params, cfg, x, gates, idx, pos, cap)
+
+    M.moe_route, M.moe_experts = routed, fixed
+    try:
+        yield
+    finally:
+        M.moe_route, M.moe_experts = route, experts
+
+
+def plain_keep(torch, idx, cap: int, num_experts: int):
+    """The capacity rule by a loop over the experts: each keeps its first
+    ``cap`` (token, k) pairs of idx [T, k] in token-major order -> [T, k]
+    bool."""
+    flat = idx.reshape(-1)
+    kept = torch.zeros(flat.numel(), dtype=torch.bool, device=idx.device)
+    for e in range(num_experts):
+        kept[(flat == e).nonzero().squeeze(1)[:cap]] = True
+    return kept.view(idx.shape)
+
+
+def moe_plain(torch, p, cfg, x, idx, gates):
+    """The MoE of x [T, d] in float32 by a loop over the experts, on the
+    given top-k indices and gates, the pairs kept by `plain_keep` at the
+    group's capacity.  -> (y [T, d] float32, the kept pairs [T, k])."""
+    from repro_torch.models.moe import moe_capacity
+    F = torch.nn.functional
+    t, k = idx.shape
+    kept = plain_keep(torch, idx, moe_capacity(cfg.moe, t),
+                      cfg.moe.num_experts)
+    xf = x.float()
+    y = torch.zeros_like(xf)
+    flat = idx.reshape(-1)
+    w = gates.reshape(-1)
+    for e in range(cfg.moe.num_experts):
+        pairs = ((flat == e) & kept.reshape(-1)).nonzero().squeeze(1)
+        tok = pairs // k
+        xe = xf[tok]
+        h = F.silu(xe @ p["w_gate"][e].float()) * (xe @ p["w_in"][e].float())
+        y.index_add_(0, tok, (h @ p["w_out"][e].float()) * w[pairs, None])
+    return y, kept
+
+
+def moe_block_case(torch):
+    """(a) The MoE block alone at full width, bf16, against `moe_plain`
+    on the port's own routing -> (rows, failures).  Its bound: the
+    weights, x and y moved once; the router's fp32 product at the fp32
+    peak and the three expert GEMMs of the kept pairs (6·d·f operations
+    each) at the bf16 peak."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    p = M.moe_init(gen, cfg, torch.bfloat16, DEVICE)
+    x = torch.randn(MOE_ROWS, cfg.d_model, generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    rows, fails = [], []
+    for cf in (cfg.moe.capacity_factor, MOE_DROP_CF):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        cap = M.moe_capacity(c.moe, MOE_ROWS)
+        with torch.no_grad():
+            got = M.moe_forward(p, c, x)
+            gates, idx = M.moe_route(p, c, x)
+            keep = (M.moe_positions(idx, c.moe.num_experts)
+                    < cap).view(idx.shape)
+            want, kept = moe_plain(torch, p, c, x, idx, gates)
+            ms = time_ms(torch, lambda: M.moe_forward(p, c, x), 10)
+            plain_ms = time_ms(torch, lambda: moe_plain(
+                torch, p, c, x, idx, gates), 3)
+        n_kept = int(keep.sum())
+        router = 2 * MOE_ROWS * cfg.d_model * c.moe.num_experts  # fp32
+        flops = (6 * n_kept * cfg.d_model * c.moe.d_expert
+                 + router * PEAK_BF16_FLOPS / PEAK_FP32_FLOPS)
+        nbytes = sum(v.numel() * v.element_size() for v in p.values()) \
+            + x.numel() * x.element_size() + got.numel() * got.element_size()
+        b_ms, b_by = bound(flops, nbytes)
+        row = {"capacity_factor": cf, "capacity": cap, "kept_pairs": n_kept,
+               "keep_equal": bool(torch.equal(keep, kept)),
+               "dropped_frac": float(1 - keep.float().mean()),
+               "rel_l2": rel_l2(got, want),
+               "max_abs_err": float((got.float() - want).abs().max()),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by}
+        rows.append(row)
+        if not row["keep_equal"]:
+            fails.append(f"cf {cf}: keep masks differ from the plain loop's")
+        if not row["rel_l2"] <= TOL:
+            fails.append(f"cf {cf}: relative L2 {row['rel_l2']} > {TOL}")
+        if cf < 1 and not row["dropped_frac"] > 0:
+            fails.append(f"cf {cf}: no pair dropped")
+    del p, x
+    return rows, fails
+
+
+@contextlib.contextmanager
+def moe_record(torch, routes: dict, calls: list):
+    """While open, the MoE layers of the engines drained under the yielded
+    ``during(eng, rids)`` (each in a thread of its own) record what they
+    computed: ``routes`` {(rid, position): [(top-k indices, kept pairs) of
+    each layer, in order]} and ``calls`` [(rank, "prefill" | "decode",
+    idx [n, k], keep [n, k]) of each call, on the host].  Rows are known
+    by request and position: prefill rows by their wave's seg and pos
+    (seg - 1 indexes ``rids``: the pool is admitted in one round), decode
+    rows by their slot's request and position; padding rows and free
+    slots route and take capacity as they would, and only ``calls`` holds
+    them.  It reads rows back to the host, so it wraps no timed run."""
+    import threading
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    local = threading.local()
+    experts, block = M.moe_experts, T.block_forward
+
+    def block_forward(bp, cfg, rt, x, seg, pos, layer_idx, collect=None):
+        local.kind = "prefill"
+        local.rows = [(local.rids[s - 1], p) if s > 0 else None
+                      for s, p in zip(seg.tolist(), pos.tolist())]
+        try:
+            return block(bp, cfg, rt, x, seg, pos, layer_idx,
+                         collect=collect)
+        finally:
+            local.rows = None
+
+    def recorded(params, cfg, x, gates, idx, pos, cap):
+        keep = (pos < cap).view(idx.shape).cpu()
+        calls.append((local.rank, local.kind, idx.cpu(), keep))
+        for key, i, kp in zip(local.rows, idx.tolist(), keep.tolist()):
+            if key is not None:
+                routes.setdefault(key, []).append((i, kp))
+        return experts(params, cfg, x, gates, idx, pos, cap)
+
+    @contextlib.contextmanager
+    def during(eng, rids):
+        decode = eng._decode
+        sh = eng.shard
+        mine = slice(sh.slot0, sh.slot0 + sh.slots) \
+            if sh.layout == "batch" else slice(None)
+
+        def decode_step(params, cache, tokens, pos):
+            local.kind = "decode"
+            local.rows = [None if r is None else (r.rid, int(p)) for r, p
+                          in zip(eng._req[mine], eng._pos[mine])]
+            try:
+                return decode(params, cache, tokens, pos)
+            finally:
+                local.rows = None
+
+        local.rids, local.rank = rids, eng._rank
+        eng._decode = decode_step
+        try:
+            yield
+        finally:
+            eng._decode = decode
+
+    M.moe_experts, T.block_forward = recorded, block_forward
+    try:
+        yield during
+    finally:
+        M.moe_experts, T.block_forward = experts, block
+
+
+def moe_group_faults(torch, spec, calls: list) -> dict:
+    """Each recorded call's kept pairs against `plain_keep` over the
+    reference's group at its capacity: a prefill call's group is its own
+    rows (the rank's rows of the wave); the n-th decode call of every rank
+    together, in rank order, is the whole slab (at hdp = 1 the one rank's
+    slab).  -> counts of groups and of those whose pairs differ."""
+    from repro_torch.models.moe import moe_capacity
+    groups = [(idx, keep) for _, kind, idx, keep in calls
+              if kind == "prefill"]
+    ranks = sorted({r for r, *_ in calls})
+    dec = [[(idx, keep) for r_, kind, idx, keep in calls
+            if kind == "decode" and r_ == r] for r in ranks]
+    for parts in zip(*dec):
+        groups.append((torch.cat([i for i, _ in parts]),
+                       torch.cat([k for _, k in parts])))
+    bad = sum(not torch.equal(keep, plain_keep(
+        torch, idx, moe_capacity(spec, idx.shape[0]), spec.num_experts))
+        for idx, keep in groups)
+    return {"prefill_groups": len(groups) - len(dec[0]),
+            "decode_slabs": len(dec[0]),
+            "dropped_pairs": sum(int((~k).sum()) for _, k in groups),
+            "groups_unlike_the_rule": bad}
+
+
+def moe_hold_replayed(torch, params, cfg, reqs, routes: dict):
+    """Each request's engine tokens and logits against its bf16
+    teacher-forced forward replaying, row by row, the experts and the kept
+    pairs the engine computed (``routes`` from `moe_record`): a capacity
+    drop depends on the group a row routed in, and a routing margin within
+    bf16's error flips an expert between two evaluations, so the replay
+    holds the engine's own function.  Greedy tokens equal its argmax but
+    for near-ties below SERVE_TOL (printed), logits within SERVE_TOL rms.
+    -> (results, failures)."""
+    import numpy as np
+    from repro_torch.parallel.sharding import Runtime
+    rt = Runtime(device=DEVICE)
+    fails, ties, err, sq, cnt = [], 0, 0.0, 0.0, 0
+    other, pairs, dropped = 0, 0, 0
+    for r in reqs:
+        n = r.plen + len(r.generated) - 1
+        rows = [routes[r.rid, p] for p in range(n)]
+        replay = [(torch.tensor([row[layer][0] for row in rows],
+                                device=DEVICE),
+                   torch.tensor([row[layer][1] for row in rows],
+                                device=DEVICE))
+                  for layer in range(cfg.num_layers)]
+        dropped += sum(int((~keep).sum()) for _, keep in replay)
+        with moe_routes(torch, replay=list(replay)):
+            ref = teacher_forced(torch, params, cfg, rt, r)
+        own = []
+        with moe_routes(torch, record=own):
+            teacher_forced(torch, params, cfg, rt, r)
+        other += sum(int((torch.sort(a, -1)[0] != torch.sort(b, -1)[0])
+                         .sum()) for (a, _), b in zip(replay, own))
+        pairs += sum(a.numel() for a, _ in replay)
+        diff = np.stack(r.logits) - ref
+        err = max(err, float(np.abs(diff).max()))
+        sq, cnt = sq + float((diff ** 2).sum()), cnt + diff.size
+        for j, (tok, want) in enumerate(zip(r.generated, ref.argmax(-1))):
+            if tok == want:
+                continue
+            top2 = np.sort(ref[j])[-2:]
+            gap = float(top2[1] - top2[0])
+            log(f"[moe] request {r.rid} position {j}: engine token {tok}, "
+                f"teacher-forced argmax {int(want)}, top-two gap {gap}")
+            if gap < SERVE_TOL:
+                ties += 1
+            else:
+                fails.append(f"request {r.rid} position {j}: greedy token "
+                             f"{tok} is not the teacher-forced argmax "
+                             f"{int(want)} and the top-two gap {gap} is no "
+                             f"near-tie")
+    rms = (sq / cnt) ** 0.5
+    if not rms <= SERVE_TOL:
+        fails.append(f"logits against the replayed teacher-forced forward: "
+                     f"rms {rms} > {SERVE_TOL}")
+    return {"replayed_dropped_pairs": dropped,
+            "teacher_forced_rms_err": rms,
+            "teacher_forced_max_abs_err": err, "token_near_ties": ties,
+            "own_routing_pairs_elsewhere_share": other / pairs}, fails
+
+
+def same_out(a, b) -> bool:
+    """Equal tokens and bit-equal logit rows, request by request."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        x[0] == y[0] and np.array_equal(x[1], y[1]) for x, y in zip(a, b))
+
+
+def moe_serve_case(torch, cfg, params):
+    """(b) The 8-request pool at hdp = 1 at the config's capacity factor:
+    phase 4's gates and times, the pairs of tokens dropped counted.  The
+    drain again with its MoE calls recorded (bit-equal to the first):
+    every call's kept pairs are the capacity rule's over the call's group,
+    and every request is held by `moe_hold_replayed`.  -> (launches,
+    results, failures)."""
+    from repro_torch.launch.profile_serve import tokens_and_logits
+    from repro_torch.parallel.sharding import Runtime
+    rt = Runtime(device=DEVICE)
+    with moe_drop_counter(torch) as drops:
+        eng, reqs, launches, wall = serve_pool(torch, cfg, params, rt)
+    peak = torch.cuda.max_memory_allocated()
+    waves = eng.stats["prefill_waves"]
+    decode_tokens = sum(len(r.generated) - 1 for r in reqs)
+    decode_s = sum(r.decode_s for r in reqs)
+    res = {"layers": cfg.num_layers, "prefill_waves": waves,
+           "carry_launches": launches["flash_fwd_carry"],
+           "prefill_ms_per_wave": sum(r.prefill_s for r in reqs) / waves
+           * 1e3,
+           "decode_ms_per_wave": decode_s / eng.stats["decode_waves"] * 1e3,
+           "decode_tokens_per_s": decode_tokens / decode_s,
+           "drain_s": wall, "peak_mem_gb": peak / 1e9,
+           "dropped_pairs_of_tokens": int(drops)}
+    timed = tokens_and_logits(reqs)
+    del eng, reqs
+
+    routes, calls = {}, []
+    with moe_record(torch, routes, calls) as during:
+        eng, reqs, _, _ = serve_pool(torch, cfg, params, rt, during=during)
+    fails = []
+    if not same_out(tokens_and_logits(reqs), timed):
+        fails.append("the recorded drain's tokens or logits differ from the "
+                     "timed drain's")
+    groups = moe_group_faults(torch, cfg.moe, calls)
+    if groups["groups_unlike_the_rule"]:
+        fails.append(f"kept pairs unlike the capacity rule: {groups}")
+    held, bad = moe_hold_replayed(torch, params, cfg, reqs, routes)
+    res.update({"groups": groups, **held})
+    return launches, res, fails + bad
+
+
+def moe_hdp_serve_case(torch, cfg, params):
+    """(d) The pool at hdp = 4 through ThreadRanks(4), 8 slots ("batch"):
+    phase 9's gates, but held to hdp = 1 only where neither run dropped a
+    pair of a token.  The hdp = 4 drain again with its MoE calls recorded
+    (bit-equal to the first): each rank's prefill calls keep the capacity
+    rule's pairs over its own rows, the ranks' decode calls together over
+    the whole slab, and every request is held by `moe_hold_replayed` ->
+    (launches summed over the ranks, results, failures)."""
+    import numpy as np
+    from repro_torch.launch.profile_serve import (hold_to_single_rank,
+                                                  ms_by_composition)
+    from repro_torch.parallel.comm import ThreadRanks
+    rng = np.random.RandomState(0)
+    pool = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with moe_drop_counter(torch) as drops4:
+        runs = ThreadRanks(RING_HDP).run(lambda c: hdp_serve_engine(
+            torch, params, cfg, c, 8, pool))
+        torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with moe_drop_counter(torch) as drops1:
+        one = hdp_serve_engine(torch, params, cfg, None, 8, pool)
+    fails = []
+    head = runs[0]
+    if head["layout"] != "batch":
+        fails.append(f"layout {head['layout']}, want batch")
+    want = expected_serve_launches(cfg, head["plans"])
+    got = [r["launches"]["flash_fwd_carry"] for r in runs]
+    if got != want or sum(got) != launches["flash_fwd_carry"]:
+        fails.append(f"carry launches per rank {got}, want {want} "
+                     f"(wrappers: {launches['flash_fwd_carry']})")
+    if any(launches[n] for n in launches if n not in SERVE_KERNELS):
+        fails.append(f"serving launched a training kernel: {launches}")
+    for r, run in enumerate(runs):
+        if run["errors"] != [None] * len(pool):
+            fails.append(f"rank {r}: request errors {run['errors']}")
+        if not same_out(run["out"], head["out"]):
+            fails.append(f"rank {r}: tokens or logits differ from rank 0's")
+        if not np.isfinite(np.concatenate(
+                [rows.ravel() for _, rows in run["out"]])).all():
+            fails.append(f"rank {r}: non-finite logits")
+    d4, d1 = int(drops4), int(drops1)
+    held = None
+    if d4 == 0 and d1 == 0:
+        held = hold_to_single_rank(head["out"], one["out"])
+        if held["faults"] or not held["rms"] <= SERVE_TOL:
+            fails.append(f"against hdp = 1: {held}")
+    zero_counts()
+
+    routes, calls = {}, []
+    with moe_record(torch, routes, calls) as during:
+        again = ThreadRanks(RING_HDP).run(lambda c: hdp_serve_engine(
+            torch, params, cfg, c, 8, pool, during=during))
+    zero_counts()
+    if not all(same_out(run["out"], head["out"]) for run in again):
+        fails.append("the recorded drain's tokens or logits differ from the "
+                     "timed drain's")
+    groups = moe_group_faults(torch, cfg.moe, calls)
+    if groups["groups_unlike_the_rule"]:
+        fails.append(f"kept pairs unlike the capacity rule: {groups}")
+    reqs = [types.SimpleNamespace(rid=rid, prompt=p, plen=len(p),
+                                  generated=toks, logits=list(rows))
+            for rid, p, (toks, rows) in zip(head["rids"], pool,
+                                            head["out"])]
+    replayed, bad = moe_hold_replayed(torch, params, cfg, reqs, routes)
+    fails += bad
+    res = {"slots": 8, "layout": head["layout"],
+           "waves": [tuple(w.composition) for _, p in head["plans"]
+                     for w in p.waves],
+           "carry_launches_by_rank": got,
+           "prefill_ms_by_composition": ms_by_composition(
+               head["prefill_log"]),
+           "hdp1_prefill_ms_by_composition": ms_by_composition(
+               one["prefill_log"]),
+           "decode_ms_per_wave": head["decode_ms_per_wave"],
+           "hdp1_decode_ms_per_wave": one["decode_ms_per_wave"],
+           "dropped_pairs_of_tokens_hdp4": d4,
+           "dropped_pairs_of_tokens_hdp1": d1,
+           "card_peak_mem_gb_4_ranks": peak / 1e9,
+           "vs_hdp1": held if held is not None
+           else "not held: a run dropped pairs of tokens",
+           "groups": groups, **replayed}
+    return launches, res, fails
+
+
+def moe_train_wave(torch, cfg):
+    """(c) One wave at full width cut to 2 layers: the kernel route
+    (bf16) against the float32 plain route.  The routes' experts differ
+    where a router margin sits within bf16's error, and a pair routed to
+    another expert is another function, so the share of (token, k) pairs
+    whose expert differs is printed from a free float32 forward, and the
+    float32 route that is held replays the kernel route's expert choices
+    (its gates its own): loss within TRAIN_LOSS_TOL, every gradient leaf
+    within TRAIN_GRAD_TOL -> (results, failures)."""
+    from repro_torch.data.loader import WaveMaterializer
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.train_step import (loss_fn, make_accum_steps,
+                                              zeros_accum)
+    from repro_torch.tree import leaves, tree_map
+
+    sched = train_setup(cfg)
+    plan = sched.plan_step(0)
+    sched.stop()
+    lw = WaveMaterializer(sched.ds, cfg, 4096).materialize(0, plan.waves[0])
+    batch = {k: torch.tensor(v, device=DEVICE) for k, v in lw.batch.items()}
+    batch["denom"] = torch.tensor(float(plan.denom), device=DEVICE)
+    params = init_params(cfg, seed=0, device=DEVICE)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def run(route_cfg, p, attn_impl):
+        rt = Runtime(device=DEVICE, attn_impl=attn_impl)
+        grad_step, _ = make_accum_steps(route_cfg, rt, AdamWConfig())
+        acc, m = grad_step(p, zeros_accum(p), batch, rt)
+        return m["loss"].item(), acc
+
+    routes = []
+    with moe_routes(torch, record=routes):
+        loss_k, g_k = run(cfg, params, "flash")
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    free = []
+    with moe_routes(torch, record=free), torch.no_grad():
+        loss_free = loss_fn(p32, cfg32, Runtime(device=DEVICE,
+                                                attn_impl="ref"),
+                            batch)[0].item()
+    k = cfg.moe.top_k
+    differ = sum(int((torch.sort(a, -1)[0] != torch.sort(b, -1)[0])
+                     .sum()) for a, b in zip(routes, free))
+    pairs = sum(a.numel() for a in free)
+    with moe_routes(torch, replay=list(routes)):
+        loss_32, g_32 = run(cfg32, p32, "ref")
+    rel = [rel_l2(a, b) for a, b in zip(leaves(g_k), leaves(g_32))]
+    res = {"wave_tokens": int((lw.batch["seg"] > 0).sum()),
+           "route_calls": len(routes), "top_k": k,
+           "pairs_with_another_expert_share": differ / pairs,
+           "loss_kernel": loss_k, "loss_f32_replayed": loss_32,
+           "loss_f32_own_routing": loss_free,
+           "loss_rel_err": abs(loss_k - loss_32) / abs(loss_32),
+           "grad_rel_l2_max": max(rel), "n_leaves": len(rel)}
+    fails = []
+    if not res["loss_rel_err"] <= TRAIN_LOSS_TOL:
+        fails.append(f"loss: kernel route {loss_k} vs float32 {loss_32}")
+    if not max(rel) <= TRAIN_GRAD_TOL:
+        fails.append(f"grads: relative L2 up to {max(rel)} against the "
+                     f"float32 route")
+    return res, fails
+
+
+def phase_moe(torch, card):
+    """Phase 11: Mistral-8x7B at full width -> the launches of its serving
+    (hdp = 1 and 4) and training paths."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import leaves
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fails = []
+    rows, bad = moe_block_case(torch)
+    log(f"[moe] (a) {card}: MoE block [{MOE_ROWS}, 4096] bf16 vs the "
+        f"float32 expert loop: {json.dumps(rows)}")
+    fails += [f"(a) {f}" for f in bad]
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=MOE_SERVE_LAYERS)
+    params = init_params(cfg, seed=0, device=DEVICE)
+    n = sum(x.numel() for x in leaves(params))
+    log(f"[moe] {cfg.name} at {cfg.num_layers} layers: {n / 1e9:.3f} G "
+        f"params, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    totals = {name: 0 for name, *_ in KERNELS}
+    for part, case in (("b", moe_serve_case), ("d", moe_hdp_serve_case)):
+        launches, res, bad = case(torch, cfg, params)
+        log(f"[moe] ({part}) {card}: {json.dumps(res)}")
+        fails += [f"({part}) {f}" for f in bad]
+        for name, c in launches.items():
+            totals[name] += c
+    del params
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(get_config(MOE_ARCH),
+                               num_layers=MOE_TRAIN_LAYERS)
+    launches, _, _ = train_full(
+        torch, cfg2, tag="moe train",
+        want=wave_launches_want(cfg2.num_layers, 1))
+    for name, c in launches.items():
+        totals[name] += c
+    res, bad = moe_train_wave(torch, cfg2)
+    log(f"[moe] (c) one wave {card}: {fmt(res)}")
+    fails += [f"(c) {f}" for f in bad]
+    zero_counts()
+    torch.cuda.empty_cache()
+    log(f"[moe] launches {json.dumps(totals)}, phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fails:
+        raise AssertionError("phase 11: " + "; ".join(fails))
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# 12. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
                  hdp_launches, offload_launches, hdp_serve_launches,
-                 ckpt_launches):
+                 ckpt_launches, moe_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
     its ranks), the offloading trainer's, the hdp = 4 engine's (summed
-    over its ranks) and the checkpoint phase's."""
+    over its ranks), the checkpoint phase's and the MoE phase's."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -2204,7 +2820,8 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             "replaces": replaces,
             "launches": launches[name] + ring_launches[name]
             + hdp_launches[name] + offload_launches[name]
-            + hdp_serve_launches[name] + ckpt_launches[name],
+            + hdp_serve_launches[name] + ckpt_launches[name]
+            + moe_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -2242,10 +2859,12 @@ def main() -> int:
     for name, n in ckpt_b_launches.items():
         ckpt_launches[name] += n
     log(f"[ckpt] done at {time.perf_counter() - t0:.1f} s")
+    moe_launches = phase_moe(torch, card)
+    log(f"[moe] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
                                 offload_launches, hdp_serve_launches,
-                                ckpt_launches)))
+                                ckpt_launches, moe_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

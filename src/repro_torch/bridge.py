@@ -22,8 +22,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel.sharding import resolve_device
 
-# leaves kept in float32 whatever the model dtype (norm scales)
-_FP32_LEAVES = ("scale",)
+# leaves kept in float32 whatever the model dtype (norm scales, the MoE
+# router)
+_FP32_LEAVES = ("scale", "router")
 _LIST_NODES = ("blocks", "head_blocks")
 
 

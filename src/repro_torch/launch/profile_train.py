@@ -2,7 +2,8 @@
 full width and depth through `Trainer.train_step`, one under
 `torch.profiler`.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        [--arch mistral-8x7b --layers 2]
 
 The configuration of `chip_smoke.py`'s train phase: random weights from
 seed 0 in bf16, github lengths, 16384 tokens per step, context and wave
@@ -10,10 +11,14 @@ capacity 4096, strategy balance, AdamW lr 3e-4.  Runs a cold step (kernel
 build, first-use costs), a warm step, and a warm step under the profiler.
 Prints the card, each step's waves and wall time, the device-busy share of
 the profiled step, and its kernels by total device time, grouped into
-families.  Raises without a CUDA device.
+families.  ``--arch`` profiles another registered model and ``--layers
+N`` cuts its depth at full width (a measurement aid: Mistral-8x7B's
+state fits one card at 2 layers).  Raises without a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -37,14 +42,22 @@ def timed_step(tr) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="a measurement aid: cut the depth to N layers at "
+                         "full width (0: the config's depth)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_train measures the card: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     ds = SyntheticDataset("github", cfg.vocab_size, tokens_per_step=16384,
                           context=4096)
     sched = GlobalScheduler(ds, cfg, capacity=4096, hdp=1,
@@ -72,7 +85,8 @@ def main() -> None:
     for name, us in by_name.items():
         fams[family(name)] += us / 1e3
     print(card)
-    print(json.dumps({"layers": cfg.num_layers, "cold": cold, "warm": warm,
+    print(json.dumps({"arch": cfg.name, "layers": cfg.num_layers,
+                      "cold": cold, "warm": warm,
                       "profiled": prof_step,
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     wall_ms = prof_step["wall_s"] * 1e3

@@ -3,7 +3,7 @@
     python -m repro_torch.launch.train --arch llama3.2-3b [--reduced] \\
         --steps N --capacity C --tokens-per-step N --context L \\
         --dataset D --strategy S --lr X --attn-impl {flash,ref} \\
-        [--offload] [--mesh NxM] [--ckpt-dir D] [--device cpu]
+        [--offload] [--mesh NxM] [--ckpt-dir D] [--layers N] [--device cpu]
 
 Port of `repro/launch/train.py` (mode ``dp``, no PP).  Runs on ``cuda``
 unless ``--device cpu`` is given, and refuses to start without a GPU
@@ -28,6 +28,10 @@ measured peak memory); the step it resumed at, the checkpoint's seconds
 (gather, snapshot, write, hash, restore) and bytes, and rank 0's peak
 host memory.  M > 1 (tensor parallelism) is not ported.
 
+``--layers N`` cuts the model's depth to N layers at its full width (a
+measurement aid, as ``chip_smoke.py`` cuts depth: Mistral-8x7B's 46.7 G
+parameters do not fit four cards under ZeRO-1, 4 of its 32 layers do).
+
 ``--ckpt-dir D`` (the reference's) checkpoints into D every 5 steps and
 after the last, and first resumes from the newest valid checkpoint in D,
 printing "resumed at step N"; ``--steps`` is the step to reach, as in
@@ -37,6 +41,7 @@ written at ``--mesh 4x1`` resumes at ``--mesh 2x1`` or ``1x1``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import resource
@@ -68,6 +73,8 @@ def _resolve_config(args):
         args.capacity = min(args.capacity, 512)
         args.tokens_per_step = min(args.tokens_per_step, 8192)
         args.context = min(args.context, 2048)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     dist = DISTRIBUTIONS.get(args.dataset) or \
         LengthDistribution("tiny", 4.5, 0.8, 0.1, 1.5, 256)
     ds = SyntheticDataset(dist, cfg.vocab_size, args.tokens_per_step,
@@ -146,6 +153,7 @@ def summary(args, trainer, waves, peaks) -> dict:
     totals = trainer.ledger.totals
     return {
         "arch": args.arch, "reduced": args.reduced, "mesh": f"{hdp}x1",
+        "layers": trainer.cfg.num_layers,
         "device": str(trainer.rt.device),
         "params_b": sum(p.numel() for p in leaves(trainer.params)) / 1e9,
         "steps": [{**{k: r[k] for k in ("step", "loss", "grad_norm",
@@ -231,6 +239,9 @@ def main(argv=None):
                     help="checkpoint directory: resume from its newest "
                          "valid checkpoint, save every 5 steps and at the "
                          "end")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="a measurement aid: cut the depth to N layers at "
+                         "full width (0: the config's depth)")
     ap.add_argument("--device", default=None,
                     help="default cuda; pass cpu to run on the CPU")
     args = ap.parse_args(argv)

@@ -1,18 +1,22 @@
-"""Decoder LM over packed token buffers, dense path.
+"""Decoder LM over packed token buffers: dense and Mixture-of-Experts.
 
 Port of `repro/models/transformer.py` for the serving and training
 slices: token frontend, RMSNorm, GQA attention with RoPE over packed
-segments, gated or plain MLP, tied or untied logits.  Activations are
-flat packed buffers [T, d]; every token carries (segment_id, position).
-Parameters keep the reference's tree and layouts, so a JAX parameter tree
-bridges by a plain copy (`repro_torch.bridge`):
+segments, a gated or plain MLP or a capacity-bounded MoE per layer
+(`models/moe.py`), tied or untied logits.  Activations are flat packed
+buffers [T, d]; every token carries (segment_id, position).  Parameters
+keep the reference's tree and layouts, so a JAX parameter tree bridges by
+a plain copy (`repro_torch.bridge`):
 
-    embed [V, d]; head_blocks []; final_norm {scale [d] f32};
+    embed [V, d]; head_blocks: one un-stacked block per leading dense
+    layer (``moe.first_k_dense``); final_norm {scale [d] f32};
     blocks: one dict per layer-pattern position, every leaf stacked
     [n_periods, ...]: norm1/norm2 {scale}, attn {w_q [d, h*Dk],
-    w_kv [d, 2, G, Dk], w_o [h*Dk, d]}, mlp {w_in, w_gate, w_out}.
+    w_kv [d, 2, G, Dk], w_o [h*Dk, d]}, and mlp {w_in, w_gate, w_out}
+    or moe {router [d, E] f32, w_in, w_gate [E, d, f], w_out [E, f, d],
+    shared_*}.
 
-Dense weights are [in, out] and used as ``x @ W``.  MLA, MoE, SSM mixers,
+Dense weights are [in, out] and used as ``x @ W``.  MLA, SSM mixers,
 non-token frontends and the Gemma-style extras (window, softcaps,
 post-block norms, embedding scale, q/k norms) are later slices and raise
 `NotImplementedError`.
@@ -27,16 +31,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ring as R
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.parallel.sharding import Runtime, resolve_device
 from repro_torch.tree import leaves, tree_map
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the dense slice does not run."""
+    """Raise NotImplementedError for what the port does not run yet."""
     missing = []
     if set(cfg.layer_pattern) - {"g"}:
         missing.append(f"layer pattern {cfg.layer_pattern!r}")
-    for name in ("mla", "moe", "rwkv", "mamba"):
+    for name in ("mla", "rwkv", "mamba"):
         if getattr(cfg, name) is not None:
             missing.append(name)
     if cfg.frontend != "none":
@@ -50,12 +55,13 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            f"dense global-attention decoders with a token frontend)")
+            f"global-attention decoders, dense or MoE, with a token "
+            f"frontend)")
 
 
 def head_layer_count(cfg: ModelConfig) -> int:
-    """Leading layers kept outside the stacked periods (DeepSeek dense
-    head); zero for every dense model."""
+    """Leading layers kept outside the stacked periods (the dense head
+    of an MoE model, ``moe.first_k_dense``); zero for a dense model."""
     return cfg.moe.first_k_dense if cfg.moe is not None else 0
 
 
@@ -75,25 +81,41 @@ def _attn_init(gen, cfg: ModelConfig, layout, dtype, device) -> dict:
     }
 
 
-def _mlp_init(gen, cfg: ModelConfig, dtype, device) -> dict:
-    p = {"w_in": L.dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
-         "w_out": L.dense_init(gen, cfg.d_ff, cfg.d_model, dtype, device)}
+def _mlp_init(gen, cfg: ModelConfig, d_ff: int, dtype, device) -> dict:
+    p = {"w_in": L.dense_init(gen, cfg.d_model, d_ff, dtype, device),
+         "w_out": L.dense_init(gen, d_ff, cfg.d_model, dtype, device)}
     if cfg.gated_mlp:
-        p["w_gate"] = L.dense_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+        p["w_gate"] = L.dense_init(gen, cfg.d_model, d_ff, dtype, device)
     return p
 
 
-def _block_init(gen, cfg: ModelConfig, layout, dtype, device) -> dict:
-    return {"norm1": L.rmsnorm_init(cfg.d_model, device),
-            "norm2": L.rmsnorm_init(cfg.d_model, device),
-            "attn": _attn_init(gen, cfg, layout, dtype, device),
-            "mlp": _mlp_init(gen, cfg, dtype, device)}
+def _block_init(gen, cfg: ModelConfig, layer_idx: int, layout, dtype,
+                device) -> dict:
+    p = {"norm1": L.rmsnorm_init(cfg.d_model, device),
+         "norm2": L.rmsnorm_init(cfg.d_model, device),
+         "attn": _attn_init(gen, cfg, layout, dtype, device)}
+    if cfg.is_moe_layer(layer_idx):
+        p["moe"] = MOE.moe_init(gen, cfg, dtype, device)
+    else:
+        d_ff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.dense_d_ff:
+            d_ff = cfg.moe.dense_d_ff
+        p["mlp"] = _mlp_init(gen, cfg, d_ff, dtype, device)
+    return p
 
 
-def _stack(trees: list) -> dict:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_into(out, tree, i: int, n: int):
+    """Copy ``tree`` into period ``i`` of the stacked ``out`` ([n, ...]
+    leaves, allocated at i == 0) -> out."""
+    if isinstance(tree, dict):
+        out = {} if out is None else out
+        for k, v in tree.items():
+            out[k] = _stack_into(out.get(k), v, i, n)
+        return out
+    if out is None:
+        out = tree.new_empty((n, *tree.shape))
+    out[i].copy_(tree)
+    return out
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
@@ -109,18 +131,28 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     dtype = L.activation_dtype(cfg)
     layout = L.gqa_layout(cfg.num_heads, cfg.num_kv_heads, 1)
     period = len(cfg.layer_pattern)
-    n_periods = cfg.num_layers // period
+    head_n = head_layer_count(cfg)
+    if (cfg.num_layers - head_n) % period:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers - head_n} stacked "
+                         f"layers are no whole number of {period}-layer "
+                         f"periods")
+    n_periods = (cfg.num_layers - head_n) // period
     params: dict = {
         "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
                               device),
-        "head_blocks": [],
+        "head_blocks": [_block_init(gen, cfg, i, layout, dtype, device)
+                        for i in range(head_n)],
     }
     blocks = []
-    for _ in range(period):
-        per = [_block_init(gen, cfg, layout, dtype, device)
-               for _ in range(n_periods)]
-        blocks.append(_stack(per))
-        del per
+    for j in range(period):
+        # one period's block at a time into the stacked leaves, so the
+        # init holds the stack and one block, never two stacks
+        stacked = None
+        for p in range(n_periods):
+            stacked = _stack_into(
+                stacked, _block_init(gen, cfg, head_n + p * period + j,
+                                     layout, dtype, device), p, n_periods)
+        blocks.append(stacked)
     params["blocks"] = blocks
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, device)
     if not cfg.tie_embeddings:
@@ -172,6 +204,16 @@ def _ffn_block(bp, cfg: ModelConfig, x):
     return h @ bp["w_out"]
 
 
+def _moe_block(bp, cfg: ModelConfig, rt: Runtime, x):
+    """This rank's rows route as one group.  The reference reshapes the
+    wave's [T, d] to [hdp, T/hdp, d] and routes each HDP rank's rows
+    apart; rank r of the port holds rows [r·C, (r+1)·C) of the wave, so
+    its rows are that group, padding rows included.  At tp = 1 the
+    reference's expert-parallel route (``moe_impl="manual"``) holds every
+    expert locally and computes the same."""
+    return MOE.moe_forward(bp, cfg, x)
+
+
 def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
                   layer_idx: int, collect: Optional[list] = None):
     code = cfg.layer_code(layer_idx)
@@ -182,7 +224,10 @@ def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
                          collect=collect)
     x = x + h.to(x.dtype)
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    h = _ffn_block(bp["mlp"], cfg, h)
+    if "moe" in bp:
+        h = _moe_block(bp["moe"], cfg, rt, h)
+    else:
+        h = _ffn_block(bp["mlp"], cfg, h)
     return x + h.to(x.dtype)
 
 

@@ -15,6 +15,10 @@ host memory between the forward and the recompute of the backward
 kept on the device.  ``offload_store`` holds the host buffers, and k > 0
 needs one; the trainer hands one store to every wave, so the buffers are
 reused from wave to wave.
+
+A runtime on the card refuses TF32 matmuls: float32 products stay IEEE
+fp32, as the reference's on the CPU, and the MoE router's top-k hangs on
+its product (`models/moe.py`).
 """
 from __future__ import annotations
 
@@ -82,6 +86,11 @@ class Runtime:
                              f"{ATTN_IMPLS}")
         if self.remat not in REMATS:
             raise ValueError(f"remat {self.remat!r} not in {REMATS}")
+        if (self.device.type == "cuda"
+                and torch.backends.cuda.matmul.allow_tf32):
+            raise ValueError("torch.backends.cuda.matmul.allow_tf32 is on: "
+                             "the port's float32 products (the MoE "
+                             "router's among them) must stay IEEE fp32")
         if self.offload_periods < 0:
             raise ValueError(f"offload_periods {self.offload_periods} < 0")
 

@@ -1,7 +1,7 @@
 """Serving steps: prefill over packed buffers, decode against a KV slab.
 
-Port of `repro/train/serve_step.py` for dense attention models.  The
-decode cache keeps the reference's layout, ``{"head_layers": [...],
+Port of `repro/train/serve_step.py` for global-attention models, dense or
+MoE.  The decode cache keeps the reference's layout, ``{"head_layers": [...],
 "blocks": [{"k", "v"} per pattern position]}`` with block leaves stacked
 ``[n_periods, B, S, G, Dk]``, and the port UPDATES IT IN PLACE: each
 decode step writes its new K/V rows into the slab tensors with an indexed
@@ -15,6 +15,16 @@ attention merges the ranks' partials (`core/ring.py::
 decode_attention_sharded`).  Every layer caches all ``seq_len``
 positions: `check_supported` rejects windowed (ring-buffer) layers, so
 neither layout meets one.
+
+An MoE layer routes the whole slab as one group in decode, as the
+reference does (its ``moe_forward`` on the global ``[B, d]``): every slot
+in slot order, free slots and the tokens the engine feeds them included.
+Under ``"seq"`` every rank runs every slot, so it routes the slab itself;
+under ``"batch"`` a rank holds its slots' rows only, and
+`models/moe.py::moe_forward_sharded` all-gathers the ranks' top-k
+indices, one small collective a layer, so every rank takes the slab's
+capacity decisions for its rows.  (A prefill wave routes each rank's
+rows apart, as training does.)
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ring as R
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.transformer import (_ffn_block, _index,
                                             apply_periods, check_supported,
                                             embed_frontend, embed_tokens,
@@ -125,7 +136,9 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
                       sh: SlabShard):
     """``pos`` [B]: each slot decodes at its own depth; its new K/V row
     lands at position ``pos`` of that slot, written into ``cache`` in place
-    by the rank whose shard holds it."""
+    by the rank whose shard holds it.  As in the reference, a position past
+    the slab (a free slot whose last request filled its context) wraps
+    round it and attends to at most ``seq_len`` positions."""
     b = x.shape[0]
     rows = torch.arange(b, device=x.device)
     layout = rt.layout(cfg)
@@ -137,11 +150,12 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
     q, k_new = L.positional_rotate(cfg, q, k_new, pos, pos)
     k_cache, v_cache = cache["k"], cache["v"]
     k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
-    local = pos
+    seq_len = sh.positions * (rt.hdp_size if sh.layout == "seq" else 1)
+    local = pos % seq_len
     if sh.layout == "seq":
         # every rank runs every slot; only the one holding ``pos`` changes
         # its row (the others write back what they hold)
-        local = pos - sh.base
+        local = local - sh.base
         own = ((local >= 0) & (local < sh.positions))[:, None, None]
         local = local.clamp(0, sh.positions - 1)
         k_new = torch.where(own, k_new, k_cache[rows, local])
@@ -150,7 +164,7 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
     v_cache[rows, local] = v_new
     qg = q.reshape(b, g, layout.hpg_pad, dk)
     out = R.decode_attention_sharded(
-        qg, k_cache, v_cache, pos + 1,
+        qg, k_cache, v_cache, (pos + 1).clamp(max=seq_len),
         comm=rt.comm if sh.layout == "seq" else None, base=sh.base,
         scale=dk ** -0.5, softcap=cfg.attn_softcap)
     out = out.reshape(b, layout.h_pad, dk)
@@ -165,8 +179,20 @@ def _decode_block(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
     h = _decode_attention(bp["attn"], cache, cfg, rt, h, pos, sh)
     x = x + h.to(x.dtype)
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    h = _ffn_block(bp["mlp"], cfg, h)
+    if "moe" in bp:
+        h = _decode_moe(bp["moe"], cfg, rt, h, sh)
+    else:
+        h = _ffn_block(bp["mlp"], cfg, h)
     return x + h.to(x.dtype)
+
+
+def _decode_moe(bp, cfg: ModelConfig, rt: Runtime, x, sh: SlabShard):
+    """The MoE of one decode layer, the whole slab routed as one group:
+    ``x`` is this rank's slots' rows ([B/hdp, d] under ``"batch"``, all B
+    otherwise)."""
+    if sh.layout == "batch" and rt.hdp_size > 1:
+        return MOE.moe_forward_sharded(bp, cfg, x, rt.comm)
+    return MOE.moe_forward(bp, cfg, x)
 
 
 def make_decode_step(cfg: ModelConfig, rt: Runtime, batch: int,

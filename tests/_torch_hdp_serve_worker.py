@@ -28,17 +28,32 @@ SLOTS = (4, 6)                                # "batch", then "seq" layout
 GLOO_CASE = (6, "flash")                      # slots, attn_impl
 TORCH_THREADS = 1                             # ThreadRanks and gloo ranks
                                               # alike, for bit-equal GEMMs
+# the MoE case: reduced Mistral-8x7B, 16 requests on 16 slots ("batch":
+# 4 a rank); at capacity factor 0.5 the slab's 32 (token, k) pairs meet
+# an expert capacity of 8, so decode drops pairs
+MOE_ARCH, MOE_CF, MOE_SLOTS = "mistral-8x7b", 0.5, 16
+MOE_PROMPT_LENS = [30, 12, 5, 20, 9, 3, 17, 25, 7, 14, 40, 6, 11, 22, 4, 8]
 
 
-def config():
+def config(arch: str = "llama3.2-3b"):
+    """The port's reduced ``arch`` in float32 (`with_cf`)."""
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config("llama3.2-3b").reduced(),
-                               dtype="float32")
+    return with_cf(get_config(arch).reduced())
 
 
-def prompts(vocab: int) -> list:
+def with_cf(cfg):
+    """``cfg`` (either package's) in float32, an MoE config at capacity
+    factor `MOE_CF`."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_CF))
+    return cfg
+
+
+def prompts(vocab: int, lens=PROMPT_LENS) -> list:
     rng = np.random.RandomState(0)
-    return [rng.randint(0, vocab, n) for n in PROMPT_LENS]
+    return [rng.randint(0, vocab, n) for n in lens]
 
 
 def serve_pool(comm, params, cfg, slots: int, impl: str, pool=None,

@@ -7,8 +7,9 @@ npz for the test to hold against the reference.
 
 Imports torch and the port only (no JAX), so the four spawned ranks start
 light.  Every scenario waits for the reference's initial parameters
-(``OUT_DIR/jax_params.npz``, and ``OUT_DIR/jax_params_offload.npz`` for
-the offload runs; written by the JAX side before it trains), so both sides
+(``OUT_DIR/jax_params.npz``, ``OUT_DIR/jax_params_offload.npz`` for the
+offload runs and ``OUT_DIR/jax_params_moe.npz`` for the MoE run, reduced
+Mistral-8x7B; written by the JAX side before it trains), so both sides
 start from the same weights.  Each rank writes ``OUT_DIR/torch_rank{r}.npz``.
 
 The checkpoint scenario (`ckpt_check`) writes under ``OUT_DIR/ckpt4``
@@ -41,12 +42,13 @@ APPLY_DTYPES = ("float32", "bfloat16")
 OFF_LAYERS, OFF_TOKENS, OFF_CONTEXT = 4, 2048, 2048
 OFF_RUNS = tuple(f"offload-{impl}" for impl in IMPLS)
 LEDGER_KINDS = ("ring", "offload_d2h", "offload_h2d")
+ARCH, MOE_ARCH = "llama3.2-3b", "mistral-8x7b"
+MOE_RUNS = ("moe-flash",)        # the MoE model on the dense run's data
 
 
-def config(dtype: str = "float32", layers: int = 0):
+def config(dtype: str = "float32", layers: int = 0, arch: str = ARCH):
     from repro_torch.configs.registry import get_config
-    cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
-                              dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
     return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
@@ -62,10 +64,10 @@ def scheduler(cfg, seed: int = 0, sched_async: bool = False,
                            use_offload=use_offload, sched_async=sched_async)
 
 
-def trainer(comm, flat, impl="ref", seed=0, **tcfg):
-    """The port's `Trainer` on ``comm``'s ranks (one rank if None) from
-    the reference's parameters (seeded ones if ``flat`` is None),
-    recording each step's plan fingerprint in ``.plans``.
+def trainer(comm, flat, impl="ref", seed=0, arch=ARCH, **tcfg):
+    """The port's `Trainer` of ``arch`` on ``comm``'s ranks (one rank if
+    None) from the reference's parameters (seeded ones if ``flat`` is
+    None), recording each step's plan fingerprint in ``.plans``.
     ``use_offload`` runs the offload scenario's model and data."""
     from repro_torch import bridge
     from repro_torch.obs.numerics import plan_fingerprint
@@ -73,7 +75,7 @@ def trainer(comm, flat, impl="ref", seed=0, **tcfg):
     from repro_torch.parallel.sharding import Runtime
     from repro_torch.train.trainer import Trainer, TrainerConfig
     off = tcfg.get("use_offload", False)
-    cfg = config(layers=OFF_LAYERS if off else 0)
+    cfg = config(layers=OFF_LAYERS if off else 0, arch=arch)
     sched = scheduler(cfg, seed, tcfg.get("sched_async", False), off,
                       1 if comm is None else comm.size)
     plans = []
@@ -100,23 +102,26 @@ def state_flat(state) -> dict:
             for key, v in bridge.params_to_flat(state[k]).items()}
 
 
-def run_history(comm, flat, impl, res, offload: bool = False) -> None:
+def run_history(comm, flat, impl, res, offload: bool = False,
+                arch: str = ARCH) -> None:
     """STEPS steps; per step the fingerprint, loss, grad norm, wave losses
     and the parameters after it (p0: after the broadcast).  ``offload``:
     the offload scenario under the key ``offload-{impl}``, with the bytes
     ledger on: each wave's (composition, c_mult, r, k) and its predicted
-    and measured bytes (`ledger_arrays`)."""
+    and measured bytes (`ledger_arrays`).  The MoE model (``arch``
+    `MOE_ARCH`) runs under the key ``moe-{impl}``."""
     from repro_torch import bridge
     from repro_torch.obs import ledger
-    run = f"offload-{impl}" if offload else impl
+    run = f"offload-{impl}" if offload else \
+        f"moe-{impl}" if arch == MOE_ARCH else impl
     ledger.set_ledger_enabled(offload)
-    tr = trainer(comm, flat, impl, use_offload=offload)
+    tr = trainer(comm, flat, impl, arch=arch, use_offload=offload)
     ratios = []
     tr.telemetry_fn = lambda ws, *_, **__: ratios.append(ws[0].offload_ratio)
     try:
         for key, v in bridge.params_to_flat(tr.params).items():
             res[f"{run}/p0/{key}"] = v
-        if not offload:
+        if run == impl:
             res["state_shapes"] = np.array(
                 [f"{key}:{tuple(v.shape)}" for key, v in
                  bridge.params_to_flat(tr.opt_state["master"]).items()])
@@ -411,6 +416,11 @@ def _rank_main(rank: int, out_dir: str) -> None:
         flat_off = dict(np.load(f"{out_dir}/jax_params_offload.npz"))
         for impl in IMPLS:
             run_history(comm, flat_off, impl, res, offload=True)
+        _wait_for(f"{out_dir}/jax_params_moe.npz")
+        flat_moe = dict(np.load(f"{out_dir}/jax_params_moe.npz"))
+        for run in MOE_RUNS:
+            run_history(comm, flat_moe, run.split("-")[1], res,
+                        arch=MOE_ARCH)
         for dtype in APPLY_DTYPES:
             apply_check(comm, flat, dtype, res)
         guard_check(comm, flat, res)

@@ -18,6 +18,12 @@ hdp = 4.
   rank raise; a request with non-finite logits fails alike at hdp = 1 and
   4 and leaves no NaN for its slot's next tenant.
 * The launcher's ``--mesh 2x1`` on 2 gloo ranks (reduced, bf16).
+* MoE: reduced Mistral-8x7B in float32 at capacity factor 0.5, 16
+  requests on 16 slots (``"batch"``, 4 a rank) on both sides: decode
+  routes the whole slab as one group (the reference's ``moe_forward`` on
+  the global ``[B, d]``), which here drops pairs, so only the port's
+  all-gather of the ranks' top-k indices gives the reference's tokens
+  and logits (within 1e-4); the ranks bit-identical.
 
 The reference, the gloo ranks and the launcher run as three subprocesses
 started together by one module fixture.
@@ -111,6 +117,19 @@ for slots in W.SLOTS:
     res[f"{slots}/tokens"] = np.array([r.generated for r in reqs])
     res[f"{slots}/logits"] = np.stack([np.stack(r.logits) for r in reqs])
     res[f"{slots}/comps"] = np.array(repr(comps))
+
+mcfg = W.with_cf(get_config(W.MOE_ARCH).reduced())
+mparams = init_params(jax.random.PRNGKey(0), mcfg, rt)
+np.savez(out + "/jax_params_moe.npz", **_flatten(mparams))
+eng = ServeEngine(mparams, mcfg, rt, ServeConfig(
+    max_slots=W.MOE_SLOTS, max_context=W.MAX_CONTEXT,
+    prefill_capacity=W.CAPACITY, collect_logits=True))
+rids = [eng.submit(p, W.NEW_TOKENS)
+        for p in W.prompts(mcfg.vocab_size, W.MOE_PROMPT_LENS)]
+eng.drain(max_steps=200)
+reqs = [eng.pool.get(r) for r in rids]
+res["moe/tokens"] = np.array([r.generated for r in reqs])
+res["moe/logits"] = np.stack([np.stack(r.logits) for r in reqs])
 np.savez(out + "/jax_serve.npz", **res)
 """
 
@@ -154,6 +173,7 @@ def results(tmp_path_factory):
                                    (out / f"{part}.err").read_text()[-4000:])
     ref = dict(np.load(out / "jax_serve.npz"))
     ref["flat"] = dict(np.load(out / "jax_params.npz"))
+    ref["flat_moe"] = dict(np.load(out / "jax_params_moe.npz"))
     ranks = [dict(np.load(out / f"torch_rank{r}.npz")) for r in range(W.R)]
     return ref, ranks, logs["launch"].read_text()
 
@@ -173,6 +193,56 @@ def port(results):
             for slots, impl in CASES}
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def moe_port(results):
+    """Every rank's MoE pool on ThreadRanks(4), from the reference's
+    weights, and the pairs each decode step dropped over the slab
+    (counted by a wrapper of `moe_forward_sharded` that all-gathers the
+    ranks' top-k indices once more)."""
+    from repro_torch.models import moe as M
+    ref, _, _ = results
+    cfg = W.config(W.MOE_ARCH)
+    params = bridge.params_from_flat(ref["flat_moe"], cfg, "cpu")
+    sharded = M.moe_forward_sharded
+    drops = []
+
+    def counting(p, c, x, comm):
+        _, idx = M.moe_route(p, c, x)
+        every = comm.all_gather(idx).reshape(-1, c.moe.top_k)
+        pos = M.moe_positions(every, c.moe.num_experts)
+        if comm.rank == 0:
+            drops.append(int((pos >= M.moe_capacity(
+                c.moe, every.shape[0])).sum()))
+        return sharded(p, c, x, comm)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(W.TORCH_THREADS)
+    M.moe_forward_sharded = counting
+    try:
+        runs = ThreadRanks(W.R).run(lambda c: W.serve_pool(
+            c, params, cfg, W.MOE_SLOTS, "flash",
+            pool=W.prompts(cfg.vocab_size, W.MOE_PROMPT_LENS)))
+    finally:
+        M.moe_forward_sharded = sharded
+        torch.set_num_threads(threads)
+    return runs, drops
+
+
+def test_moe_decode_routes_the_whole_slab_like_jax(results, moe_port):
+    ref, _, _ = results
+    runs, drops = moe_port
+    assert runs[0]["engine"].shard.layout == "batch"
+    assert runs[0]["engine"].shard.slots == W.MOE_SLOTS // W.R
+    np.testing.assert_allclose(np.stack(runs[0]["logits"]),
+                               ref["moe/logits"], atol=F32_TOL, rtol=0)
+    assert np.array_equal(np.array(runs[0]["tokens"]), ref["moe/tokens"])
+    assert len(drops) > 0 and sum(drops) > 0, drops   # decode dropped
+    for r, run in enumerate(runs[1:], 1):
+        assert run["tokens"] == runs[0]["tokens"], r
+        for a, b in zip(run["logits"], runs[0]["logits"]):
+            assert np.array_equal(a, b), r
 
 
 @pytest.mark.parametrize("slots,impl", CASES)

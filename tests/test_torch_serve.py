@@ -1,6 +1,7 @@
 """The port's serving slice against the reference on reduced llama3.2-3b
 with bridged weights: the forward, the prefill KV rows, decode-vs-forward
-consistency, and the continuously batched engine."""
+consistency, and the continuously batched engine, also for reduced
+Mistral-8x7B (MoE)."""
 import dataclasses
 
 import jax
@@ -166,6 +167,70 @@ def test_engine_pool_parity_with_jax(bridged, rt1, dtype):
             np.testing.assert_allclose(g_rows[:n], w_rows[:n],
                                        atol=BF16_TOL, rtol=BF16_TOL)
     assert sorted(rec["rid"] for rec in eng.records) == sorted(rids)
+
+
+def test_engine_runs_on_after_a_request_fills_its_context(bridged, rt1):
+    """A request that stops at ``max_context`` leaves its slot at a
+    position past the slab; the next decode waves feed that free slot
+    there, and its write wraps round the slab as the reference's
+    ``pos % seq_len`` does (it once indexed past the slab and raised),
+    while the other request decodes on: the reference engine's tokens,
+    logits within 1e-4."""
+    jcfg, jp, cfg, tp = bridged["float32"]
+    from repro.serve import ServeConfig as JConfig, ServeEngine as JEngine
+    pool = [(np.arange(10) + 1, 20), (np.arange(3) + 1, 12)]
+    outs = []
+    for eng in (JEngine(jp, jcfg, rt1, JConfig(
+            max_slots=2, max_context=16, prefill_capacity=16,
+            collect_logits=True)),
+                ServeEngine(tp, cfg, Runtime(device="cpu"), ServeConfig(
+                    max_slots=2, max_context=16, prefill_capacity=16,
+                    collect_logits=True))):
+        rids = [eng.submit(p, m) for p, m in pool]
+        eng.drain(max_steps=100)
+        outs.append([eng.pool.get(r) for r in rids])
+    assert [len(r.generated) for r in outs[1]] == [7, 12]
+    for got, want in zip(outs[1], outs[0]):
+        assert got.error is None and got.generated == want.generated
+        np.testing.assert_allclose(np.stack(got.logits),
+                                   np.stack(want.logits), atol=F32_TOL,
+                                   rtol=0)
+
+
+MOE_POOL = [(9, 5), (17, 4), (5, 6), (30, 3), (12, 5), (3, 7)]
+
+
+def test_moe_engine_pool_parity_with_jax(rt1):
+    """Reduced Mistral-8x7B in float32, 6 requests on 4 slots (a second
+    admission round, free slots fed their last tokens): each prefill
+    wave routes as one group, each decode step the whole slab; the
+    greedy tokens identical and the logits within 1e-4 of the reference
+    engine's."""
+    arch = "mistral-8x7b"
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg, rt1)
+    tp = bridge.params_from_flat(_flatten(jp), cfg, "cpu")
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n, _ in MOE_POOL]
+    from repro.serve import ServeConfig as JConfig, ServeEngine as JEngine
+    jeng = JEngine(jp, jcfg, rt1, JConfig(max_slots=4, max_context=64,
+                                          prefill_capacity=64,
+                                          collect_logits=True))
+    jrids = [jeng.submit(p, m) for p, (_, m) in zip(prompts, MOE_POOL)]
+    jeng.drain(max_steps=200)
+    eng = ServeEngine(tp, cfg, Runtime(device="cpu"), ServeConfig(
+        max_slots=4, max_context=64, prefill_capacity=64,
+        collect_logits=True))
+    rids = [eng.submit(p, m) for p, (_, m) in zip(prompts, MOE_POOL)]
+    eng.drain(max_steps=200)
+    assert eng.stats["prefill_waves"] == jeng.stats["prefill_waves"] >= 2
+    for rid, jrid in zip(rids, jrids):
+        got, want = eng.pool.get(rid), jeng.pool.get(jrid)
+        assert got.generated == want.generated
+        np.testing.assert_allclose(np.stack(got.logits),
+                                   np.stack(want.logits), atol=F32_TOL,
+                                   rtol=0)
 
 
 def _reference_rows(params, cfg, rt, req):

@@ -1,7 +1,8 @@
 """The port's training slice against the reference on reduced llama3.2-3b
 with bridged weights: the token-level loss, wave-accumulated gradients,
 one AdamW apply and the guarded skip, and a 3-step loss / grad-norm
-history against the reference's `Trainer` on identical plans."""
+history against the reference's `Trainer` on identical plans, for
+reduced llama3.2-3b and reduced Mistral-8x7B (MoE)."""
 import dataclasses
 
 import jax
@@ -36,13 +37,14 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
 
 ARCH = "llama3.2-3b"
+MOE_ARCH = "mistral-8x7b"
 F32_TOL = 1e-4
 DIST = ("tiny", 4.5, 0.8, 0.1, 1.5, 256)      # tests/test_system.py
 
 
-def _cfgs():
-    return (dataclasses.replace(jax_config(ARCH).reduced(), dtype="float32"),
-            dataclasses.replace(get_config(ARCH).reduced(), dtype="float32"))
+def _cfgs(arch=ARCH):
+    return (dataclasses.replace(jax_config(arch).reduced(), dtype="float32"),
+            dataclasses.replace(get_config(arch).reduced(), dtype="float32"))
 
 
 def _to_port(tree, cfg):
@@ -243,9 +245,10 @@ def _record_plans(sched, fingerprint, out):
     sched.plan_step = wrapped
 
 
-@pytest.fixture(scope="module")
-def jax_history(rt1):
-    jcfg, _ = _cfgs()
+def _jax_history(rt1, arch):
+    """The reference's `Trainer`, 3 steps -> (initial params, history,
+    plan fingerprints, [(params after the step, its wave losses)])."""
+    jcfg, _ = _cfgs(arch)
     ds = JDataset(JDist(*DIST), jcfg.vocab_size, tokens_per_step=1024,
                   context=512)
     sched = JScheduler(ds, jcfg, capacity=256, hdp=1, use_offload=False)
@@ -255,15 +258,38 @@ def jax_history(rt1):
                   sched, JTrainerConfig(capacity=256, attn_impl="ref",
                                         calibrate=False))
     p0 = _flatten(tr.params)
-    hist = [tr.train_step() for _ in range(3)]
+    waves = []
+    observe = tr.numerics.observe_wave
+
+    def observe_wave(step, i, loss):
+        waves.append(float(loss))
+        return observe(step, i, loss)
+    tr.numerics.observe_wave = observe_wave
+    hist, after = [], []
+    for _ in range(3):
+        hist.append(tr.train_step())
+        after.append((_flatten(tr.params), list(waves)))
+        waves.clear()
     sched.stop()
-    return p0, hist, plans
+    return p0, hist, plans, after
 
 
-@pytest.mark.parametrize("impl", ["flash", "ref"])
-def test_three_steps_match_jax_trainer(jax_history, impl):
-    p0, jhist, jplans = jax_history
-    _, cfg = _cfgs()
+@pytest.fixture(scope="module")
+def jax_history(rt1):
+    return _jax_history(rt1, ARCH)
+
+
+@pytest.fixture(scope="module")
+def jax_moe_history(rt1):
+    return _jax_history(rt1, MOE_ARCH)
+
+
+def _port_history(history, impl, arch=ARCH):
+    """The port's `Trainer` from the reference's initial params on the
+    same data, held to the reference's 3-step history -> (the trainer,
+    [(params after each step, its wave losses)])."""
+    p0, jhist, jplans, _ = history
+    _, cfg = _cfgs(arch)
     ds = SyntheticDataset(LengthDistribution(*DIST), cfg.vocab_size,
                           tokens_per_step=1024, context=512)
     sched = GlobalScheduler(ds, cfg, capacity=256, hdp=1, use_offload=False)
@@ -273,7 +299,11 @@ def test_three_steps_match_jax_trainer(jax_history, impl):
                  adamw.AdamWConfig(lr=1e-3, total_steps=8), sched,
                  TrainerConfig(capacity=256, calibrate=False),
                  params=bridge.params_from_flat(p0, cfg, "cpu"))
-    hist = [tr.train_step() for _ in range(3)]
+    hist, after = [], []
+    for _ in range(3):
+        hist.append(tr.train_step())
+        after.append((bridge.params_to_flat(tr.params),
+                      list(tr.last_numerics["wave_losses"])))
     sched.stop()
     assert plans == jplans and len(set(plans)) == 3
     for got, want in zip(hist, jhist):
@@ -283,6 +313,35 @@ def test_three_steps_match_jax_trainer(jax_history, impl):
                                    rtol=F32_TOL)
     assert tr.last_numerics["applied"] == 1
     assert all(np.isfinite(tr.last_numerics["wave_losses"]))
+    return tr, after
+
+
+@pytest.mark.parametrize("impl", ["flash", "ref"])
+def test_three_steps_match_jax_trainer(jax_history, impl):
+    _port_history(jax_history, impl)
+
+
+@pytest.mark.parametrize("impl", ["flash", "ref"])
+def test_moe_three_steps_match_jax_trainer(jax_moe_history, impl):
+    """Reduced Mistral-8x7B: each wave's rows route as one group, padding
+    rows included, in the forward and again in each period's recompute;
+    the same plans, per-wave and step losses and grad norms, and every
+    step's update within 1e-3 relative L2 per leaf
+    (`tests/test_torch_hdp_train.py`'s hold), the router float32
+    throughout."""
+    tr, after = _port_history(jax_moe_history, impl, MOE_ARCH)
+    assert tr.params["blocks"][0]["moe"]["router"].dtype == torch.float32
+    before = jax_moe_history[0]
+    for (got, got_w), (want, want_w) in zip(after, jax_moe_history[3]):
+        np.testing.assert_allclose(got_w, want_w, rtol=F32_TOL)
+        assert sorted(got) == sorted(want)
+        assert any(key.endswith("moe/router") for key in got)
+        for key in want:
+            upd = want[key] - before[key]
+            rel = np.linalg.norm(got[key] - before[key] - upd) \
+                / np.linalg.norm(upd)
+            assert rel <= 1e-3, (key, rel)
+        before = want
 
 
 def test_entry_points_refuse_a_missing_gpu_and_unported_settings(tmp_path):
