@@ -184,11 +184,36 @@ Phases (any failure raises and exits non-zero before the result line):
    loss within 1e-2, every gradient leaf within 5e-2 relative L2, with
    the share of (token, k) pairs the float32 route's own routing sends to
    another expert printed.
-12. report — one JSON line of every kernel (launches on the paths that
+12. pipeline — pipeline parallelism (`parallel/pipeline.py`): the
+   port's pipelined `Trainer` at 2 stages x hdp 2, llama3.2-3b at full
+   width cut to 4 layers (2 a stage; seed 0), phase 7's data planned by
+   PP-Balance (``mode="pp"``, ``num_stages=2``), rounds of at most 2
+   waves (which bounds the logits the last stage keeps), 2 steps, the
+   bytes ledger on.  Four processes share the card as in phase 7, a gloo
+   world split by `parallel/comm.py::stage_grid` into two HDP groups and
+   two stage groups of `HostStagedComm`.  Before each apply world rank 0
+   gathers stage 1's window and runs the hdp = 1 route over the step's
+   global waves from the whole tree: each round's loss within 1e-3
+   relative of the sum of its waves' hdp = 1 losses, the grad norm within
+   1e-2.  Exact launches per rank: per wave, the stage's layers x (1 +
+   the live visiting blocks of its HDP position) carry launches in the
+   forward and again in the recompute, as many dq and dkv, one CE each
+   way on the last stage and none on stage 0.  Every round's measured
+   ``pp`` and ring bytes exactly `obs/ledger.py::port_round_bytes`;
+   within a stage the ranks' parameters bit-identical, and the
+   replicated leaves (embed, final norm) bit-identical across the stages
+   after every apply; applied == 1.  Prints ms per round by stage, the
+   measured bubble share (1 - the stages' compute over ranks x the
+   slowest rank's round wall, warm rounds) beside the analytic one
+   (`pipeline_schedule_stats`), the ``pp`` bytes against the port's
+   formula and the reference's prediction, and peaks by stage.  The four
+   processes share one card, so the stages' compute overlaps on it and
+   the measured bubble is not that of four cards.
+13. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
-   engine's, the checkpoint phase's and the MoE phase's; errors, times,
-   bounds), then the result line.
+   engine's, the checkpoint phase's, the MoE phase's and the pipelined
+   trainer's; errors, times, bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -215,6 +240,7 @@ TOL = 2e-2                      # bf16, tests/test_kernels.py
 SERVE_TOL = 0.08                # tests/test_serve.py
 TRAIN_LOSS_TOL = 1e-2           # 2-layer kernel route vs float32 plain
 TRAIN_GRAD_TOL = 5e-2           # per gradient leaf, relative L2
+PP_LOSS_TOL = 1e-3              # phase 12's round losses against hdp = 1
 APPLY_TOL = 1e-6                # ZeRO-1 vs unsharded apply: fp32 state; a
                                 # bf16 parameter within one ulp, or this
                                 # much where one ulp is finer (the masters'
@@ -1156,25 +1182,27 @@ def set_counts(counts: dict) -> None:
         w.launches = counts[name]
 
 
-def hdp_reference(torch, tr, plan, step):
+def hdp_reference(torch, tr, plan, step, params=None):
     """The hdp = 1 route (one rank, composition (1,), the same kernels)
-    over every global wave of ``plan`` from the trainer's current
-    parameters -> (wave losses, fp32 gradient sum, grad norm).  Its
-    launches are not the path's: the counts are put back."""
+    over every global wave of ``plan`` from ``params`` (default: the
+    trainer's current parameters) -> (wave losses, fp32 gradient sum,
+    grad norm).  Its launches are not the path's: the counts are put
+    back."""
+    params = tr.params if params is None else params
     from repro_torch.optim.adamw import global_norm
     from repro_torch.parallel.sharding import Runtime
     from repro_torch.train import train_step as TS
     saved = read_counts()
     rt1 = Runtime(device=DEVICE)
     grad_step, _ = TS.make_accum_steps(tr.cfg, rt1, tr.opt_cfg)
-    acc = TS.zeros_accum(tr.params)
+    acc = TS.zeros_accum(params)
     losses = []
     for wave in plan.waves:
         lw = tr.loader.materialize(step, wave)
         batch = {k: torch.tensor(v, device=DEVICE)
                  for k, v in lw.batch.items()}
         batch["denom"] = torch.tensor(float(plan.denom), device=DEVICE)
-        acc, m = grad_step(tr.params, acc, batch, rt1)
+        acc, m = grad_step(params, acc, batch, rt1)
         losses.append(m["loss"].item())
     gnorm = global_norm(acc).item()
     set_counts(saved)
@@ -2798,16 +2826,344 @@ def phase_moe(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 12. report
+# 12. pipeline
+# ---------------------------------------------------------------------------
+
+PP_LAYERS = 4                   # llama3.2-3b's width, 2 periods a stage
+PP_STAGES, PP_HDP = 2, 2        # 4 processes on the one card
+PP_STEPS = 2
+PP_ROUND_WAVES = 2              # bounds the last stage's kept logits
+
+
+def pp_rank(rank: int, store: str):
+    """One rank of phase 12, a process of its own on the one card (world
+    rank 0 is this script's process): a gloo world of 4 through
+    `HostStagedComm`, split into 2 stages x hdp 2 by `stage_grid`.
+    Returns world rank 0's results."""
+    import datetime
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import HostStagedComm, stage_grid
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}",
+        world_size=PP_STAGES * PP_HDP, rank=rank,
+        timeout=datetime.timedelta(seconds=HDP_TIMEOUT_S))
+    try:
+        return pp_train_rank(torch, *stage_grid(PP_STAGES, PP_HDP,
+                                                HostStagedComm))
+    finally:
+        dist.destroy_process_group()
+
+
+def world_gather(torch, comm, stage_comm, x):
+    """Every rank's ``x`` -> [world, ...] in world order (s·hdp + h)."""
+    for c in (comm, stage_comm):
+        x = c.all_gather(x)
+    return x.reshape(-1, *x.shape[2:])
+
+
+def pp_want_launches(tr, step_plans) -> dict:
+    """What each world rank must launch over ``step_plans`` ((step, plan,
+    rounds) triples): per wave on stage s, its layers x (1 + the live
+    visiting blocks of its HDP position) carry launches in the forward and
+    as many in the remat recompute, as many dq and dkv; one CE each way
+    on the last stage only."""
+    from repro_torch.launch import ring_check as RC
+    layers = tr.cfg.num_layers // PP_STAGES
+    want = {n: [0] * (PP_STAGES * PP_HDP) for n, *_ in KERNELS}
+    for step, plan in step_plans:
+        for wave in plan.waves:
+            lw = tr.loader.materialize(step, wave)
+            live = RC.expected_launches(
+                tuple(wave.composition), lw.batch["seg"], lw.batch["pos"],
+                c=RC.RING_CAP * wave.c_mult)
+            for s in range(PP_STAGES):
+                last = s == PP_STAGES - 1
+                for h in range(PP_HDP):
+                    n = layers * live[h]
+                    for name, add in (("flash_fwd_carry", 2 * n),
+                                      ("flash_bwd_dq", n),
+                                      ("flash_bwd_dkv", n),
+                                      ("fused_ce_fwd", int(last)),
+                                      ("fused_ce_bwd", int(last))):
+                        want[name][s * PP_HDP + h] += add
+    return want
+
+
+def pp_train_rank(torch, comm, stage_comm):
+    """Phase 12 on one rank: the port's pipelined `Trainer` at 2 stages x
+    hdp 2, `PP_STEPS` steps with the bytes ledger on; before each apply
+    world rank 0 gathers stage 1's window and runs the hdp = 1 route over
+    the step's global waves from the whole tree (`hdp_reference`).
+    Returns world rank 0's numbers (None elsewhere)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    from repro_torch.launch import ring_check as RC
+    from repro_torch.obs import ledger
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.parallel.zero1 import stage_owned
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, tree_map
+
+    world = comm.rank + PP_HDP * stage_comm.rank
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=PP_LAYERS)
+    ds = SyntheticDataset("github", cfg.vocab_size,
+                          tokens_per_step=HDP_TOKENS, context=HDP_CONTEXT)
+    sched = GlobalScheduler(ds, cfg, capacity=RC.RING_CAP, hdp=PP_HDP,
+                            strategy="balance", use_offload=False,
+                            mode="pp", num_stages=PP_STAGES)
+    plans = []
+    plan_step = sched.plan_step
+
+    def recorded(step):
+        plans.append(plan_step(step))
+        return plans[-1]
+    sched.plan_step = recorded
+    opt = AdamWConfig(lr=3e-4, warmup_steps=0)
+    ledger.set_ledger_enabled(True)
+    tr = Trainer(cfg, Runtime(device=DEVICE, comm=comm,
+                              stage_comm=stage_comm), opt, sched,
+                 TrainerConfig(capacity=RC.RING_CAP, calibrate=False,
+                               mode="pp", max_round_waves=PP_ROUND_WAVES),
+                 seed=0)
+    owned = stage_owned(tr.params)
+    ref = {"wave_losses": [], "grad_norm": []}
+
+    def whole_tree():
+        """Stage 1's window gathered to stage 0 (HDP position 0 only):
+        the global tree at world rank 0."""
+        if comm.rank != 0:
+            return None
+        got = []
+        for p, o in zip(leaves(tr.params), owned):
+            if not o:
+                got.append(p)
+                continue
+            both = torch.empty((PP_STAGES, *p.shape), dtype=p.dtype,
+                               device=p.device)
+            stage_comm.all_gather_into(both.view(-1),
+                                       p.contiguous().view(-1))
+            got.append(both.flatten(0, 1))
+        it = iter(got)
+        return tree_map(lambda _: next(it), tr.params)
+
+    plain_apply = tr.apply_step
+
+    def apply_step(params, state, acc):
+        full = whole_tree()
+        if world == 0:
+            losses, ref_acc, gnorm = hdp_reference(torch, tr, plans[-1],
+                                                   tr.step, params=full)
+            ref["wave_losses"].append(losses)
+            ref["grad_norm"].append(gnorm)
+            del ref_acc
+        del full
+        torch.cuda.empty_cache()
+        return plain_apply(params, state, acc)
+    tr.apply_step = apply_step
+
+    def same_as(c) -> float:
+        """Are this rank's (for the stage group: replicated) leaves
+        bit-equal to those of rank 0 of group ``c``?"""
+        same = True
+        for p, o in zip(leaves(tr.params), owned):
+            if c is stage_comm and o:
+                continue
+            b = p.clone()
+            c.broadcast(b)
+            same &= torch.equal(b, p)
+        return float(same)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    recs, rounds, round_losses, round_s, busy_s = [], [], [], [], []
+    same_stage, same_across, applied = [], [], []
+    try:
+        for _ in range(PP_STEPS):
+            recs.append(tr.train_step())
+            nu = tr.last_numerics
+            rounds.append(nu["rounds"])
+            round_losses.append(nu["round_losses"])
+            round_s += nu["round_seconds"]
+            busy_s += nu["round_busy_s"]
+            applied.append(nu["applied"])
+            same_stage.append(same_as(comm))
+            same_across.append(same_as(stage_comm))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        recs_led = tr.ledger.recent(1024)
+        names = [n for n, *_ in KERNELS]
+        mine = [counts[n] for n in names] + [
+            torch.cuda.max_memory_allocated() / 1e9] + \
+            [r["wall_s"] for r in recs] + round_s + busy_s + same_stage \
+            + same_across + applied
+        got = world_gather(torch, comm, stage_comm, torch.tensor(
+            mine, dtype=torch.float64, device=DEVICE)).cpu().numpy()
+    finally:
+        ledger.set_ledger_enabled(False)
+        sched.stop()
+    if world != 0:
+        return None
+    import numpy as np
+    k, n_steps, n_rounds = len(names), PP_STEPS, len(round_s)
+    col = k + 1 + n_steps
+    # one ledger record a round, in order
+    keys = [(tuple(r["comp"]), r["c_mult"], r["n_waves"]) for r in recs_led]
+    fresh = [bool(r["fresh"]) for r in recs_led]
+    secs = got[:, col:col + n_rounds]
+    busy = got[:, col + n_rounds:col + 2 * n_rounds]
+    warm = ~np.array(fresh)
+    wall = secs[:, warm].max(axis=0)
+
+    def by_stage(a):
+        return [a[s * PP_HDP:(s + 1) * PP_HDP] for s in range(PP_STAGES)]
+    ref_round_losses = [[float(np.sum([ref["wave_losses"][st][j]
+                                       for j in ids])) for ids in rs]
+                        for st, rs in enumerate(rounds)]
+    c = RC.RING_CAP
+    return {
+        "model": f"{cfg.name}, {cfg.num_layers} layers, "
+                 f"{PP_STAGES} stages x hdp {PP_HDP}",
+        "compositions": [[list(w.composition) + [w.c_mult]
+                          for w in plan.waves] for plan in plans],
+        "rounds": rounds,
+        "round_losses": round_losses,
+        "ref_round_losses": ref_round_losses,
+        "grad_norms": [r["grad_norm"] for r in recs],
+        "ref_grad_norms": ref["grad_norm"],
+        "bubble_analytic_by_step": [r["bubble_frac_pipeline"]
+                                    for r in recs],
+        "bubble_measured": 1.0 - float(busy[:, warm].sum())
+        / (PP_STAGES * PP_HDP * float(wall.sum())) if warm.any() else None,
+        "bubble_measured_by_stage": [
+            1.0 - float(b[:, warm].sum()) / (PP_HDP * float(wall.sum()))
+            for b in by_stage(busy)] if warm.any() else None,
+        "ms_per_round_by_stage": [(a.max(axis=0) * 1e3).tolist()
+                                  for a in by_stage(secs)],
+        "round_fresh": fresh,
+        "step_wall_s_per_rank": got[:, k + 1:col].tolist(),
+        "peak_mem_gb_by_stage": [a.tolist() for a in
+                                 by_stage(got[:, k])],
+        "ledger_pp_pred": [r["pred"]["pp"] for r in recs_led],
+        "ledger_pp_meas": [r["meas"]["pp"] for r in recs_led],
+        "ledger_ring_meas": [r["meas"]["ring"] for r in recs_led],
+        "port_formula": [ledger.port_round_bytes(
+            cfg, comp, n, PP_STAGES, c * c_mult, PP_HDP)
+            for comp, c_mult, n in keys],
+        "launches_per_rank": {n: got[:, i].astype(int).tolist()
+                              for i, n in enumerate(names)},
+        "want_launches_per_rank": pp_want_launches(tr, enumerate(plans)),
+        "params_same_within_stage":
+        got[:, col + 2 * n_rounds:col + 2 * n_rounds + n_steps].tolist(),
+        "replicated_same_across_stages":
+        got[:, col + 2 * n_rounds + n_steps:
+            col + 2 * n_rounds + 2 * n_steps].tolist(),
+        "applied": got[:, col + 2 * n_rounds + 2 * n_steps:].tolist()}
+
+
+def pp_gates(res) -> list:
+    """Phase 12's gates on world rank 0's numbers -> what failed."""
+    import numpy as np
+    fails = []
+    for step in range(PP_STEPS):
+        got, want = res["round_losses"][step], res["ref_round_losses"][step]
+        if not (len(got) == len(want) and np.all(np.isfinite(got))
+                and np.all(np.abs(np.subtract(got, want))
+                           <= PP_LOSS_TOL * np.abs(want))):
+            fails.append(f"step {step} round losses {got} vs hdp=1 {want}")
+        g, w = res["grad_norms"][step], res["ref_grad_norms"][step]
+        if not abs(g - w) <= TRAIN_LOSS_TOL * abs(w):
+            fails.append(f"step {step} grad norm {g} vs hdp=1 {w}")
+    if not any(len(r) > 1 for rs in res["rounds"] for r in rs):
+        fails.append("no round of more than one wave")
+    for name, want in res["want_launches_per_rank"].items():
+        if res["launches_per_rank"][name] != want:
+            fails.append(f"{name} launches per rank "
+                         f"{res['launches_per_rank'][name]}, want {want}")
+    if any(res["launches_per_rank"][n][h] for n in ("fused_ce_fwd",
+                                                     "fused_ce_bwd")
+           for h in range(PP_HDP)):
+        fails.append("stage 0 launched a cross-entropy kernel")
+    for got, want in zip(res["ledger_pp_meas"], res["port_formula"]):
+        if got != want["pp"]:
+            fails.append(f"measured pp bytes {got}, formula {want['pp']}")
+    for got, want in zip(res["ledger_ring_meas"], res["port_formula"]):
+        if got != want["ring"]:
+            fails.append(f"measured ring bytes {got}, formula "
+                         f"{want['ring']}")
+    for key in ("params_same_within_stage", "replicated_same_across_stages",
+                "applied"):
+        if np.any(np.asarray(res[key]) != 1):
+            fails.append(f"{key} {res[key]}")
+    return fails
+
+
+def phase_pipeline(torch, card):
+    """Phase 12: 4 processes share the card, world rank 0 this one.  ->
+    its launches, summed over the ranks."""
+    import tempfile
+    mp = torch.multiprocessing.get_context("spawn")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        store = str(Path(tmp) / "store")
+        procs = [mp.Process(target=pp_rank, args=(r, store), daemon=True)
+                 for r in range(1, PP_STAGES * PP_HDP)]
+        for pr in procs:
+            pr.start()
+        try:
+            res = pp_rank(0, store)
+            for pr in procs:
+                pr.join(HDP_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+        codes = [pr.exitcode for pr in procs]
+        if codes != [0] * len(procs):
+            raise AssertionError(f"phase 12 rank exit codes {codes}")
+    wall = time.perf_counter() - t0
+    shown = ("ms_per_round_by_stage", "bubble_measured",
+             "bubble_measured_by_stage", "bubble_analytic_by_step",
+             "peak_mem_gb_by_stage")
+    log(f"[pipeline] {card}: 4 rank processes share this card (gloo "
+        f"through host memory), so the stages' compute overlaps on one "
+        f"device and the bubble shares below are not those of 4 cards. "
+        f"{json.dumps({k: res[k] for k in shown})} phase wall {wall:.1f} s")
+    log(f"[pipeline] pp bytes a round: measured "
+        f"{res['ledger_pp_meas']}, the port's formula "
+        f"{[f['pp'] for f in res['port_formula']]}, the reference's "
+        f"prediction {res['ledger_pp_pred']}")
+    log(f"[pipeline] {json.dumps(res)}")
+    fails = pp_gates(res)
+    if fails:
+        raise AssertionError("phase 12: " + "; ".join(fails))
+    return {name: int(sum(v)) for name, v in
+            res["launches_per_rank"].items()}
+
+
+# ---------------------------------------------------------------------------
+# 13. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
                  hdp_launches, offload_launches, hdp_serve_launches,
-                 ckpt_launches, moe_launches):
+                 ckpt_launches, moe_launches, pp_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
     its ranks), the offloading trainer's, the hdp = 4 engine's (summed
-    over its ranks), the checkpoint phase's and the MoE phase's."""
+    over its ranks), the checkpoint phase's, the MoE phase's and the
+    pipelined trainer's (summed over its ranks)."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -2821,7 +3177,7 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             "launches": launches[name] + ring_launches[name]
             + hdp_launches[name] + offload_launches[name]
             + hdp_serve_launches[name] + ckpt_launches[name]
-            + moe_launches[name],
+            + moe_launches[name] + pp_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -2861,10 +3217,12 @@ def main() -> int:
     log(f"[ckpt] done at {time.perf_counter() - t0:.1f} s")
     moe_launches = phase_moe(torch, card)
     log(f"[moe] done at {time.perf_counter() - t0:.1f} s")
+    pp_launches = phase_pipeline(torch, card)
+    log(f"[pipeline] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
                                 offload_launches, hdp_serve_launches,
-                                ckpt_launches, moe_launches)))
+                                ckpt_launches, moe_launches, pp_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,7 @@ import torch
 from repro_torch.ckpt.checkpoint import flatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import stage_periods
 from repro_torch.parallel.sharding import resolve_device
 
 # leaves kept in float32 whatever the model dtype (norm scales, the MoE
@@ -43,15 +44,20 @@ def _listify(node, name=None):
 
 
 def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-                     device=None) -> dict:
+                     device=None, stage=(0, 1)) -> dict:
     """Flat {key: array} -> the port's parameter tree on ``device``
-    (default ``cuda``)."""
+    (default ``cuda``).  ``stage = (s, S)``: pipeline stage s of S takes
+    its window of every stacked ``blocks`` leaf
+    (`models/transformer.py::stage_periods`) and the other leaves whole."""
     device = resolve_device(device)
     dtype = L.activation_dtype(cfg)
     tree: dict = {"head_blocks": {}}
     for key, arr in flat.items():
         path = key.split("/")
         leaf_dtype = torch.float32 if path[-1] in _FP32_LEAVES else dtype
+        if path[0] == "blocks":
+            window = stage_periods(arr.shape[0], stage)
+            arr = arr[window.start:window.stop]
         t = torch.tensor(np.asarray(arr, np.float32))
         _insert(tree, path, t.to(device=device, dtype=leaf_dtype))
     return _listify(tree)

@@ -17,7 +17,12 @@ verify the sha256 and fall back to the newest checkpoint that passes it
 ZeRO-1 state is written whole: the Trainer gathers each rank's shards to
 rank 0 before ``save`` (`parallel/zero1.py::gather_to_host`), and
 ``restore(..., comm=)`` gives each rank its `zero1_dim` slice of every
-optimiser leaf, so a checkpoint restores at any HDP size.
+optimiser leaf, so a checkpoint restores at any HDP size.  Under
+pipeline parallelism the Trainer also gathers every stage's window of the
+stacked blocks to world rank 0, so the file keeps the single global
+layout, and ``restore(..., stage=(s, S))`` slices stage s's window of a
+stacked leaf before its ZeRO-1 shard (which skips the stage's dim 0):
+a checkpoint restores at any stage count too.
 
 Where the reference holds whole files and trees in memory, here the
 sha256 is read in chunks, and ``restore`` reads one leaf at a time and
@@ -37,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import stage_periods
 from repro_torch.parallel.zero1 import shard, shard_shape, zero1_dim
 
 _HASH_CHUNK = 1 << 24       # bytes read per sha256 update
@@ -214,29 +220,34 @@ class CheckpointManager:
         manifest = self._verified_manifest(step)
         return None if manifest is None else manifest["data_state"]
 
-    def restore_latest(self, params_like, opt_like, comm=None):
+    def restore_latest(self, params_like, opt_like, comm=None,
+                       stage=(0, 1)):
         """Restore the newest checkpoint that passes integrity, skipping
         (and printing) damaged ones.  Returns ``(step, params, opt_state,
         data_state)`` or None when no valid checkpoint exists."""
         for s in sorted(self.steps(), reverse=True):
             try:
                 params, opt, ds = self.restore(s, params_like, opt_like,
-                                               comm)
+                                               comm, stage)
             except (OSError, KeyError, ValueError) as e:
                 print(f"checkpoint step {s} skipped: {e}", flush=True)
                 continue
             return s, params, opt, ds
         return None
 
-    def restore(self, step: int, params_like, opt_like, comm=None):
+    def restore(self, step: int, params_like, opt_like, comm=None,
+                stage=(0, 1)):
         """-> (params, opt_state, data_state): the ``like`` trees, their
         leaves overwritten in place with the file's (each keeps its dtype
         and device).  With ``comm`` (the HDP ranks) an optimiser leaf
         that `zero1_dim` shards over ``comm.size`` receives this rank's
         shard, the dimension taken from the parameter's full shape.
-        Raises IOError when the sha256 fails, KeyError or ValueError when
-        a key is missing or a shape differs, before any leaf is
-        written."""
+        ``stage = (s, S)``: the ``like`` trees hold pipeline stage s's
+        window of every stacked ``blocks`` leaf, which receives those rows
+        of the file's global leaf (and at S > 1 its ZeRO-1 shard skips
+        dim 0).  Raises IOError when the sha256 fails, KeyError or
+        ValueError when a key is missing or a shape differs, before any
+        leaf is written."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -244,29 +255,48 @@ class CheckpointManager:
         if sha256_file(npz_path) != manifest["sha256"]:
             raise IOError(f"checkpoint step {step}: integrity check failed")
         hdp, rank = (1, 0) if comm is None else (comm.size, comm.rank)
+        num = stage[1]
         params = dict(named_leaves(params_like))
-        plan = []      # (file key, like leaf, the file's shape, shard dim)
-        for key, leaf in params.items():
-            plan.append(("params/" + key, leaf, tuple(leaf.shape), None))
+
+        def shapes(key):
+            """A params key -> (its file shape, its stage window's rows or
+            None)."""
+            local = tuple(params[key].shape)
+            if key.split("/")[0] != "blocks":
+                return local, None
+            full = (local[0] * num,) + local[1:]
+            return full, stage_periods(full[0], stage)
+
+        # (file key, like leaf, the file's shape, window rows, shard dim)
+        plan = [("params/" + key, leaf, *shapes(key), None)
+                for key, leaf in params.items()]
         for key, leaf in named_leaves(opt_like):
             top, _, rest = key.partition("/")
             if top in _STATE_KEYS:
-                full = tuple(params[rest].shape)
-                plan.append(("opt/" + key, leaf, full, zero1_dim(full, hdp)))
+                full, rows = shapes(rest)
+                dim = zero1_dim(tuple(params[rest].shape), hdp,
+                                (0,) if rows is not None and num > 1
+                                else ())
+                plan.append(("opt/" + key, leaf, full, rows, dim))
             else:
-                plan.append(("opt/" + key, leaf, tuple(leaf.shape), None))
+                plan.append(("opt/" + key, leaf, tuple(leaf.shape), None,
+                             None))
         with np.load(npz_path) as arrays:
-            for key, leaf, full, dim in plan:
+            for key, leaf, full, rows, dim in plan:
                 if key not in arrays.files:
                     raise KeyError(f"checkpoint step {step}: no {key!r}")
-                mine = full if dim is None else shard_shape(full, dim, hdp)
+                mine = full if rows is None else (len(rows),) + full[1:]
+                if dim is not None:
+                    mine = shard_shape(mine, dim, hdp)
                 got = _npz_shape(arrays, key)
                 if got != full or tuple(leaf.shape) != mine:
                     raise ValueError(
                         f"checkpoint step {step}: {key} has shape {got} for "
                         f"a leaf of {tuple(leaf.shape)}, want {full}")
-            for key, leaf, _, dim in plan:      # one leaf at a time
+            for key, leaf, _, rows, dim in plan:   # one leaf at a time
                 x = torch.from_numpy(arrays[key])
+                if rows is not None:
+                    x = x[rows.start:rows.stop]
                 if dim is not None:
                     x = shard(x, dim, rank, hdp)
                 leaf.copy_(x)

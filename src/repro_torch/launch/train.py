@@ -3,9 +3,10 @@
     python -m repro_torch.launch.train --arch llama3.2-3b [--reduced] \\
         --steps N --capacity C --tokens-per-step N --context L \\
         --dataset D --strategy S --lr X --attn-impl {flash,ref} \\
-        [--offload] [--mesh NxM] [--ckpt-dir D] [--layers N] [--device cpu]
+        [--offload] [--mesh NxM] [--num-stages S] [--max-round-waves M] \\
+        [--ckpt-dir D] [--layers N] [--device cpu]
 
-Port of `repro/launch/train.py` (mode ``dp``, no PP).  Runs on ``cuda``
+Port of `repro/launch/train.py`.  Runs on ``cuda``
 unless ``--device cpu`` is given, and refuses to start without a GPU
 otherwise.  Prints one line per step, as the reference does.
 ``--offload`` (off by default, as the reference launcher runs) plans with
@@ -27,6 +28,19 @@ totals (predicted and measured ring and offload bytes, predicted and
 measured peak memory); the step it resumed at, the checkpoint's seconds
 (gather, snapshot, write, hash, restore) and bytes, and rank 0's peak
 host memory.  M > 1 (tensor parallelism) is not ported.
+
+``--num-stages S`` (the reference dry-run's flag; its launcher reads a
+three-number ``--mesh`` as pod × data × model and never builds a stage
+axis) trains with pipeline parallelism on S·N ranks: world rank s·N + h
+is stage s, HDP position h (`parallel/comm.py::stage_grid`), the plans
+are PP-Balance's (``mode="pp"``, ``num_stages=S``) and the waves run as
+rounds of at most ``--max-round-waves`` (0: no cap) through
+`parallel/pipeline.py`.  The JSON line then also holds, per stage:
+tokens/s, the slowest rank's ms a warm round, the measured bubble share
+1 − Σ busy / (ranks × wall) over the warm rounds (busy: the stage's
+compute between its transfers; wall: the slowest rank's round), the
+peaks, and beside them the analytic `pipeline_schedule_stats` bubble
+share of each step and the ledger's ``pp`` bytes.
 
 ``--layers N`` cuts the model's depth to N layers at its full width (a
 measurement aid, as ``chip_smoke.py`` cuts depth: Mistral-8x7B's 46.7 G
@@ -59,7 +73,7 @@ from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
 from repro_torch.obs import ledger
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.sharding import Runtime
-from repro_torch.parallel.zero1 import zero1_bytes
+from repro_torch.parallel.zero1 import stage_taken, zero1_bytes
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
 
@@ -96,25 +110,34 @@ def _mesh(text: str):
     return hdp
 
 
-def train(args, comm=None, say=print):
-    """Builds the trainer on ``comm``'s ranks (None: one) and runs
-    ``args.steps`` steps -> (trainer, every dispatched wave as
+def train(args, comm=None, say=print, stage_comm=None):
+    """Builds the trainer on ``comm``'s HDP ranks (None: one) and, under
+    PP, ``stage_comm``'s stages, and runs ``args.steps`` steps ->
+    (trainer, every dispatch (a wave, or under PP a round) as
     (composition, fresh, per-rank seconds, (c_mult, r, k)), this rank's
-    peak device memory in bytes (None on the CPU))."""
-    rt = Runtime(device=args.device, attn_impl=args.attn_impl, comm=comm)
+    peak device memory in bytes (None on the CPU), (this rank's step
+    walls, under PP its (seconds, busy seconds, fresh) of every round))."""
+    rt = Runtime(device=args.device, attn_impl=args.attn_impl, comm=comm,
+                 stage_comm=stage_comm)
     cfg, ds = _resolve_config(args)
+    stages = rt.num_stages
     sched = GlobalScheduler(ds, cfg, capacity=args.capacity,
                             hdp=rt.hdp_size, strategy=args.strategy,
-                            use_offload=args.offload)
-    waves, step_waves = [], []
+                            use_offload=args.offload,
+                            mode="pp" if stages > 1 else "dp",
+                            num_stages=stages)
+    waves, step_waves, rounds = [], [], []
     was_on = ledger.ledger_enabled()
     ledger.set_ledger_enabled(True)
     try:
         trainer = Trainer(cfg, rt, AdamWConfig(lr=args.lr,
                                                total_steps=args.steps),
-                          sched, TrainerConfig(capacity=args.capacity,
-                                               use_offload=args.offload,
-                                               ckpt_dir=args.ckpt_dir))
+                          sched, TrainerConfig(
+                              capacity=args.capacity,
+                              use_offload=args.offload,
+                              ckpt_dir=args.ckpt_dir,
+                              mode="pp" if stages > 1 else "dp",
+                              max_round_waves=args.max_round_waves))
         if args.ckpt_dir and trainer.resume_if_possible():
             say(f"resumed at step {trainer.step}", flush=True)
         if args.steps <= trainer.step:
@@ -123,15 +146,19 @@ def train(args, comm=None, say=print):
 
         def telemetry(ws, measured, fresh, wall_s=None):
             w = ws[0]
-            k = offload_periods(cfg, w.offload_ratio) \
-                if trainer.offload_ok else 0
+            r = max(x.offload_ratio for x in ws)
+            k = offload_periods(cfg, r, stages) if trainer.offload_ok else 0
             step_waves.append((str(tuple(w.composition)), fresh,
-                               (w.c_mult, w.offload_ratio, k)))
+                               (w.c_mult, r, k)))
         trainer.telemetry_fn = telemetry
         for rec in trainer.run(args.steps - trainer.step):
-            secs = trainer.last_numerics["wave_seconds"]
+            nu = trainer.last_numerics
             waves += [(comp, fresh, np.atleast_1d(s).tolist(), key)
-                      for (comp, fresh, key), s in zip(step_waves, secs)]
+                      for (comp, fresh, key), s in zip(step_waves,
+                                                       nu["wave_seconds"])]
+            if stages > 1:
+                rounds += [(s, b, fresh) for s, b, (_, fresh, _) in zip(
+                    nu["round_seconds"], nu["round_busy_s"], step_waves)]
             step_waves.clear()
             say(f"step {rec['step']:4d} loss {rec['loss']:.4f} "
                 f"waves {rec['waves']} wall {rec['wall_s']:.1f}s",
@@ -139,11 +166,46 @@ def train(args, comm=None, say=print):
     finally:
         sched.stop()      # the planner thread must not outlive the loop
         ledger.set_ledger_enabled(was_on)
-    return trainer, waves, trainer.peak.high_water()
+    return trainer, waves, trainer.peak.high_water(), \
+        ([r["wall_s"] for r in trainer.history], rounds)
 
 
-def summary(args, trainer, waves, peaks) -> dict:
-    """The run's JSON record (see the module docstring)."""
+def stage_summary(trainer, peaks, ranks) -> dict:
+    """The per-stage numbers of a pipelined run (module docstring) from
+    every rank's (its step walls, its ``(seconds, busy seconds, fresh)``
+    of each round) (``ranks``, world order) and peaks (GB, None on the
+    CPU).  Tokens/s counts the steps after the first (which builds the
+    kernels), over the stage's slowest rank's step walls."""
+    stages, hdp = trainer.rt.num_stages, trainer.rt.hdp_size
+    walls = np.array([w for w, _ in ranks])                   # [world, n]
+    secs = np.array([[s for s, _, _ in r] for _, r in ranks])
+    busy = np.array([[b for _, b, _ in r] for _, r in ranks])
+    warm = np.array([not f for _, _, f in ranks[0][1]])
+    wall = secs[:, warm].max(axis=0)          # the slowest rank's round
+    later = slice(1 if walls.shape[1] > 1 else 0, None)
+    tokens = sum(r["tokens"] for r in trainer.history[later])
+    out = {}
+    for s in range(stages):
+        rows = slice(s * hdp, (s + 1) * hdp)
+        out[str(s)] = {
+            "tokens_per_s": tokens
+            / float(walls[rows, later].max(axis=0).sum()),
+            "ms_per_warm_round": (secs[rows][:, warm].max(axis=0)
+                                  * 1e3).tolist(),
+            "bubble_measured": 1.0 - float(busy[rows][:, warm].sum())
+            / (hdp * float(wall.sum())) if warm.any() else None,
+            "peak_mem_gb": None if peaks is None else peaks[rows]}
+    return {"by_stage": out,
+            "bubble_measured": 1.0 - float(busy[:, warm].sum())
+            / (stages * hdp * float(wall.sum())) if warm.any() else None,
+            "bubble_analytic_by_step": [r["bubble_frac_pipeline"]
+                                        for r in trainer.history],
+            "rounds_by_step": [r["rounds"] for r in trainer.history]}
+
+
+def summary(args, trainer, waves, peaks, ranks=None) -> dict:
+    """The run's JSON record (see the module docstring); ``ranks``: under
+    PP every rank's rounds (`stage_summary`)."""
     by_comp = defaultdict(list)
     for comp, fresh, secs, (c_mult, _, _) in waves:
         if not fresh:
@@ -151,8 +213,9 @@ def summary(args, trainer, waves, peaks) -> dict:
     hdp = trainer.rt.hdp_size
     led = trainer.ledger.summary()
     totals = trainer.ledger.totals
-    return {
+    out = {
         "arch": args.arch, "reduced": args.reduced, "mesh": f"{hdp}x1",
+        "num_stages": trainer.rt.num_stages,
         "layers": trainer.cfg.num_layers,
         "device": str(trainer.rt.device),
         "params_b": sum(p.numel() for p in leaves(trainer.params)) / 1e9,
@@ -170,7 +233,9 @@ def summary(args, trainer, waves, peaks) -> dict:
         "pinned_host_gb": trainer.offload_store.pinned_bytes / 1e9
         if trainer.offload_store is not None else 0.0,
         "peak_mem_gb_by_rank": peaks,
-        "zero1_bytes": zero1_bytes(trainer.params, hdp),
+        "zero1_bytes": zero1_bytes(trainer.params, hdp,
+                                   stage_taken(trainer.params,
+                                               trainer.rt.num_stages)),
         "resumed_at": trainer.ckpt_stats.get("resumed_at"),
         "ckpt": trainer.ckpt_stats,
         "host_peak_rss_gb": resource.getrusage(
@@ -180,32 +245,37 @@ def summary(args, trainer, waves, peaks) -> dict:
                    "hbm_meas_peak_gb": led["hbm_meas_peak"] / 1e9,
                    "comm_residual": led["comm_residual"],
                    "dispatches": led["n"]}}
+    if ranks is not None:
+        out["pipeline"] = stage_summary(trainer, peaks, ranks)
+    return out
 
 
-def _rank_main(rank: int, hdp: int, args, store: str) -> None:
+def _rank_main(rank: int, hdp: int, stages: int, args, store: str) -> None:
     import datetime
     import torch.distributed as dist
-    from repro_torch.parallel.comm import ProcessGroupComm
+    from repro_torch.parallel.comm import stage_grid
     cuda = args.device is None or args.device.startswith("cuda")
+    world = hdp * stages
     if cuda:
         torch.cuda.set_device(rank)
         args.device = f"cuda:{rank}"
     else:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // hdp))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     dist.init_process_group("nccl" if cuda else "gloo",
-                            init_method=f"file://{store}", world_size=hdp,
+                            init_method=f"file://{store}", world_size=world,
                             rank=rank,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        comm = ProcessGroupComm()
+        comm, stage_comm = stage_grid(stages, hdp)
         say = print if rank == 0 else (lambda *a, **k: None)
-        trainer, waves, peak = train(args, comm, say)
-        peak = torch.tensor([peak / 1e9 if cuda else float("nan")],
-                            dtype=torch.float64, device=comm.device)
-        peaks = comm.all_gather(peak).flatten().tolist()
+        trainer, waves, peak, rounds = train(args, comm, say, stage_comm)
+        got = [None] * world
+        dist.all_gather_object(got, (peak / 1e9 if cuda else None, rounds))
+        peaks = [p for p, _ in got] if cuda else None
         if rank == 0:
-            print(json.dumps(summary(args, trainer, waves,
-                                     peaks if cuda else None)), flush=True)
+            print(json.dumps(summary(args, trainer, waves, peaks,
+                                     [r for _, r in got]
+                                     if stages > 1 else None)), flush=True)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -235,6 +305,12 @@ def main(argv=None):
     ap.add_argument("--mesh", default="1x1",
                     help="NxM: N HDP ranks, one process each (M, tensor "
                          "parallelism, must be 1)")
+    ap.add_argument("--num-stages", type=int, default=1,
+                    help="pipeline stages S: S x N ranks, PP-Balance plans "
+                         "run as rounds through the stages")
+    ap.add_argument("--max-round-waves", type=int, default=0,
+                    help="pipelined executor: cap waves per round (0 = "
+                         "uncapped) to bound in-flight activation memory")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory: resume from its newest "
                          "valid checkpoint, save every 5 steps and at the "
@@ -246,14 +322,19 @@ def main(argv=None):
                     help="default cuda; pass cpu to run on the CPU")
     args = ap.parse_args(argv)
     hdp = _mesh(args.mesh)
-    if hdp == 1:
+    stages = args.num_stages
+    if stages < 1:
+        raise ValueError(f"--num-stages {stages}: must be >= 1")
+    world = hdp * stages
+    if world == 1:
         return train(args)[0]
 
     import torch.multiprocessing as mp
     if args.device is None or args.device.startswith("cuda"):
-        if torch.cuda.device_count() < hdp:
-            raise RuntimeError(f"--mesh {args.mesh} needs {hdp} CUDA "
-                               f"devices, found {torch.cuda.device_count()}")
+        if torch.cuda.device_count() < world:
+            raise RuntimeError(f"--mesh {args.mesh} --num-stages {stages} "
+                               f"needs {world} CUDA devices, found "
+                               f"{torch.cuda.device_count()}")
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True, check=True).stdout.strip(),
@@ -262,9 +343,9 @@ def main(argv=None):
         build.build_all(["flash_fwd", "flash_bwd", "fused_ce"])   # once
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build") as tmp:
-        mp.start_processes(_rank_main, args=(hdp, args,
+        mp.start_processes(_rank_main, args=(hdp, stages, args,
                                              os.path.join(tmp, "store")),
-                           nprocs=hdp, join=True, start_method="spawn")
+                           nprocs=world, join=True, start_method="spawn")
     return None
 
 

@@ -118,12 +118,31 @@ def _stack_into(out, tree, i: int, n: int):
     return out
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
+def stage_periods(n_periods: int, stage=(0, 1)) -> range:
+    """The periods of stage ``s`` of ``S`` (``stage = (s, S)``): its
+    contiguous window ``[s·n/S, (s+1)·n/S)``, the reference's stage
+    sharding of the stacked leaves' dim 0."""
+    s, num = stage
+    if n_periods % num:
+        raise ValueError(f"{n_periods} scan periods do not split into "
+                         f"{num} equal pipeline stages")
+    w = n_periods // num
+    return range(s * w, (s + 1) * w)
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
+                stage=(0, 1)) -> dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
     drawn on ``device`` (default ``cuda``; raises without one unless
     ``device="cpu"``).  Same tree, shapes and distributions as the
     reference: dense N(0,1)/sqrt(in), embeddings N(0,1)*0.02, norm scales
-    zero (the (1 + scale) form).  The draws differ from ``jax.random``."""
+    zero (the (1 + scale) form).  The draws differ from ``jax.random``.
+
+    ``stage = (s, S)``: pipeline stage s of S holds its window of the
+    stacked periods (`stage_periods`) and the whole replicated leaves.
+    Every period is drawn in the same order as the full init and those
+    outside the window are dropped, so the window equals the same rows of
+    the full init."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
@@ -143,15 +162,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         "head_blocks": [_block_init(gen, cfg, i, layout, dtype, device)
                         for i in range(head_n)],
     }
+    window = stage_periods(n_periods, stage)
     blocks = []
     for j in range(period):
         # one period's block at a time into the stacked leaves, so the
         # init holds the stack and one block, never two stacks
         stacked = None
         for p in range(n_periods):
-            stacked = _stack_into(
-                stacked, _block_init(gen, cfg, head_n + p * period + j,
-                                     layout, dtype, device), p, n_periods)
+            block = _block_init(gen, cfg, head_n + p * period + j, layout,
+                                dtype, device)
+            if p in window:
+                stacked = _stack_into(stacked, block, p - window.start,
+                                      len(window))
         blocks.append(stacked)
     params["blocks"] = blocks
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, device)

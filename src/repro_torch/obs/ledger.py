@@ -15,13 +15,12 @@ kind:
                                                    forward rotations
   offload_d2h/   Eq. 3 ratio x residual-stream     parallel/host_offload.py
   offload_h2d    bytes (continuous r)              copies (whole periods)
+  pp             wavefront ticks x stage roll      parallel/pipeline.py
+                 (`pp_tick_bytes`)                 forward stage sends
   zero1_*        parallel/zero1.zero1_bytes        (analytic on both sides)
 
-(``pp``, the pipeline's stage roll, stays 0 until pipeline parallelism is
-ported.)  The predicted side, the totals and `Ledger` are copies of the
-reference's, with the imports rewritten and the pipeline's terms left out
-(``pp_tick_bytes``, the ``num_stages`` arguments and the wavefront branch
-of `Ledger.predict_dispatch`): they come with pipeline parallelism.
+The predicted side, the totals and `Ledger` are copies of the
+reference's, with the imports rewritten.
 
 The measured side is eager.  The trainer opens `capture()` around each
 wave's dispatch, on the thread that runs its forward, and every site adds
@@ -52,6 +51,20 @@ Exact relations between the two sides on the port (held by
   each way, with k = `core.offload.offload_periods(cfg, r)`; the
   prediction prices the continuous r x n_periods, so the two differ by at
   most half a period's residual.
+
+A pipelined round of M waves over S stages (one record per round) is
+priced as the reference's wavefront: M + S − 1 ticks, each running every
+stage's rings and one roll in which all S stages send their [T, d]
+buffer slice with its seg and pos (`pp_tick_bytes`).  The port sends no
+padding ticks and no seg/pos (every rank materializes them), so its
+measured side is exactly (`port_round_bytes`):
+
+* pp: M x (S − 1) x (the wave's global tokens) x d_model x itemsize —
+  each microbatch crosses S − 1 stage boundaries once;
+* ring: M x (`wave_ring_bytes` − `ring_meta_bytes`) — each microbatch
+  runs every layer's ring once, on the stage that holds the layer;
+* offload: M x S x k x (global tokens) x d_model x itemsize each way, with
+  the stage-local k = `core.offload.offload_periods(cfg, r, S)`.
 
 Zero-overhead contract: with tracing and ``REPRO_LEDGER`` both off the
 trainer builds no `Ledger`, opens no capture and resets no memory peak,
@@ -217,22 +230,52 @@ def wave_ring_bytes(cfg, composition: Sequence[int], tokens_per_rank: int,
     return attn_layer_count(cfg) * steps * ring_edges(composition) * blk
 
 
-def offload_dispatch_bytes(cfg, offload_ratio: float,
-                           tokens_global: int) -> Tuple[float, float]:
+def pp_tick_bytes(cfg, num_stages: int, tokens_global: int) -> int:
+    """Fleet bytes of one wavefront tick's stage roll in the reference:
+    every stage sends its [T, d_model] activation slice plus seg/pos
+    metadata (one int32 each, the rope width) to its neighbour."""
+    per_stage = tokens_global * (cfg.d_model * act_itemsize(cfg) + 4 + 4)
+    return num_stages * per_stage
+
+
+def port_round_bytes(cfg, composition: Sequence[int], n_waves: int,
+                     num_stages: int, tokens_per_rank: int, hdp: int,
+                     offload_periods: int = 0) -> Dict[str, float]:
+    """The port's measured fleet bytes of one pipelined round, exactly
+    (module docstring): what it sends where the reference's wavefront
+    prediction counts padding ticks, seg/pos and the ring's metadata."""
+    tokens_global = hdp * tokens_per_rank
+    resid = tokens_global * cfg.d_model * act_itemsize(cfg)
+    ring1 = wave_ring_bytes(cfg, composition, tokens_per_rank)
+    moved = float(n_waves * num_stages * offload_periods * resid)
+    return {"ring": float(n_waves * (ring1
+                                     - ring_meta_bytes(cfg, composition))),
+            "pp": float(n_waves * (num_stages - 1) * resid),
+            "offload_d2h": moved, "offload_h2d": moved}
+
+
+def offload_dispatch_bytes(cfg, offload_ratio: float, tokens_global: int,
+                           num_stages: int = 1) -> Tuple[float, float]:
     """Predicted (d2h, h2d) bytes of one dispatch at the *continuous*
-    Eq. 3 ratio: r x periods x residual-stream bytes per period.  Execution quantizes the window to whole periods
+    Eq. 3 ratio: r x stage-local periods x residual-stream bytes per
+    period.  Execution quantizes the window to whole periods
     (`core.offload.offload_periods`), so |predicted - measured| is the
     genuine ratio->period quantization error."""
     if offload_ratio <= 0:
         return 0.0, 0.0
     n = OF.scan_periods(cfg)
+    if num_stages > 1:
+        n //= num_stages
     resid = tokens_global * cfg.d_model * act_itemsize(cfg)
     moved = float(offload_ratio) * n * resid
+    if num_stages > 1:
+        moved *= num_stages                       # every stage's window
     return moved, moved
 
 
 def predicted_hbm_bytes(cfg, coeffs: OF.CostCoeffs, tokens_per_rank: int,
-                        offload_ratio: float, hdp: int) -> int:
+                        offload_ratio: float, hdp: int,
+                        num_stages: int = 1) -> int:
     """Coarse per-rank peak-HBM watermark: bf16 params + fp32 grad
     accumulators + ZeRO-1-sharded optimizer state (12 B/param over hdp) +
     the activation footprint of `tokens_per_rank` at the wave's Eq. 3
@@ -245,6 +288,8 @@ def predicted_hbm_bytes(cfg, coeffs: OF.CostCoeffs, tokens_per_rank: int,
     opt_b = 12.0 * p / max(hdp, 1)
     discount = 1.0 - offload_ratio * (ell - 2) / ell
     act_b = OF.act_bytes(coeffs, tokens_per_rank) * ell * discount
+    if num_stages > 1:
+        act_b /= num_stages
     return int(params_b + grads_b + opt_b + act_b)
 
 
@@ -322,7 +367,8 @@ class Ledger:
     dispatch.  Bounded memory: raw records keep the most recent
     ``max_records``; the running totals cover everything."""
 
-    def __init__(self, cfg, *, capacity: int, hdp: int, tp: int = 1,
+    def __init__(self, cfg, *, capacity: int, hdp: int,
+                 num_stages: int = 1, tp: int = 1,
                  coeffs: Optional[OF.CostCoeffs] = None,
                  offload_active: bool = False,
                  kv_sharded: Optional[bool] = None,
@@ -330,6 +376,7 @@ class Ledger:
         self.cfg = cfg
         self.capacity = int(capacity)
         self.hdp = int(hdp)
+        self.num_stages = int(num_stages)
         self.tp = int(tp)
         self.coeffs = coeffs if coeffs is not None else \
             OF.analytic_coeffs(cfg)
@@ -342,26 +389,36 @@ class Ledger:
     # -- predicted side ------------------------------------------------
     def predict_dispatch(self, composition: Sequence[int], c_mult: int,
                          offload_ratio: float, n_waves: int = 1) -> Dict:
-        """Predicted fleet bytes of one dispatch of ``n_waves`` waves of
-        the same key."""
+        """Predicted fleet bytes of one dispatch: a single wave, or a
+        pipelined round of ``n_waves`` microbatches (every tick of the
+        M + S - 1 wavefront runs all stages' rings and one stage roll)."""
         tokens_per_rank = int(c_mult) * self.capacity
         tokens_global = self.hdp * tokens_per_rank
+        s = self.num_stages
         ring1 = wave_ring_bytes(self.cfg, composition, tokens_per_rank,
                                 tp=self.tp, kv_sharded=self.kv_sharded)
         pred = {k: 0.0 for k in COMM_KINDS}
-        pred["ring"] = float(n_waves * ring1)
+        if s > 1:
+            ticks = n_waves + s - 1
+            pred["ring"] = float(ticks * ring1)
+            pred["pp"] = float(ticks * pp_tick_bytes(self.cfg, s,
+                                                     tokens_global))
+            mult = ticks
+        else:
+            pred["ring"] = float(n_waves * ring1)
+            mult = n_waves
         if self.offload_active and offload_ratio > 0:
             d2h, h2d = offload_dispatch_bytes(self.cfg, offload_ratio,
-                                              tokens_global)
-            pred["offload_d2h"] = d2h * n_waves
-            pred["offload_h2d"] = h2d * n_waves
+                                              tokens_global, s)
+            pred["offload_d2h"] = d2h * mult
+            pred["offload_h2d"] = h2d * mult
         return pred
 
     def predict_hbm(self, c_mult: int, offload_ratio: float) -> int:
         r = offload_ratio if self.offload_active else 0.0
         return predicted_hbm_bytes(self.cfg, self.coeffs,
                                    int(c_mult) * self.capacity, r,
-                                   self.hdp)
+                                   self.hdp, self.num_stages)
 
     # -- recording -----------------------------------------------------
     def record_dispatch(self, *, step: int, idx: int, kind: str,

@@ -34,7 +34,8 @@ def group_norms(tree, prefix: str) -> Dict[str, Any]:
 
 
 def grad_sentinels(grads, comm=None,
-                   counted: Optional[Sequence[bool]] = None):
+                   counted: Optional[Sequence[bool]] = None,
+                   stage_comm=None):
     """-> (global grad norm, {"gnorm/<group>": norm, "grad_nonfinite":
     count}) of a step's gradients, as device scalars.
 
@@ -43,7 +44,10 @@ def grad_sentinels(grads, comm=None,
     are this rank's to add (a replicated leaf, whole on every rank, is
     counted on rank 0 only).  The partial sums go through one
     ``all_reduce``, so every rank sees the same numbers and takes the same
-    guard decision."""
+    guard decision.  Under pipeline parallelism a second ``all_reduce``
+    over ``stage_comm`` adds the stages' sums; the caller then counts a
+    stage-owned leaf on every stage and a replicated one on stage 0 only,
+    so each is added once over the world."""
     ls = leaves(grads)
     if counted is None:
         counted = [True] * len(ls)
@@ -54,9 +58,11 @@ def grad_sentinels(grads, comm=None,
            for x, c in zip(ls, counted) if c and x.is_floating_point()]
     bad = torch.stack(bad).sum() if bad \
         else torch.zeros((), dtype=torch.int64, device=zero.device)
-    if comm is not None and comm.size > 1:
+    comms = [c for c in (comm, stage_comm) if c is not None and c.size > 1]
+    if comms:
         vec = torch.cat([sq.double(), bad.double()[None]])
-        comm.all_reduce(vec)
+        for c in comms:
+            c.all_reduce(vec)
         sq, bad = vec[:-1].float(), vec[-1].long()
     out: Dict[str, Any] = {}
     groups = grads.items() if isinstance(grads, dict) else [(None, grads)]
@@ -98,12 +104,14 @@ def plan_fingerprint(plan) -> str:
     return hashlib.sha256(blob.encode()).hexdigest()
 
 
-def fingerprints_by_rank(comm, plan, device) -> list:
+def fingerprints_by_rank(gather, plan, device) -> list:
     """Every rank's plan fingerprint prefix (15 hex digits), in rank
-    order, from one all-gather; every rank of ``comm`` calls it with its
-    own plan.  Ranks that run different plans would wait in different
-    collectives, so the callers raise on every rank when these differ."""
+    order; ``gather`` maps this rank's tensor to [ranks, ...] (a comm's
+    ``all_gather``, or the Trainer's gather over the whole PP world), and
+    every rank it spans calls it with its own plan.  Ranks that run
+    different plans would wait in different collectives, so the callers
+    raise on every rank when these differ."""
     mine = int(plan_fingerprint(plan)[:15], 16)
-    got = comm.all_gather(torch.tensor([mine], dtype=torch.int64,
-                                       device=device)).flatten()
+    got = gather(torch.tensor([mine], dtype=torch.int64,
+                              device=device)).flatten()
     return [f"{x:015x}" for x in got.tolist()]

@@ -12,7 +12,9 @@ Over several HDP ranks the state is sharded by ZeRO-1
 (`parallel/zero1.py`): a leaf `zero1_dim` shards keeps only this rank's
 shard of master, m and v, its gradient arrives as this rank's shard of the
 reduced sum, and the updated bf16 shard is all-gathered into the full
-parameter; a replicated leaf is updated whole on every rank.
+parameter; a replicated leaf is updated whole on every rank.  Under
+pipeline parallelism ``taken`` (`parallel/zero1.py::stage_taken`) keeps
+ZeRO-1 off a stage-owned leaf's dim 0, as the reference's stage spec does.
 """
 from __future__ import annotations
 
@@ -57,16 +59,18 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def init_state(params, comm=None) -> dict:
+def init_state(params, comm=None, taken=None) -> dict:
     """{"step": int32 0, "master": fp32 copy of params, "m", "v": fp32
     zeros}, on the params' device.  With ``comm`` (the HDP ranks) a leaf
     that `zero1_dim` shards holds only this rank's shard (contiguous) of
-    master, m and v."""
+    master, m and v; ``taken``: per leaf, the dimensions it skips."""
     first = leaves(params)[0]
     hdp, rank = (1, 0) if comm is None else (comm.size, comm.rank)
+    taken = iter(taken if taken is not None
+                 else [()] * len(leaves(params)))
 
     def master(p):
-        dim = zero1_dim(p.shape, hdp)
+        dim = zero1_dim(p.shape, hdp, next(taken))
         x = p if dim is None else shard(p, dim, rank, hdp)
         return x.detach().to(torch.float32, copy=True).contiguous()
 
@@ -95,7 +99,7 @@ def _chunks(x: torch.Tensor):
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
                   update_sq: Optional[Dict[str, torch.Tensor]] = None,
-                  comm=None):
+                  comm=None, taken=None):
     """One AdamW step, in place: params, state["master"/"m"/"v"] are
     updated where they lie and state["step"] is replaced.  Returns (params,
     state, {"grad_norm", "lr"}).  ``gnorm`` lets a caller that already
@@ -106,7 +110,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
     fp32 accumulator: it is read, never written.  With ``comm`` (state
     from ``init_state(params, comm)``) a sharded leaf's gradient is this
     rank's shard of the reduced sum and its new bf16 values are
-    all-gathered into the parameter."""
+    all-gathered into the parameter; ``taken`` as in `init_state`."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
     if gnorm is None:
@@ -118,6 +122,8 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
     bias1 = 1 - torch.full_like(stepf, b1) ** stepf
     bias2 = 1 - torch.full_like(stepf, b2) ** stepf
     hdp = 1 if comm is None else comm.size
+    taken = iter(taken if taken is not None
+                 else [()] * len(leaves(params)))
 
     def update(g, m, v, master, p, du: bool):
         """Writes the new params into ``p``; returns Σ (new p - old p)² of
@@ -143,7 +149,7 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
                            leaves(sel(state["m"])), leaves(sel(state["v"])),
                            leaves(sel(state["master"]))):
             p, g, m, v, master = tensors
-            dim = zero1_dim(p.shape, hdp)
+            dim = zero1_dim(p.shape, hdp, next(taken))
             out = p if dim is None else torch.empty(
                 master.shape, dtype=p.dtype, device=p.device)
             for pc, gc, mc, vc, wc in zip(*(_chunks(x) for x in

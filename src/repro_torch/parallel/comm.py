@@ -250,6 +250,44 @@ class HostStagedComm(ProcessGroupComm):
         self.device = torch.device("cuda", torch.cuda.current_device())
 
 
+def stage_grid(stages: int, hdp: int, comm_cls=ProcessGroupComm):
+    """This process's two groups of a ``(stages, hdp)`` grid over the
+    world -> (its HDP comm, its stage comm), ``None`` for a group of one.
+
+    World rank ``s·hdp + h`` is stage s, HDP position h (stage-major, the
+    reference's ``("stage", "data", "model")`` axis order at tp = 1).  The
+    HDP group of stage s is the ranks ``{s·hdp + h'}``, the stage group of
+    position h the ranks ``{s'·hdp + h}``.  ``dist.new_group`` must be
+    called by every process for every group in one order, so every
+    process creates all of them: the HDP groups by stage, then the stage
+    groups by position.  ``comm_cls`` is `ProcessGroupComm` (gloo on the
+    CPU, NCCL one process per card) or `HostStagedComm` (gloo, processes
+    sharing a card); its construction runs one collective over each
+    group, HDP group first, on every rank alike."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    if stages * hdp != world:
+        raise ValueError(f"a {stages} x {hdp} grid needs {stages * hdp} "
+                         f"ranks, the world has {world}")
+    rank = dist.get_rank()
+    s, h = divmod(rank, hdp)
+
+    def groups(members):
+        if len(members[0]) == 1:
+            return [None] * len(members)
+        if len(members) == 1:
+            return [None]          # the world itself
+        return [dist.new_group(m) for m in members]
+
+    hdp_groups = groups([[a * hdp + b for b in range(hdp)]
+                         for a in range(stages)])
+    stage_groups = groups([[a * hdp + b for a in range(stages)]
+                           for b in range(hdp)])
+    hdp_comm = None if hdp == 1 else comm_cls(hdp_groups[s])
+    stage_comm = None if stages == 1 else comm_cls(stage_groups[h])
+    return hdp_comm, stage_comm
+
+
 # ---------------------------------------------------------------------------
 # g ranks as threads of one process (chip_smoke.py and the tests)
 # ---------------------------------------------------------------------------

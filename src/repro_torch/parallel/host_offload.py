@@ -35,6 +35,13 @@ keeps the residual on the device instead.  On the CPU (tests,
 ``device="cpu"``) the same bookkeeping copies into plain CPU tensors,
 without streams.
 
+Under pipeline parallelism a stage holds the offloaded inputs of every
+microbatch of a round between its forward and its backward: the executor
+sets ``slot`` to the microbatch before each of them, and a period's
+buffer is keyed by (slot, period) (by the period alone in slot 0, the
+only one outside a pipeline), so the microbatches' inputs never share
+one.
+
 ``d2h_bytes`` and ``h2d_bytes`` count every copy where it is issued (the
 bytes ledger's measured offload traffic, `obs/ledger.py`); `busy_ms` is
 the copy stream's busy time over the last dispatch, from CUDA events.
@@ -89,13 +96,18 @@ class HostOffload:
         self.device = device
         self.cuda = device.type == "cuda"
         self.copy_stream = torch.cuda.Stream(device) if self.cuda else None
-        self._host: Dict[int, torch.Tensor] = {}     # period -> uint8
-        self._layout: Dict[int, tuple] = {}      # period -> (shape, dtype)
-        self._ready: Dict[int, Tuple[torch.Tensor, object]] = {}
-        self._saving: Dict[int, object] = {}     # period -> d2h end event
+        # keyed by `_key`
+        self._host: Dict[tuple, torch.Tensor] = {}     # uint8 buffers
+        self._layout: Dict[tuple, tuple] = {}          # (shape, dtype)
+        self._ready: Dict[tuple, Tuple[torch.Tensor, object]] = {}
+        self._saving: Dict[tuple, object] = {}         # d2h end events
         self._spans: List[tuple] = []        # (start, end) CUDA events
         self.d2h_bytes = 0
         self.h2d_bytes = 0
+        self.slot = 0       # the pipelined microbatch the periods belong to
+
+    def _key(self, i: int):
+        return (self.slot, i) if self.slot else i
 
     def begin(self) -> None:
         """A new forward: nothing of the last dispatch is pending (a copy
@@ -115,20 +127,22 @@ class HostOffload:
 
     def host_view(self, i: int) -> torch.Tensor:
         """Period i's input as the last forward saved it."""
-        buf, shape, dtype = self._host[i], *self._layout[i]
+        key = self._key(i)
+        buf, shape, dtype = self._host[key], *self._layout[key]
         return buf[:torch.Size(shape).numel() * dtype.itemsize] \
             .view(dtype).view(shape)
 
     def _buffer(self, i: int, x: torch.Tensor) -> torch.Tensor:
-        buf = self._host.get(i)
+        key = self._key(i)
+        buf = self._host.get(key)
         if buf is None or buf.numel() < x.nbytes:
             buf = torch.empty(x.nbytes, dtype=torch.uint8,
                               pin_memory=self.cuda)
             if self.cuda and not buf.is_pinned():
                 raise RuntimeError(f"could not pin {buf.nbytes} bytes of "
                                    f"host memory for an offloaded period")
-            self._host[i] = buf
-        self._layout[i] = (x.shape, x.dtype)
+            self._host[key] = buf
+        self._layout[key] = (x.shape, x.dtype)
         return self.host_view(i)
 
     def _copy(self, dst: torch.Tensor, src: torch.Tensor):
@@ -148,7 +162,7 @@ class HostOffload:
         """Forward: start copying period i's input to its host buffer."""
         host = self._buffer(i, x)
         if self.cuda:
-            self._saving[i] = self._copy(host, x)
+            self._saving[self._key(i)] = self._copy(host, x)
         else:
             host.copy_(x)
         self.d2h_bytes += x.nbytes
@@ -156,13 +170,14 @@ class HostOffload:
     def release(self, i: int) -> None:
         """Forward, after period i's kernels are queued: the compute stream
         waits for period i's copy, so its input may be freed."""
-        done = self._saving.pop(i, None)
+        done = self._saving.pop(self._key(i), None)
         if done is not None:
             torch.cuda.current_stream(self.device).wait_event(done)
 
     def prefetch(self, i: int) -> None:
         """Backward: start bringing period i's input back (once)."""
-        if i in self._ready:
+        key = self._key(i)
+        if key in self._ready:
             return
         host = self.host_view(i)
         if self.cuda:
@@ -170,16 +185,16 @@ class HostOffload:
             # event before it reads the tensor (or drops it, `begin`)
             dev = torch.empty(host.shape, dtype=host.dtype,
                               device=self.device)
-            self._ready[i] = (dev, self._copy(dev, host))
+            self._ready[key] = (dev, self._copy(dev, host))
         else:
-            self._ready[i] = (host.clone(), None)
+            self._ready[key] = (host.clone(), None)
         self.h2d_bytes += host.nbytes
 
     def load(self, i: int) -> torch.Tensor:
         """Backward: period i's input on the device, ready for the compute
         stream."""
         self.prefetch(i)
-        x, done = self._ready.pop(i)
+        x, done = self._ready.pop(self._key(i))
         if done is not None:
             torch.cuda.current_stream(self.device).wait_event(done)
         return x

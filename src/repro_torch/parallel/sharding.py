@@ -8,6 +8,12 @@ to the HDP size; left out, it is all singletons.  The device defaults to
 ``cuda``; without a GPU the caller must ask for ``device="cpu"``
 explicitly — a runtime never falls back to the CPU on its own.
 
+Under pipeline parallelism (`parallel/pipeline.py`) ``stage_comm`` holds
+the ranks of this rank's stage group, one per stage at the same HDP
+position (the reference's ``stage_axis``); ``None`` is one stage.
+``hdp_size`` stays the size of the HDP group, not of the world, as the
+reference's leaves the stage axis out (`launch/mesh.py::NON_HDP_AXES`).
+
 ``remat="offload"`` with ``offload_periods = k`` is the reference's
 selective offload: the first k layer periods keep their input residual in
 host memory between the forward and the recompute of the backward
@@ -72,6 +78,8 @@ class Runtime:
                                       # in host memory
     offload_periods: int = 0
     comm: Optional[HdpComm] = None    # the HDP ranks; None: one rank
+    stage_comm: Optional[HdpComm] = None   # the stage group; None: one
+                                           # stage
     offload_store: Optional["HostOffload"] = field(
         default=None, compare=False, repr=False)   # needed at k > 0
 
@@ -101,6 +109,14 @@ class Runtime:
     @property
     def hdp_size(self) -> int:
         return 1 if self.comm is None else self.comm.size
+
+    @property
+    def num_stages(self) -> int:
+        return 1 if self.stage_comm is None else self.stage_comm.size
+
+    @property
+    def stage_rank(self) -> int:
+        return 0 if self.stage_comm is None else self.stage_comm.rank
 
     def with_composition(self, comp: Tuple[int, ...]) -> "Runtime":
         """The same runtime running ``comp`` (raises unless it sums to

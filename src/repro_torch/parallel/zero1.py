@@ -11,6 +11,12 @@ A checkpoint holds the state whole: `gather_to_host` gathers it to rank
 0's host memory, and a restore gives each rank its `shard` of the file's
 leaf, so the state restores at any HDP size.
 
+Under pipeline parallelism the stacked block leaves hold a stage's window
+of periods on dim 0, which the reference's `zero1_spec` sees taken by
+the ``stage`` axis: ``taken`` names such dimensions, and `stage_taken`
+gives them per leaf, so the port shards a stage's ``[n/S, ...]`` leaf on
+the same dimension as the reference shards the global ``[n, ...]`` one.
+
 Where the reference lets XLA lay the collectives out, here a leaf sharded on
 a dimension d > 0 is brought into rank-major order block by block (at most
 `_CHUNK` elements a block), never as a copy of the whole leaf: the stacked
@@ -19,7 +25,7 @@ MLP input of llama3.2-3b alone is ~5.6 GB in fp32.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,16 +36,34 @@ from repro_torch.tree import leaves
 _CHUNK = 1 << 24      # elements moved by one collective call (all ranks)
 
 
-def zero1_dim(shape: Sequence[int], hdp: int) -> Optional[int]:
+def zero1_dim(shape: Sequence[int], hdp: int,
+              taken: Sequence[int] = ()) -> Optional[int]:
     """The dimension ZeRO-1 shards a leaf of ``shape`` on over ``hdp``
-    ranks: the first one with ``dim % hdp == 0 and dim > 0``; None (the
-    leaf stays replicated) at hdp <= 1 or when no dimension divides."""
+    ranks: the first one not in ``taken`` with ``dim % hdp == 0 and dim >
+    0``; None (the leaf stays replicated) at hdp <= 1 or when no dimension
+    divides."""
     if hdp <= 1:
         return None
     for i, d in enumerate(shape):
-        if d > 0 and d % hdp == 0:
+        if i not in taken and d > 0 and d % hdp == 0:
             return i
     return None
+
+
+def stage_owned(params) -> List[bool]:
+    """Per leaf of ``params`` (`leaves` order): does it belong to a stage
+    under pipeline parallelism (the stacked ``blocks``), rather than being
+    replicated over the stages (embed, head blocks, final norm, LM head)?"""
+    return leaves({k: [k == "blocks"] * len(leaves(v))
+                   for k, v in params.items()})
+
+
+def stage_taken(params, num_stages: int) -> List[tuple]:
+    """Per leaf of ``params``: the dimensions `zero1_dim` must skip, (0,)
+    for a stage-owned leaf at ``num_stages > 1`` (the stage axis holds its
+    dim 0), else ()."""
+    return [(0,) if owned and num_stages > 1 else ()
+            for owned in stage_owned(params)]
 
 
 def shard(x: torch.Tensor, dim: int, rank: int, hdp: int) -> torch.Tensor:
@@ -64,11 +88,12 @@ def _blocks(shape: Sequence[int], dim: int, hdp: int):
                   for j in range(0, m, step)]
 
 
-def reduce_grad(g: torch.Tensor, comm: HdpComm) -> torch.Tensor:
+def reduce_grad(g: torch.Tensor, comm: HdpComm,
+                taken: Sequence[int] = ()) -> torch.Tensor:
     """The sum over the ranks of the contiguous gradient ``g``: this rank's
     ZeRO-1 shard (contiguous, ``g``'s dtype), or for a replicated leaf the
     whole sum, in place in ``g``."""
-    dim = zero1_dim(g.shape, comm.size)
+    dim = zero1_dim(g.shape, comm.size, taken)
     if dim is None:
         return comm.all_reduce(g)
     p, m, blocks = _blocks(g.shape, dim, comm.size)
@@ -79,15 +104,19 @@ def reduce_grad(g: torch.Tensor, comm: HdpComm) -> torch.Tensor:
     return out.view(shard_shape(g.shape, dim, comm.size))
 
 
-def _gather_blocks(part: torch.Tensor, shape, dim: int, comm: HdpComm):
+def _gather_blocks(part: torch.Tensor, shape, dim: int, comm: HdpComm,
+                   device=None):
     """Every rank's shard ``part`` (contiguous) of a leaf of ``shape``,
-    block by block -> (i, cols, the block [hdp, cols] on the device)."""
+    block by block -> (i, cols, the block [hdp, cols] on ``device``,
+    ``part``'s by default; a host ``part`` goes over block by block)."""
     p, m, blocks = _blocks(shape, dim, comm.size)
     src = part.view(p, m)
+    device = part.device if device is None else device
     for i, cols in blocks:
         new = torch.empty((comm.size, cols.stop - cols.start),
-                          dtype=part.dtype, device=part.device)
-        comm.all_gather_into(new.view(-1), src[i, cols].contiguous())
+                          dtype=part.dtype, device=device)
+        comm.all_gather_into(new.view(-1),
+                             src[i, cols].to(device).contiguous())
         yield i, cols, new
 
 
@@ -107,36 +136,50 @@ def gather_leaf(out: torch.Tensor, part: torch.Tensor, dim: int,
 
 
 def gather_to_host(part: torch.Tensor, full_shape: Sequence[int],
-                   comm: HdpComm) -> Optional[np.ndarray]:
+                   comm: HdpComm,
+                   taken: Sequence[int] = ()) -> Optional[np.ndarray]:
     """The whole leaf of ``full_shape`` from every rank's ZeRO-1 shard
     ``part`` (contiguous; the whole leaf where `zero1_dim` shards none)
     as a host array on rank 0, None on the other ranks.  Every rank must
     call it.  Block by block, so the device never holds the whole leaf
     (the checkpoint's gather; `shard` of the host array is its
     inverse)."""
-    dim = zero1_dim(full_shape, comm.size)
+    dim = zero1_dim(full_shape, comm.size, taken)
     if dim is None:
         return part.detach().to("cpu", copy=True).numpy() \
             if comm.rank == 0 else None
+    return gather_dim_to_host(part, full_shape, dim, comm)
+
+
+def gather_dim_to_host(part: torch.Tensor, full_shape: Sequence[int],
+                       dim: int, comm: HdpComm,
+                       device=None) -> Optional[np.ndarray]:
+    """The leaf of ``full_shape`` whose [P, size, M] view holds rank r's
+    ``part`` (contiguous) at [:, r, :] — sharded on ``dim`` — as a host
+    array on rank 0, None on the other ranks.  Every rank must call it;
+    the blocks move through ``device`` (`_gather_blocks`)."""
     view = torch.empty(tuple(full_shape), dtype=part.dtype).view(
         math.prod(full_shape[:dim]), comm.size, -1) \
         if comm.rank == 0 else None
-    for i, cols, new in _gather_blocks(part, full_shape, dim, comm):
+    for i, cols, new in _gather_blocks(part, full_shape, dim, comm, device):
         if view is not None:
             view[i, :, cols] = new
     return None if view is None else view.view(tuple(full_shape)).numpy()
 
 
-def zero1_bytes(params, hdp: int) -> dict:
+def zero1_bytes(params, hdp: int, taken=None) -> dict:
     """Analytic collective bytes of one ZeRO-1 update over the HDP ranks
     (fleet totals, the reference's model): the fp32 gradient reduction
     priced as a ring all-reduce, 2·(hdp − 1)·bytes, and the all-gather of
-    the parameters that `zero1_dim` shards, (hdp − 1)·their bytes."""
+    the parameters that `zero1_dim` shards, (hdp − 1)·their bytes.
+    ``taken``: per leaf, the dimensions `zero1_dim` skips (`stage_taken`;
+    default none)."""
     if hdp <= 1:
         return {"zero1_grad_reduce": 0.0, "zero1_param_gather": 0.0}
     ls = leaves(params)
+    taken = taken if taken is not None else [()] * len(ls)
     grad_b = sum(x.numel() * 4 for x in ls)
-    gather = sum(x.numel() * x.element_size() for x in ls
-                 if zero1_dim(x.shape, hdp) is not None)
+    gather = sum(x.numel() * x.element_size() for x, t in zip(ls, taken)
+                 if zero1_dim(x.shape, hdp, t) is not None)
     return {"zero1_grad_reduce": 2.0 * (hdp - 1) * float(grad_b),
             "zero1_param_gather": (hdp - 1) * float(gather)}

@@ -195,7 +195,8 @@ class ServeEngine:
         a wave's ring would hang them)."""
         if self.rt.hdp_size == 1:
             return
-        got = fingerprints_by_rank(self.rt.comm, plan, self.rt.device)
+        got = fingerprints_by_rank(self.rt.comm.all_gather, plan,
+                                   self.rt.device)
         if len(set(got)) > 1:
             raise RuntimeError(
                 f"the HDP ranks planned different prefills (plan "

@@ -15,6 +15,17 @@ one wave's gradient into the caller's fp32 accumulator in place and
 to this rank's shard of the optimiser state, and the all-gather of the
 bf16 parameters).  Where the reference's jit sums the grads across the
 mesh, these two are the explicit collectives.
+
+Under pipeline parallelism (``rt.stage_comm``; the rounds' grad step is
+`parallel/pipeline.py::pipeline_grad_step`) each stage holds its window
+of the stacked blocks and the whole replicated leaves (embed, head
+blocks, final norm, LM head), whose gradients are partial: a tied embed
+gets its lookup gradient on stage 0 and its logits gradient on the last.
+`reduce_grads` first sums them over the stage group, so every stage
+applies the same update to them; the norms and the non-finite count add
+each stage-owned leaf over the stages and each replicated leaf once
+(`obs/numerics.py::grad_sentinels`), so the guard's decision and the
+clip factor are the same on all ranks.
 """
 from __future__ import annotations
 
@@ -29,7 +40,8 @@ from repro_torch.obs import ledger
 from repro_torch.obs import numerics as NU
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import Runtime
-from repro_torch.parallel.zero1 import reduce_grad, zero1_dim
+from repro_torch.parallel.zero1 import (reduce_grad, stage_owned,
+                                        stage_taken, zero1_dim)
 from repro_torch.tree import leaves, tree_map
 
 
@@ -45,28 +57,43 @@ def zeros_accum(params):
                                           device=p.device), params)
 
 
-def reduce_grads(grad_accum, comm=None):
+def reduce_grads(grad_accum, comm=None, stage_comm=None):
     """The step's gradients summed over the HDP ranks ``comm``: per leaf
     this rank's ZeRO-1 shard (a reduce-scatter), or a replicated leaf's
-    whole sum (an all-reduce, in place).  At one rank ``grad_accum``
-    itself."""
-    if comm is None or comm.size == 1:
-        return grad_accum
+    whole sum (an all-reduce, in place).  With ``stage_comm`` the leaves
+    replicated over the stages are first summed over it, in place.  At
+    one rank ``grad_accum`` itself."""
     with torch.no_grad():
-        return tree_map(lambda g: reduce_grad(g, comm), grad_accum)
+        if stage_comm is not None:
+            for g, owned in zip(leaves(grad_accum),
+                                stage_owned(grad_accum)):
+                if not owned:
+                    stage_comm.all_reduce(g)
+        if comm is None or comm.size == 1:
+            return grad_accum
+        taken = iter(stage_taken(grad_accum, 1 if stage_comm is None
+                                 else stage_comm.size))
+        return tree_map(lambda g: reduce_grad(g, comm, next(taken)),
+                        grad_accum)
 
 
 def apply_reduced(params, opt_state, grads, opt_cfg: adamw.AdamWConfig, *,
-                  comm=None, numerics: bool = True, guard: bool = False):
+                  comm=None, numerics: bool = True, guard: bool = False,
+                  stage_comm=None):
     """The guarded AdamW apply of reduced gradients (`reduce_grads`) ->
     (params, opt_state, om); see `make_accum_steps`.  Every decision comes
     from all-reduced values, so every rank applies or skips alike."""
     with torch.no_grad():
         hdp = 1 if comm is None else comm.size
-        counted = [comm is None or comm.rank == 0
-                   or zero1_dim(p.shape, hdp) is not None
-                   for p in leaves(params)]
-        gnorm, sent = NU.grad_sentinels(grads, comm, counted)
+        stages = 1 if stage_comm is None else stage_comm.size
+        first = stage_comm is None or stage_comm.rank == 0
+        taken = stage_taken(params, stages)
+        counted = [(comm is None or comm.rank == 0
+                    or zero1_dim(p.shape, hdp, t) is not None)
+                   and (owned or first)
+                   for p, t, owned in zip(leaves(params), taken,
+                                          stage_owned(params))]
+        gnorm, sent = NU.grad_sentinels(grads, comm, counted, stage_comm)
         om: Dict[str, torch.Tensor] = sent if numerics or guard else {}
         ok = not guard or int(sent["grad_nonfinite"]) == 0
         update_sq: Dict[str, torch.Tensor] = {}
@@ -74,7 +101,7 @@ def apply_reduced(params, opt_state, grads, opt_cfg: adamw.AdamWConfig, *,
             _, _, opt_om = adamw.apply_updates(
                 params, grads, opt_state, opt_cfg, gnorm=gnorm,
                 update_sq=update_sq if numerics or guard else None,
-                comm=comm)
+                comm=comm, taken=taken)
         else:
             opt_om = {"grad_norm": gnorm,
                       "lr": adamw.schedule_lr(opt_cfg,
@@ -86,7 +113,19 @@ def apply_reduced(params, opt_state, grads, opt_cfg: adamw.AdamWConfig, *,
                                       else torch.zeros_like(gnorm))
                        for k, v in params.items() if leaves(v)})
             om["applied"] = torch.tensor(int(ok))
+            if stages > 1:
+                _stage_sum_norms(om, stage_comm)
     return params, opt_state, om
+
+
+def _stage_sum_norms(om, stage_comm) -> None:
+    """The param and update norms of the stage-owned group ("blocks"),
+    each stage's own so far, made the norms over every stage's window."""
+    keys = [k for k in ("pnorm/blocks", "unorm/blocks") if k in om]
+    vec = torch.stack([om[k].double().square() for k in keys])
+    stage_comm.all_reduce(vec)
+    for k, v in zip(keys, vec.sqrt().float()):
+        om[k] = v
 
 
 def make_accum_steps(cfg: ModelConfig, rt: Runtime,
@@ -112,6 +151,7 @@ def make_accum_steps(cfg: ModelConfig, rt: Runtime,
     are device scalars, for one fetch by the caller.
     """
     comm = None if rt is None else rt.comm
+    stage_comm = None if rt is None else rt.stage_comm
 
     def grad_step(params, grad_accum, batch, rt_wave: Runtime):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -128,7 +168,8 @@ def make_accum_steps(cfg: ModelConfig, rt: Runtime,
 
     def apply_step(params, opt_state, grad_accum):
         return apply_reduced(params, opt_state,
-                             reduce_grads(grad_accum, comm), opt_cfg,
-                             comm=comm, numerics=numerics, guard=guard)
+                             reduce_grads(grad_accum, comm, stage_comm),
+                             opt_cfg, comm=comm, numerics=numerics,
+                             guard=guard, stage_comm=stage_comm)
 
     return grad_step, apply_step

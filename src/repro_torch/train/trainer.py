@@ -1,7 +1,7 @@
 """The training loop: HDP waves + gradient accumulation, one process per
 HDP rank.
 
-Port of `repro/train/trainer.py` on its non-pipelined branch.  Per step
+Port of `repro/train/trainer.py`.  Per step
 (paper Fig. 7): the GlobalScheduler plans the global batch (sync, or from
 the scheduler service's planner thread with pre-materialized waves); each
 wave runs through a per-(composition, c_mult, offload) callable — the
@@ -46,11 +46,28 @@ takes its own shards and checks that the others chose the same step.  So
 a run changes its HDP size by a relaunch at hdp' that restores the
 checkpoint.
 
+Under pipeline parallelism (``rt.stage_comm``, ``rt.num_stages > 1``;
+PP-Balance plans with ``mode="pp"``) the world is stages × HDP ranks and
+each rank holds its stage's window of the stacked blocks: the wave queue
+runs as rounds of like (composition, c_mult, offload) waves
+(`parallel/pipeline.py::pipeline_rounds`, at most ``max_round_waves``
+each), every round the wavefront of `pipeline_grad_step`, one pipeline
+microbatch a wave.  A round's loss is the sum of its waves' losses,
+computed on the last stage and shared over the stage group; an offloading
+round offloads the stage-local count `offload_periods(cfg, r, S)`;
+``nan_fault["wave"]`` counts rounds, as the reference's does.  The
+per-round seconds, bytes and losses are shared over the stage group and
+then over the HDP ranks in one all-gather each a step, so every rank of
+the world sees the same step.  The plan check, the checkpoint checks and
+the save cover every rank of the world: a save gathers ZeRO-1 within
+each HDP group, then each stage's window over the stage group, to world
+rank 0, which writes the reference's global layout.
+
 What the port does not run yet raises `NotImplementedError` naming the
-ROADMAP queue item that brings it: pipeline parallelism (queue 1 item 7),
-the in-place ``resize`` to another HDP size and the planner thread with
-calibration over several ranks (queue 1 item 9).  The numerics monitor
-and step provenance come with queue 1 item 9.
+ROADMAP queue item that brings it: the in-place ``resize`` to another
+HDP size and the planner thread with calibration over several ranks
+(queue 1 item 9).  The numerics monitor and step provenance come with
+queue 1 item 9.
 """
 from __future__ import annotations
 
@@ -73,8 +90,16 @@ from repro_torch.obs import ledger as ledger_mod
 from repro_torch.obs.numerics import fingerprints_by_rank
 from repro_torch.optim import adamw
 from repro_torch.parallel.host_offload import HostOffload, PeakMeter
+from repro_torch.parallel.pipeline import (assert_pipeline_ready,
+                                           busy_seconds,
+                                           pipeline_grad_step,
+                                           pipeline_rounds,
+                                           pipeline_schedule_stats,
+                                           rounds_splitter,
+                                           stage_gather_to_host)
 from repro_torch.parallel.sharding import Runtime
-from repro_torch.parallel.zero1 import gather_to_host, zero1_bytes, zero1_dim
+from repro_torch.parallel.zero1 import (gather_to_host, stage_owned,
+                                        stage_taken, zero1_bytes, zero1_dim)
 from repro_torch.sched.calibrate import OnlineCalibrator, fit_length_of
 from repro_torch.train.train_step import make_accum_steps, zeros_accum
 from repro_torch.tree import leaves, tree_map
@@ -86,7 +111,7 @@ class TrainerConfig:
     steps: int = 10
     ckpt_every: int = 5
     ckpt_dir: Optional[str] = None
-    mode: str = "dp"                 # balance mode ("pp": not ported yet)
+    mode: str = "dp"                 # balance mode (PP-Balance: "pp")
     use_offload: bool = False        # offload remat (Eq. 3 plans, the
                                      # leading periods' inputs in pinned
                                      # host memory)
@@ -108,7 +133,11 @@ class TrainerConfig:
                                      # grad element is non-finite
     nan_fault: Optional[Dict] = None  # fault injection: {"step": k,
                                       # "wave": i} poisons that wave's
-                                      # loss denominator with NaN
+                                      # (under PP: round's) loss
+                                      # denominator with NaN
+    max_round_waves: int = 0         # pipelined executor: split rounds
+                                     # longer than this many waves (0 = no
+                                     # cap) to bound in-flight activations
 
 
 class Trainer:
@@ -117,22 +146,23 @@ class Trainer:
                  tcfg: TrainerConfig, seed: int = 0, params=None):
         """``rt=None`` means ``Runtime()`` on the default device (``cuda``;
         it raises without one).  ``params`` (a tree on the runtime's
-        device, e.g. bridged from the reference) replaces the seeded
-        init; over several ranks rank 0's are broadcast to every rank
-        either way, and the optimiser state (this rank's ZeRO-1 shards)
-        is built from them."""
-        if scheduler.spec.num_stages > 1 or tcfg.mode == "pp":
-            raise NotImplementedError(
-                "pipeline parallelism comes with ROADMAP queue 1 item 7")
+        device, e.g. bridged from the reference; under PP this stage's
+        window) replaces the seeded init; over several ranks each HDP
+        group's rank 0's are broadcast to the group either way, and the
+        optimiser state (this rank's ZeRO-1 shards) is built from them."""
         self.cfg = cfg
         self.rt = rt if rt is not None else Runtime()
-        if tcfg.sched_async and tcfg.calibrate and self.rt.hdp_size > 1:
+        if tcfg.sched_async and tcfg.calibrate \
+                and (self.rt.hdp_size > 1 or self.rt.num_stages > 1):
             raise NotImplementedError(
                 "the planner thread applies speed updates from a window "
                 "that depends on its timing in each process, so calibrated "
                 "ranks could plan apart: sched_async with calibrate over "
                 "several ranks waits for the single controller, ROADMAP "
                 "queue 1 item 9")
+        self.pipelined = self.rt.num_stages > 1
+        if self.pipelined:
+            assert_pipeline_ready(cfg, self.rt)
         self.opt_cfg = opt_cfg
         self.sched = scheduler
         self.tcfg = tcfg
@@ -148,11 +178,14 @@ class Trainer:
         self._align_offload(scheduler)
         self.loader = WaveMaterializer(scheduler.ds, cfg, tcfg.capacity)
         self.params = params if params is not None else init_params(
-            cfg, seed=seed, device=self.rt.device)
+            cfg, seed=seed, device=self.rt.device,
+            stage=(self.rt.stage_rank, self.rt.num_stages))
         if self.rt.comm is not None:
             for p in leaves(self.params):
                 self.rt.comm.broadcast(p)
-        self.opt_state = adamw.init_state(self.params, self.rt.comm)
+        self._taken = stage_taken(self.params, self.rt.num_stages)
+        self.opt_state = adamw.init_state(self.params, self.rt.comm,
+                                          self._taken)
         self.step = 0
         self.grad_step, self.apply_step = make_accum_steps(
             cfg, self.rt, opt_cfg, guard=tcfg.numerics_guard)
@@ -179,8 +212,17 @@ class Trainer:
         self.last_ledger_record: Optional[Dict] = None
         self.last_numerics: Optional[Dict] = None   # the last step's
         # loss, per-wave losses and seconds, sentinels and applied flag
-        if tcfg.sched_async:
-            scheduler.service.attach_materializer(self.loader)
+        self._attach_materializer(scheduler)
+
+    def _attach_materializer(self, scheduler) -> None:
+        """Materialize-ahead from the planner thread: per-wave buffers, or
+        under PP stacked [M, ...] round buffers (`rounds_splitter` is the
+        one round-split contract shared with the executor)."""
+        if self.tcfg.sched_async:
+            scheduler.service.attach_materializer(
+                self.loader,
+                rounds_fn=rounds_splitter(self.tcfg.max_round_waves)
+                if self.pipelined else None)
 
     def _align_offload(self, scheduler: GlobalScheduler):
         """Keep plan and execution consistent: when waves do not offload
@@ -195,16 +237,18 @@ class Trainer:
             rt_wave = dataclasses.replace(rt_wave,
                                           attn_impl=self.tcfg.attn_impl)
         if self.offload_ok and offload_ratio > 0:
-            k = offload_periods(self.cfg, offload_ratio)
+            # under PP the count is the stage-local one: each stage
+            # offloads its own window's leading periods (core/offload.py)
+            k = offload_periods(self.cfg, offload_ratio, self.rt.num_stages)
             rt_wave = dataclasses.replace(
                 rt_wave, remat="offload", offload_periods=k,
                 offload_store=self.offload_store)
         return rt_wave
 
     def _wave_fn(self, composition, c_mult, offload_ratio):
-        """-> (the wave's runtime, fresh): ``fresh`` marks a cache miss (on
-        the card the first dispatch also builds the kernels; the
-        calibrator skips it)."""
+        """-> (the wave's or round's runtime, fresh): ``fresh`` marks a
+        cache miss (on the card the first dispatch also builds the
+        kernels; the calibrator skips it)."""
         key = (tuple(composition), c_mult, round(offload_ratio, 2))
         fresh = key not in self._exec_cache
         get_metrics().counter("trainer.compile_miss" if fresh
@@ -234,30 +278,45 @@ class Trainer:
             new_hdp_scheduler.spec.coeffs, new_hdp_scheduler.hdp,
             self.cfg.num_layers, quadratic=new_hdp_scheduler.spec.quadratic,
             ema=self.tcfg.straggler_ema)
-        if self.tcfg.sched_async:
-            new_hdp_scheduler.service.attach_materializer(self.loader)
+        self._attach_materializer(new_hdp_scheduler)
 
     # ------------------------------------------------------------------
+    @property
+    def _multi(self) -> bool:
+        """More than one rank in the world (HDP ranks or stages)."""
+        return self.rt.hdp_size > 1 or self.pipelined
+
     def _lead(self) -> bool:
-        """Rank 0 (or the only rank): the one that writes checkpoints."""
-        return self.rt.comm is None or self.rt.comm.rank == 0
+        """World rank 0 (or the only rank): the one that writes
+        checkpoints."""
+        return (self.rt.comm is None or self.rt.comm.rank == 0) \
+            and self.rt.stage_rank == 0
+
+    def _gather_world(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` -> [world, ...], world rank s·hdp + h's at
+        row s·hdp + h (an all-gather over the HDP group, then one over
+        the stage group)."""
+        for comm in (self.rt.comm, self.rt.stage_comm):
+            x = x[None] if comm is None else comm.all_gather(x)
+        return x.reshape(-1, *x.shape[2:])
 
     def _all_gather_ints(self, values) -> list:
-        """Every rank's ``values`` (a list of ints) -> one row a rank."""
-        return self.rt.comm.all_gather(torch.tensor(
+        """Every rank's ``values`` (a list of ints) -> one row a rank of
+        the world."""
+        return self._gather_world(torch.tensor(
             values, dtype=torch.int64, device=self.rt.device)).tolist()
 
     def _check_ckpt_config(self) -> None:
         """Over several ranks every rank must take part in every save's
         gathers: a rank without ``ckpt_dir``, or with another
         ``ckpt_save``, would leave the others waiting in them."""
-        if self.rt.hdp_size == 1:
+        if not self._multi:
             return
         got = self._all_gather_ints([self.ckpt is not None,
                                      self.tcfg.ckpt_save])
         if any(row != got[0] for row in got):
             raise ValueError(f"ckpt_dir set and ckpt_save must agree on "
-                             f"every HDP rank (by rank {got})")
+                             f"every rank (by rank {got})")
 
     def data_state(self) -> Dict:
         """Checkpoint data_state: the step cursor plus the calibrator's and
@@ -280,21 +339,23 @@ class Trainer:
     def resume_if_possible(self) -> bool:
         """Restore the newest checkpoint that passes integrity (a damaged
         newest one falls back to the last good one) into the params and
-        optimiser state, each rank its ZeRO-1 shards of the file's whole
-        leaves, so the checkpoint may come from any HDP size.  Over
-        several ranks every rank all-gathers the step it restored, and a
-        disagreement raises on every rank.  Calibrator and scheduler state
-        restore warm when the HDP size still matches."""
+        optimiser state, each rank its stage window and its ZeRO-1 shards
+        of the file's global leaves, so the checkpoint may come from any
+        HDP size and stage count.  Over several ranks every rank
+        all-gathers the step it restored, and a disagreement raises on
+        every rank.  Calibrator and scheduler state restore warm when the
+        HDP size still matches."""
         if self.ckpt is None:
             return False
         t0 = self._clock()
-        res = self.ckpt.restore_latest(self.params, self.opt_state,
-                                       comm=self.rt.comm)
-        if self.rt.hdp_size > 1:
+        res = self.ckpt.restore_latest(
+            self.params, self.opt_state, comm=self.rt.comm,
+            stage=(self.rt.stage_rank, self.rt.num_stages))
+        if self._multi:
             got = [row[0] for row in self._all_gather_ints(
                 [-1 if res is None else res[0]])]
             if len(set(got)) > 1:
-                raise RuntimeError(f"the HDP ranks restored different "
+                raise RuntimeError(f"the ranks restored different "
                                    f"checkpoints (steps by rank {got})")
         if res is None:
             return False
@@ -306,41 +367,66 @@ class Trainer:
                                restore_s=self._clock() - t0)
         return True
 
-    def _gathered_state(self):
-        """The optimiser state with whole leaves: this rank's own at one
-        rank; over several, every rank's ZeRO-1 shards gathered to rank 0
-        (host arrays there, None elsewhere).  Every rank must call it."""
-        comm = self.rt.comm
-        if comm is None:
-            return self.opt_state
-        out = {"step": self.opt_state["step"]}
-        for k in ("master", "m", "v"):
-            got = iter([gather_to_host(x, p.shape, comm) for x, p in
-                        zip(leaves(self.opt_state[k]), leaves(self.params))])
-            out[k] = tree_map(lambda _: next(got), self.opt_state[k])
-        return out
+    def _gathered_trees(self):
+        """(params, optimiser state) with the global leaves, on world rank
+        0: at one rank its own trees; over several, every HDP group's
+        ZeRO-1 shards gathered to its rank 0, then under PP every stage's
+        window of the stacked leaves gathered to stage 0 (host arrays
+        there).  None leaves elsewhere.  Every rank must call it."""
+        if not self._multi:
+            return self.params, self.opt_state
+        comm, stages = self.rt.comm, self.rt.stage_comm
+
+        def global_leaf(x, p, taken, owned, sharded):
+            """This rank's part of a leaf (its ZeRO-1 shard if ``sharded``,
+            else the whole leaf) -> the global leaf at world rank 0.  A
+            stage group's ranks share their HDP position, so all of them
+            or none reach the stage gather."""
+            if sharded and comm is not None:
+                x = gather_to_host(x, p.shape, comm, taken)
+            elif comm is not None and comm.rank != 0:
+                x = None
+            if x is None or stages is None:
+                return x
+            if not owned:
+                return x if stages.rank == 0 else None
+            if isinstance(x, torch.Tensor):
+                x = x.detach().to("cpu", torch.float32, copy=True).numpy()
+            return stage_gather_to_host(x, stages)
+
+        def tree(src, sharded):
+            got = iter([global_leaf(x, p, t, o, sharded) for x, p, t, o in
+                        zip(leaves(src), leaves(self.params), self._taken,
+                            stage_owned(self.params))])
+            return tree_map(lambda _: next(got), src)
+
+        opt = {"step": self.opt_state["step"],
+               **{k: tree(self.opt_state[k], True)
+                  for k in ("master", "m", "v")}}
+        return tree(self.params, False), opt
 
     def _save(self, block: bool = False) -> None:
         """Checkpoint the current step.  Over several ranks every rank
-        must call it: the ZeRO-1 shards are gathered to rank 0, which
-        alone writes (after its previous write has finished, so its host
-        holds one snapshot at a time)."""
+        must call it: the ZeRO-1 shards and the stage windows are
+        gathered to world rank 0, which alone writes (after its previous
+        write has finished, so its host holds one snapshot at a time)."""
         t0 = self._clock()
         if self._lead():
             self.ckpt.wait()
         stats = {}
         t1 = self._clock()
-        opt = self._gathered_state()
-        if self.rt.hdp_size > 1:
+        params, opt = self._gathered_trees()
+        if self._multi:
             stats["gather_s"] = self._clock() - t1
             stats["gathered_bytes"] = 3.0 * sum(
-                p.numel() * 4 for p in leaves(self.params)
-                if zero1_dim(p.shape, self.rt.hdp_size) is not None)
+                p.numel() * 4 for p, t in zip(leaves(self.params),
+                                              self._taken)
+                if zero1_dim(p.shape, self.rt.hdp_size, t) is not None)
         if self._lead():
-            self.ckpt.save(self.step, self.params, opt, self.data_state(),
+            self.ckpt.save(self.step, params, opt, self.data_state(),
                            block=block)
             stats.update(self.ckpt.last_save)
-        del opt
+        del params, opt
         self.last_ckpt_step = self.step
         stats["save_s"] = self._clock() - t0
         self.ckpt_stats.update(stats)
@@ -350,7 +436,7 @@ class Trainer:
                  modeled: bool = False):
         """Feed one dispatch's time to the local calibrator (the
         reference's `_observe`; the loop calls the telemetry hook itself,
-        per wave): fresh dispatches are skipped unless the time is
+        per dispatch): fresh dispatches are skipped unless the time is
         modeled."""
         if (fresh_compile and not modeled) or not self.tcfg.calibrate:
             return
@@ -364,105 +450,142 @@ class Trainer:
             self.calib.observe(costs, seconds=float(measured), **kw)
 
     def _check_plan(self, plan) -> None:
-        """Every rank must run the same plan.  One all-gather of a prefix of
-        each rank's plan fingerprint, before the first wave; on a mismatch
-        every rank raises (one rank raising while the others wait inside a
-        wave's ring would hang them)."""
-        if self.rt.hdp_size == 1:
+        """Every rank of the world must run the same plan.  One gather
+        over the world (`_gather_world`) of a prefix of each rank's plan
+        fingerprint, before the first dispatch; on a mismatch every rank raises (one rank raising while
+        the others wait inside a wave's ring would hang them)."""
+        if not self._multi:
             return
-        got = fingerprints_by_rank(self.rt.comm, plan, self.rt.device)
+        got = fingerprints_by_rank(self._gather_world, plan, self.rt.device)
         if len(set(got)) > 1:
             raise RuntimeError(
-                f"step {self.step}: the HDP ranks planned different steps "
+                f"step {self.step}: the ranks planned different steps "
                 f"(plan fingerprint prefixes by rank {got})")
 
-    def _share_waves(self, losses, seconds, meas=None):
-        """Over several ranks, one all-gather of every rank's per-wave loss
-        shares and seconds -> (each wave's loss, summed over the ranks;
-        each wave's [hdp] seconds; ``meas``), the same on every rank.  With
-        the ledger on, ``meas`` (each wave's [ring, d2h, h2d bytes, peak]
-        of this rank) rides the same all-gather and comes back as fleet
-        totals: bytes summed over the ranks, the largest peak.  At one
-        rank the inputs themselves."""
-        if self.rt.hdp_size == 1:
-            return losses, seconds, meas
-        n = len(losses)
+    def _share(self, comm, losses, seconds, meas, per_rank: bool):
+        """One all-gather over ``comm`` of this rank's per-wave loss
+        shares, per-dispatch seconds and (ledger on) per-dispatch [ring,
+        pp, d2h, h2d bytes, peak] -> (losses summed over the ranks;
+        seconds, each dispatch's [size] vector if ``per_rank`` else the
+        largest; meas with bytes summed and the largest peak), the same on
+        every rank of ``comm``."""
+        nl, nd = len(losses), len(seconds)
         flat = [x for m in meas for x in m] if meas is not None else []
-        got = self.rt.comm.all_gather(torch.tensor(
+        got = comm.all_gather(torch.tensor(
             losses + seconds + flat, dtype=torch.float64,
             device=self.rt.device)).cpu().numpy()
         if meas is not None:
-            m = got[:, 2 * n:].reshape(self.rt.hdp_size, n, 4)
-            meas = [[*m[:, i, :3].sum(axis=0).tolist(),
-                     float(m[:, i, 3].max())] for i in range(n)]
-        return [float(x) for x in got[:, :n].sum(axis=0)], \
-            [got[:, n + i] for i in range(n)], meas
+            m = got[:, nl + nd:].reshape(comm.size, nd, 5)
+            meas = [[*m[:, i, :4].sum(axis=0).tolist(),
+                     float(m[:, i, 4].max())] for i in range(nd)]
+        secs = got[:, nl:nl + nd]
+        seconds = [secs[:, i] for i in range(nd)] if per_rank \
+            else secs.max(axis=0).tolist()
+        return [float(x) for x in got[:, :nl].sum(axis=0)], seconds, meas
+
+    def _share_waves(self, losses, seconds, meas=None):
+        """The step's numbers, the same on every rank of the world: each
+        wave's loss summed over the ranks (under PP the last stage's,
+        shared over the stage group), each dispatch's seconds (at one HDP
+        rank this rank's; else an [hdp] vector, under PP each HDP
+        position's slowest stage) and, with the ledger on, each dispatch's
+        fleet bytes and largest peak (`_share`).  At one rank the inputs
+        themselves."""
+        if self.rt.stage_comm is not None:
+            losses, seconds, meas = self._share(
+                self.rt.stage_comm, losses, seconds, meas, per_rank=False)
+        if self.rt.hdp_size > 1:
+            losses, seconds, meas = self._share(
+                self.rt.comm, losses, seconds, meas, per_rank=True)
+        return losses, seconds, meas
+
+    def _global_meta(self):
+        """The global parameter tree's shapes and dtypes as meta tensors
+        (a stage's stacked windows scaled back to [n_periods, ...])."""
+        num = self.rt.num_stages
+
+        def meta(p, owned):
+            shape = (p.shape[0] * num, *p.shape[1:]) if owned \
+                else tuple(p.shape)
+            return torch.empty(shape, dtype=p.dtype, device="meta")
+        got = iter([meta(p, o) for p, o in zip(leaves(self.params),
+                                               stage_owned(self.params))])
+        return tree_map(lambda _: next(got), self.params)
 
     def _ensure_ledger(self, tr) -> Optional[ledger_mod.Ledger]:
         """The bytes ledger (obs/ledger.py), built on the first dispatch
         with tracing or REPRO_LEDGER on (on every rank alike: its tallies
-        ride the step's all-gather), and rebuilt after a resize.  None
-        when the ledger is off (zero cost on the disabled path)."""
+        ride the step's all-gathers), and rebuilt after a resize.  None
+        when the ledger is off (zero cost on the disabled path).  Its
+        ZeRO-1 bytes are the reference's, priced on the global tree."""
         if not (tr.enabled or ledger_mod.ledger_enabled()):
             return None
         if self.ledger is None or self.ledger.hdp != self.sched.hdp:
             self.ledger = ledger_mod.Ledger(
                 self.cfg, capacity=self.tcfg.capacity, hdp=self.sched.hdp,
+                num_stages=self.rt.num_stages,
                 coeffs=self.sched.spec.coeffs,
                 offload_active=self.offload_ok)
-            self.ledger.set_step_bytes(zero1_bytes(self.params,
+            self.ledger.set_step_bytes(zero1_bytes(self._global_meta(),
                                                    self.rt.hdp_size))
         return self.ledger
 
-    def _dispatch(self, tr, led, rt_wave: Runtime, grads, batch, idx: int,
-                  composition, fresh: bool, wave):
-        """Run one wave under a span; a fresh cache entry's first call sits
-        in a nested "compile" span.  The loss fetch blocks until the wave
-        has run, so the time is the wave's.  With the ledger on (``led``)
-        -> also this rank's [ring bytes sent in the forward, offload d2h
+    def _dispatch(self, tr, led, run, idx: int, composition, fresh: bool,
+                  waves):
+        """Run one dispatch (a wave, or under PP a round; ``run()`` ->
+        (grads, loss tensor a wave)) under a span; a fresh cache entry's
+        first call sits in a nested "compile" span.  The loss fetch blocks
+        until the dispatch has run, so the time is its own.  -> (grads,
+        this rank's loss shares, seconds, with the ledger on (``led``)
+        this rank's [ring and pp bytes sent in the forward, offload d2h
         and h2d bytes, peak device memory of the dispatch (nan on the
-        CPU)]."""
+        CPU)])."""
         extra = {}
         if tr.enabled:
-            extra = {"cost_max": round(float(max(wave.costs)), 9),
-                     "cost_sum": round(float(sum(wave.costs)), 9),
-                     "tokens": int(sum(p.length for slot in wave.slots
+            extra = {"cost_max": round(float(max(
+                         np.sum([w.costs for w in waves], axis=0))), 9),
+                     "cost_sum": round(float(sum(sum(w.costs)
+                                                 for w in waves)), 9),
+                     "tokens": int(sum(p.length for w in waves
+                                       for slot in w.slots
                                        for p in slot))}
         store = self.offload_store
         moved = (store.d2h_bytes, store.h2d_bytes) if store else (0, 0)
         if led is not None:
             self.peak.start()
-        with tr.span("wave", step=self.step, idx=idx,
-                     composition=composition, fresh=fresh, **extra):
+        with tr.span("round" if self.pipelined else "wave", step=self.step,
+                     idx=idx, composition=composition, fresh=fresh,
+                     **extra):
             t_w = self._clock()
             with (ledger_mod.capture() if led is not None
                   else contextlib.nullcontext({})) as tally, \
                     (tr.span("compile", step=self.step,
                              composition=composition) if fresh
                      else contextlib.nullcontext()):
-                grads, metrics = self.grad_step(self.params, grads, batch,
-                                                rt_wave)
-                loss = float(metrics["loss"])
+                grads, loss = run()
+                loss = loss.tolist()
             dt = self._clock() - t_w
         meas = None
         if led is not None:
             peak = self.peak.read()
-            meas = [tally.get("ring", 0.0),
+            meas = [tally.get("ring", 0.0), tally.get("pp", 0.0),
                     float(store.d2h_bytes - moved[0]) if store else 0.0,
                     float(store.h2d_bytes - moved[1]) if store else 0.0,
                     float("nan") if peak is None else float(peak)]
         return grads, loss, dt, meas
 
     def _record_ledger(self, led, keys, fresh_flags, meas) -> None:
-        """One ledger record per wave of the step, from the fleet tallies
-        (the reference's per-dispatch record), and its metrics."""
+        """One ledger record per dispatch of the step, from the fleet
+        tallies (the reference's per-dispatch record), and its metrics."""
         mx = get_metrics()
-        for i, ((comp, c_mult, ratio), m) in enumerate(zip(keys, meas)):
-            ring, d2h, h2d, peak = m
+        for i, ((comp, c_mult, ratio, n), m) in enumerate(zip(keys, meas)):
+            ring, pp, d2h, h2d, peak = m
             rec = led.record_dispatch(
-                step=self.step, idx=i, kind="wave", composition=comp,
-                c_mult=c_mult, offload_ratio=ratio, fresh=fresh_flags[i],
-                measured={"ring": ring, "offload_d2h": d2h,
+                step=self.step, idx=i,
+                kind="round" if self.pipelined else "wave",
+                composition=comp, c_mult=c_mult, offload_ratio=ratio,
+                n_waves=n, fresh=fresh_flags[i],
+                measured={"ring": ring, "pp": pp, "offload_d2h": d2h,
                           "offload_h2d": h2d},
                 hbm_peak=peak if np.isfinite(peak) else None)
             self.last_ledger_record = rec
@@ -480,10 +603,10 @@ class Trainer:
         return bool(nf) and self.step == int(nf.get("step", -1)) \
             and idx == int(nf.get("wave", 0))
 
-    def _to_device(self, arrays: Dict[str, np.ndarray], denom: float,
-                   idx: int) -> Dict[str, torch.Tensor]:
-        """This rank's rows of a wave's global buffers, on the device: rank
-        r of hdp takes rows [r·C·c_mult, (r+1)·C·c_mult)."""
+    def _to_device(self, arrays: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a wave's global buffers, on the device: HDP
+        rank r of hdp takes rows [r·C·c_mult, (r+1)·C·c_mult)."""
         dev = self.rt.device
         hdp = self.rt.hdp_size
         r = 0 if hdp == 1 else self.rt.comm.rank
@@ -491,12 +614,35 @@ class Trainer:
         def rows(v):
             n = v.shape[0] // hdp
             return v[r * n:(r + 1) * n]
-        batch = {k: torch.from_numpy(np.ascontiguousarray(rows(v))).to(dev)
-                 for k, v in arrays.items()}
-        batch["denom"] = torch.tensor(
+        return {k: torch.from_numpy(np.ascontiguousarray(rows(v))).to(dev)
+                for k, v in arrays.items()}
+
+    def _denom(self, denom: float, idx: int) -> torch.Tensor:
+        return torch.tensor(
             float("nan") if self._nan_fault_hits(idx) else denom,
-            dtype=torch.float32, device=dev)
-        return batch
+            dtype=torch.float32, device=self.rt.device)
+
+    def _run_wave(self, grads, item, denom: float, idx: int, rt_wave):
+        """A wave's dispatch body: ``item`` a `LoadedWave` -> (run, None)."""
+        batch = self._to_device(item.batch)
+        batch["denom"] = self._denom(denom, idx)
+
+        def run():
+            g, metrics = self.grad_step(self.params, grads, batch, rt_wave)
+            return g, metrics["loss"][None]
+        return run, None
+
+    def _run_round(self, grads, item, denom: float, idx: int, rt_round):
+        """A round's dispatch body: ``item`` its stacked [M, ...] buffers
+        -> (run, the list its compute spans go to)."""
+        n = next(iter(item.values())).shape[0]
+        batches = [self._to_device({k: v[m] for k, v in item.items()})
+                   for m in range(n)]
+        den = self._denom(denom, idx)
+        busy: list = []
+        return (lambda: pipeline_grad_step(self.params, grads, self.cfg,
+                                           rt_round, batches, den, busy),
+                busy)
 
     def train_step(self) -> Dict:
         tr = get_tracer()
@@ -511,51 +657,68 @@ class Trainer:
         denom = float(plan.denom)
         grads = zeros_accum(self.params)
         led = self._ensure_ledger(tr)
-        losses, seconds, measured, fresh_flags = [], [], [], []
+        if self.pipelined:
+            # rounds of like waves, each one wavefront (parallel/pipeline);
+            # pre_waves: the service's pre-built round buffers (its
+            # rounds_fn is this split)
+            rounds = pipeline_rounds(plan, self.tcfg.max_round_waves)
+            units = [(rd.wave_ids, rd.composition, rd.c_mult,
+                      rd.offload_ratio) for rd in rounds]
+            items = iter(pre_waves) if pre_waves is not None \
+                else self.loader.iter_rounds(self.step, plan, rounds)
+            body = self._run_round
+        else:
+            units = [([i], tuple(w.composition), w.c_mult, w.offload_ratio)
+                     for i, w in enumerate(plan.waves)]
+            items = iter(pre_waves) if pre_waves is not None \
+                else self.loader.iter_step(self.step, plan)
+            body = self._run_wave
+        losses = [0.0] * len(plan.waves)      # this rank's shares
+        seconds, measured, fresh_flags, busy_s = [], [], [], []
         keys, meas = [], []
-        wave_iter = iter(pre_waves) if pre_waves is not None \
-            else self.loader.iter_step(self.step, plan)
-        for i in range(len(plan.waves)):
+        for i, (ids, comp, c_mult, ratio) in enumerate(units):
             with tr.span("materialize", step=self.step, idx=i):
-                lw = next(wave_iter)
-            wave = plan.waves[i]
-            batch = self._to_device(lw.batch, denom, i)
-            rt_wave, fresh = self._wave_fn(lw.composition, lw.c_mult,
-                                           lw.offload_ratio)
-            grads, loss, dt, m = self._dispatch(tr, led, rt_wave, grads,
-                                                batch, i, lw.composition,
-                                                fresh, wave)
-            keys.append((tuple(lw.composition), lw.c_mult, lw.offload_ratio))
+                item = next(items)
+            waves = [plan.waves[j] for j in ids]
+            rt_wave, fresh = self._wave_fn(comp, c_mult, ratio)
+            run, busy = body(grads, item, denom, i, rt_wave)
+            grads, loss, dt, m = self._dispatch(tr, led, run, i, comp,
+                                                fresh, waves)
+            if busy is not None:
+                busy_s.append(busy_seconds(busy))
+            for j, x in zip(ids, loss):
+                losses[j] = x
+            keys.append((tuple(comp), c_mult, ratio, len(ids)))
             meas.append(m)
-            losses.append(loss)
             seconds.append(dt)
             fresh_flags.append(fresh)
             mx.histogram("trainer.dispatch_s").observe(dt)
             measured.append(dt if self.wave_time_fn is None
-                            else self.wave_time_fn(wave))
+                            else self.wave_time_fn(
+                                waves if self.pipelined else waves[0]))
             if self.telemetry_fn is not None:
-                self.telemetry_fn([wave], measured[-1], fresh, wall_s=dt)
-        for _ in wave_iter:             # drain the prefetch epilogue so
+                self.telemetry_fn(waves, measured[-1], fresh, wall_s=dt)
+        for _ in items:                 # drain the prefetch epilogue so
             pass                        # producer errors still surface
         losses, rank_seconds, meas = self._share_waves(
             losses, seconds, meas if led is not None else None)
         if led is not None:
             self._record_ledger(led, keys, fresh_flags, meas)
         modeled = self.wave_time_fn is not None
-        for i, wave in enumerate(plan.waves):
-            self._observe([wave], measured[i] if modeled
-                          else rank_seconds[i], fresh_flags[i],
+        for i, (ids, *_) in enumerate(units):
+            self._observe([plan.waves[j] for j in ids], measured[i]
+                          if modeled else rank_seconds[i], fresh_flags[i],
                           modeled=modeled)
         with tr.span("apply", step=self.step):
             self.params, self.opt_state, om = self.apply_step(
                 self.params, self.opt_state, grads)
             del grads
             # ONE device->host fetch for the whole sentinel summary
-            keys = list(om)
+            om_keys = list(om)
             vals = torch.stack([torch.as_tensor(om[k]).to(
                 device=self.rt.device, dtype=torch.float64)
-                for k in keys]).tolist()
-            om = dict(zip(keys, vals))
+                for k in om_keys]).tolist()
+            om = dict(zip(om_keys, vals))
             for k in ("applied", "grad_nonfinite"):
                 om[k] = int(om[k])
         if self.tcfg.calibrate and self.calib.n_observed > 0:
@@ -574,6 +737,11 @@ class Trainer:
                "grad_norm": float(om["grad_norm"]),
                "wall_s": self._clock() - t0,
                "t_wall": time.time()}
+        if self.pipelined:
+            rec["rounds"] = len(units)
+            rec["bubble_frac_pipeline"] = pipeline_schedule_stats(
+                plan, self.rt.num_stages,
+                self.tcfg.max_round_waves)["bubble_frac_pipeline"]
         self.history.append(rec)
         self.last_numerics = {
             "step": self.step - 1, "loss": rec["loss"],
@@ -582,6 +750,13 @@ class Trainer:
             "applied": om["applied"], "wave_losses": losses,
             "wave_seconds": [np.asarray(x).tolist() for x in rank_seconds],
             "sentinels": {k: v for k, v in om.items() if k != "applied"}}
+        if self.pipelined:
+            # this rank's own: each round's seconds and compute seconds
+            self.last_numerics["round_seconds"] = seconds
+            self.last_numerics["round_busy_s"] = busy_s
+            self.last_numerics["rounds"] = [list(ids) for ids, *_ in units]
+            self.last_numerics["round_losses"] = [
+                float(np.sum([losses[j] for j in ids])) for ids, *_ in units]
         mx.counter("trainer.steps").inc()
         mx.counter("trainer.waves").inc(len(plan.waves))
         mx.gauge("trainer.loss").set(rec["loss"])
@@ -602,8 +777,8 @@ class Trainer:
     def run(self, steps: Optional[int] = None):
         """``steps`` more steps, then (with ``ckpt_dir`` and ``ckpt_save``)
         a blocking save of the last one, unless the periodic save already
-        wrote it.  Over several ranks one collective follows rank 0's
-        write, so no rank returns before the checkpoint is on disk."""
+        wrote it.  Over several ranks one collective follows world rank
+        0's write, so no rank returns before the checkpoint is on disk."""
         n = steps if steps is not None else self.tcfg.steps
         for _ in range(n):
             yield self.train_step()
@@ -614,5 +789,5 @@ class Trainer:
         if self._lead():
             self.ckpt.wait()
             self.ckpt_stats.update(self.ckpt.last_save)
-        if self.rt.hdp_size > 1:
+        if self._multi:
             self._all_gather_ints([self.step])

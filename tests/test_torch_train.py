@@ -357,8 +357,12 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1"])
     rt = Runtime(device="cpu")
+    # pipeline parallelism is ported (tests/test_torch_pipeline.py);
+    # tensor parallelism is not
+    from repro_torch.launch import train as launch_train
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        Trainer(cfg, rt, opt, sched, TrainerConfig(capacity=256, mode="pp"))
+        launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1",
+                           "--device", "cpu", "--mesh", "1x2"])
     # checkpointing is ported: ckpt_dir saves at the end of run, and a
     # fresh Trainer resumes there with the same parameters and state
     saver = Trainer(cfg, rt, opt, GlobalScheduler(ds, cfg, capacity=256,
