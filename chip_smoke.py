@@ -11,22 +11,28 @@ Phases (any failure raises and exits non-zero before the result line):
    sources (flash_fwd, flash_bwd, fused_ce: one nvcc per source, all
    started together) and prints ptxas' registers and spills per kernel;
    fails unless the report holds all nine instantiations of the dq
-   kernel (Dk, Dv in 32, 64, 128) and none of them spills.
+   kernel (Dk, Dv in 32, 64, 128) and the (256, 256) instantiations of
+   the carry and finalising forward, dq and dkv, and none of them spills.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card.  Flash forward: the slice's shape [8,3,4096,128] bf16 with packed
    segments (3000/900/120), padding rows and a non-zero carry-in; the
    skip-heavy case, 64 segments of 64 tokens at the same shape (only the
    diagonal tiles live); a ragged T=S=4000; a window=16/softcap=30 case;
-   Dv=64 != Dk=128.  Flash backward (dq, then dkv from dq's delta): the
-   same five cases from the forward kernel's (out, lse); dq's delta is
+   Dv=64 != Dk=128; and head dim 256 at the Gemma models' widths (G 8,
+   Hg 2): T=S=8192 with segments 6000/2000/150 + padding, window 4096,
+   softcap 50 (gemma2-9b's local layers over one prefill wave), and
+   T=S=4096 with segments 3000/900/120, window 1024, no softcap
+   (gemma3-12b's).  Flash backward (dq, then dkv from dq's delta): the
+   same seven cases from the forward kernel's (out, lse); dq's delta is
    held to rowsum(do * out) within 1e-4, and the Dk=128 Dv=64 case has
    Hg = 4, which the dq kernel's three heads per block do not divide.
    Each attention case prints the fraction of 64x64 tiles the kernels
    visit, from the port's tile predicate (`core/ring.py::tile_liveness`),
-   and each backward row its instantiation's ptxas registers and spills.  Fused
-   cross-entropy forward and backward: [4096,128256] bf16 with padding
-   rows (label 0, g = 0) and V=4096.  Tolerance 2e-2 element-wise (bf16,
-   the reference's kernel-test tolerance) and 2e-2 relative L2 per output;
+   and each forward and backward row its instantiation's ptxas
+   registers and spills.  Fused cross-entropy forward and backward:
+   [4096,128256] bf16 with padding rows (label 0, g = 0) and V=4096.
+   Tolerance 2e-2 element-wise (bf16, the reference's kernel-test
+   tolerance) and 2e-2 relative L2 per output;
    padding rows must come out exactly 0 (dq, dk/dv of padding keys,
    dlogits) with lse exactly -1e30 (finalising forward) or keep their
    carry-in exactly.  Prints max error, relative L2, ms, plain_ms,
@@ -209,11 +215,36 @@ Phases (any failure raises and exits non-zero before the result line):
    formula and the reference's prediction, and peaks by stage.  The four
    processes share one card, so the stages' compute overlaps on it and
    the measured bubble is not that of four cards.
-13. report — one JSON line of every kernel (launches on the paths that
+13. gemma  — the Gemma-style decoders (local and global layers,
+   softcaps, post-block and q/k norms, the embedding scale, head_dim 256
+   in all four flash kernels), random weights from seed 0.  For
+   gemma2-9b (42 layers, d 3584, 16/8 heads, vocab 256000; ~18.5 GB of
+   bf16 weights) and then gemma3-12b (48 layers, d 3840, vocab 262144,
+   ``lllllg``, window 1024): (a) served at full width and depth through
+   `ServeEngine` at max_context and prefill capacity 8192: phase 4's 8
+   prompts plus one of 6000 tokens (over gemma2's 4096 window, so the
+   local layers mask and their ring buffers wrap), 16 new tokens each;
+   phase 4's gates (the carry kernel layers x prefill waves times, no
+   backward or CE kernel, finite logits), the cache positions a layer
+   (the window in a local layer, 8192 in a global one), and the longest
+   request's logits within an rms of 0.08 of a float32 teacher-forced
+   forward (weights upcast a layer at a time); (b) the depth cut to one
+   layer period (2 / 6 layers), every request held element-wise as phase
+   4's 2-layer case; (c) trained at full width cut to 4 / 6 layers
+   through `Trainer.train_step`: github at context and wave capacity
+   8192, 16384 tokens a step, 3 steps, per wave exactly 2 x layers carry
+   launches, layers dq and dkv, one CE each way; then the first wave at
+   capacity 8192 (gemma3-12b: 4096, which its float32 route needs to fit
+   the card) through the kernel route against the float32 plain route
+   (phase 5's 1e-2 loss and 5e-2 per-leaf gates; the kernel route's
+   gradients kept in host memory).  Prints the card, ms a wave, tokens/s
+   and peaks.
+14. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
-   engine's, the checkpoint phase's, the MoE phase's and the pipelined
-   trainer's; errors, times, bounds), then the result line.
+   engine's, the checkpoint phase's, the MoE phase's, the pipelined
+   trainer's and the Gemma phase's; errors, times, bounds), then the
+   result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -332,12 +363,17 @@ def phase_device(torch) -> str:
 
 DQ_KERNELS = {f"flash_bwd_dq_kernel<{dk},{dv}>"
               for dk in (32, 64, 128) for dv in (32, 64, 128)}
+# head dim 256 (Gemma-2 and Gemma-3): carry and finalising forward, dq, dkv
+D256_KERNELS = {"flash_fwd_kernel<256,256,1>", "flash_fwd_kernel<256,256,0>",
+                "flash_bwd_dq_kernel<256,256>",
+                "flash_bwd_dkv_kernel<256,256>"}
+GATED_KERNELS = DQ_KERNELS | D256_KERNELS
 
 
 def phase_build() -> dict:
     """-> {kernel<template args>: (registers, spill stores, spill loads)};
-    raises if an instantiation of the dq kernel is missing from the report
-    or spills."""
+    raises if an instantiation of the dq kernel or one of the (256, 256)
+    instantiations is missing from the report or spills."""
     from repro_torch.kernels import build
     names = sorted({Path(src).stem for _, src, _, _, _ in KERNELS})
     t0 = time.perf_counter()
@@ -349,12 +385,13 @@ def phase_build() -> dict:
             log(f"[build] {name}: {kern} registers {regs} spill stores "
                 f"{st} B, spill loads {ld} B")
             report[kern] = (regs, st, ld)
-    missing = DQ_KERNELS - set(report)
+    missing = GATED_KERNELS - set(report)
     if missing:
         raise AssertionError(f"no ptxas report for {sorted(missing)}")
-    spills = {k: report[k] for k in DQ_KERNELS if report[k][1] or report[k][2]}
+    spills = {k: report[k] for k in GATED_KERNELS
+              if report[k][1] or report[k][2]}
     if spills:
-        raise AssertionError(f"the dq kernel spills: {spills}")
+        raise AssertionError(f"a gated kernel spills: {spills}")
     return report
 
 
@@ -449,8 +486,10 @@ def visible_pairs(seg_np, pos_np, window) -> int:
 
 
 def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
-             softcap=0.0, seed=0):
-    """Both forward kernels (self-attention over one packed buffer)."""
+             softcap=0.0, seed=0, ptxas=None):
+    """Both forward kernels (self-attention over one packed buffer); with
+    the build report ``ptxas``, each row prints its instantiation's
+    registers and spills."""
     from repro_torch.core.attention import attention_mask
     rng, args, seg_np, pos_np = attn_inputs(torch, g, hg, t, dk, dv, lens,
                                             seed)
@@ -526,15 +565,18 @@ def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
     extra = {"n_pairs": n_pairs,
              "live_tiles": live_fraction(torch, seg_np, pos_np, window)}
     for key, row in rows.items():
+        regs = "" if ptxas is None else " " + fmt(ptxas_of(
+            ptxas, "flash_fwd_kernel", dk, dv, int(key == "flash_fwd_carry")))
         log(f"[kernels] {name} {key}: "
-            f"{fmt({**row, 'bound': row['bound'][0], **extra})}")
+            f"{fmt({**row, 'bound': row['bound'][0], **extra})}{regs}")
     return rows
 
 
-def ptxas_of(ptxas, kernel, dk, dv) -> dict:
+def ptxas_of(ptxas, kernel, *targs) -> dict:
     """Registers and spill bytes of the instantiation of ``kernel`` for
-    (dk, dv) in the build report; raises if the report lacks it."""
-    regs, st, ld = ptxas[f"{kernel}<{dk},{dv}>"]
+    the template arguments ``targs`` (dk, dv[, carry]) in the build
+    report; raises if the report lacks it."""
+    regs, st, ld = ptxas[f"{kernel}<{','.join(map(str, targs))}>"]
     return {"registers": regs, "spill_bytes": st + ld}
 
 
@@ -675,6 +717,19 @@ def ce_case(torch, CE, name, *, t, v, n_pad, seed=0):
     return rows
 
 
+# head dim 256 at the Gemma models' widths (8 kv heads, 2 q heads each):
+# gemma2-9b's local layers (window 4096, softcap 50) over one prefill wave
+# of phase 13's capacity, and gemma3-12b's (window 1024, no softcap)
+D256_CASES = [
+    ("gemma2 local [8,2,8192,256]", dict(
+        g=8, hg=2, t=8192, dk=256, dv=256, lens=[6000, 2000, 150],
+        window=4096, softcap=50.0, seed=5)),
+    ("gemma3 local [8,2,4096,256]", dict(
+        g=8, hg=2, t=4096, dk=256, dv=256, lens=[3000, 900, 120],
+        window=1024, seed=6)),
+]
+
+
 def phase_kernels(torch, ptxas):
     """-> list of cases, each {kernel name: row}; the first case of each
     kernel is at the slice's shape."""
@@ -693,7 +748,9 @@ def phase_kernels(torch, ptxas):
         ("Dk=128 Dv=64", dict(g=2, hg=4, t=512, dk=128, dv=64,
                               lens=[300, 150, 33], seed=3)),
     ]
-    cases = [fwd_case(torch, FA, name, **kw) for name, kw in attn]
+    attn += D256_CASES
+    cases = [fwd_case(torch, FA, name, ptxas=ptxas, **kw)
+             for name, kw in attn]
     cases += [bwd_case(torch, FA, ptxas, name, **kw) for name, kw in attn]
     cases.append(ce_case(torch, CE, "CE [4096,128256]", t=4096, v=128256,
                          n_pad=76))
@@ -708,19 +765,22 @@ def phase_kernels(torch, ptxas):
 # 4. serve
 # ---------------------------------------------------------------------------
 
-def serve_pool(torch, cfg, params, rt, during=None):
-    """The 8-request pool through `ServeEngine`, drained; launch counts
-    are zeroed just before the drain and read just after.  ``during(eng,
-    rids)``: a context manager kept open over the drain."""
+def serve_pool(torch, cfg, params, rt, during=None, *, lens=PROMPT_LENS,
+               context=4096):
+    """The pool of prompts of ``lens`` tokens (default phase 4's 8), one
+    slot each, through `ServeEngine` at max_context and prefill capacity
+    ``context``, drained; launch counts are zeroed just before the drain
+    and read just after.  ``during(eng, rids)``: a context manager kept
+    open over the drain."""
     import numpy as np
     from repro_torch.serve import ServeConfig, ServeEngine
 
     eng = ServeEngine(params, cfg, rt, ServeConfig(
-        max_slots=8, max_context=4096, prefill_capacity=4096,
+        max_slots=len(lens), max_context=context, prefill_capacity=context,
         collect_logits=True))
     rng = np.random.RandomState(0)
     rids = [eng.submit(rng.randint(0, cfg.vocab_size, n), NEW_TOKENS)
-            for n in PROMPT_LENS]
+            for n in lens]
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
@@ -766,6 +826,39 @@ def teacher_forced(torch, params, cfg, rt, req):
             "pos": torch.arange(n, dtype=torch.int32, device=dev)})
         return logits_head(params, cfg, h[req.plen - 1:]).float().cpu() \
             .numpy()
+
+
+def hold_elementwise(torch, params, cfg, rt, reqs, tag):
+    """Every request's logit rows element-wise against its bf16
+    teacher-forced forward at test_serve's atol = rtol = 0.08, and its
+    greedy tokens against that forward's argmax but at near-ties (top-two
+    gap under 0.08, printed) -> (max abs error, near-ties)."""
+    import numpy as np
+    err = 0.0
+    near_ties = 0
+    for r in reqs:
+        ref = teacher_forced(torch, params, cfg, rt, r)
+        got = np.stack(r.logits)
+        err = max(err, float(np.abs(got - ref).max()))
+        if not np.allclose(got, ref, atol=SERVE_TOL, rtol=SERVE_TOL):
+            raise AssertionError(f"{tag} request {r.rid}: engine vs "
+                                 f"teacher-forced logits differ by {err}")
+        # greedy tokens: the teacher-forced argmax (tests/test_serve.py),
+        # but for near-ties that the logit hold above already covers
+        for j, (tok, want) in enumerate(zip(r.generated, ref.argmax(-1))):
+            if tok == want:
+                continue
+            top2 = np.sort(ref[j])[-2:]
+            gap = float(top2[1] - top2[0])
+            log(f"{tag} request {r.rid} position {j}: engine token {tok}, "
+                f"teacher-forced argmax {int(want)}, top-two gap {gap}")
+            if not gap < SERVE_TOL:
+                raise AssertionError(
+                    f"{tag} request {r.rid} position {j}: greedy token "
+                    f"{tok} is not the teacher-forced argmax {int(want)} "
+                    f"and the top-two gap {gap} is no near-tie")
+            near_ties += 1
+    return err, near_ties
 
 
 def phase_serve(torch):
@@ -835,31 +928,8 @@ def phase_serve(torch):
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     params2 = init_params(cfg2, seed=0, device="cuda")
     eng2, reqs2, launches2, _ = serve_pool(torch, cfg2, params2, rt)
-    err2 = 0.0
-    near_ties = 0
-    for r in reqs2:
-        ref2 = teacher_forced(torch, params2, cfg2, rt, r)
-        got2 = np.stack(r.logits)
-        err2 = max(err2, float(np.abs(got2 - ref2).max()))
-        if not np.allclose(got2, ref2, atol=SERVE_TOL, rtol=SERVE_TOL):
-            raise AssertionError(f"2-layer request {r.rid}: engine vs "
-                                 f"teacher-forced logits differ by {err2}")
-        # greedy tokens: the teacher-forced argmax (tests/test_serve.py),
-        # but for near-ties that the logit hold above already covers
-        for j, (tok, want) in enumerate(zip(r.generated, ref2.argmax(-1))):
-            if tok == want:
-                continue
-            top2 = np.sort(ref2[j])[-2:]
-            gap = float(top2[1] - top2[0])
-            log(f"[serve] 2-layer request {r.rid} position {j}: engine "
-                f"token {tok}, teacher-forced argmax {int(want)}, top-two "
-                f"gap {gap}")
-            if not gap < SERVE_TOL:
-                raise AssertionError(
-                    f"2-layer request {r.rid} position {j}: greedy token "
-                    f"{tok} is not the teacher-forced argmax {int(want)} "
-                    f"and the top-two gap {gap} is no near-tie")
-            near_ties += 1
+    err2, near_ties = hold_elementwise(torch, params2, cfg2, rt, reqs2,
+                                       "[serve] 2-layer")
     res["layers2_max_abs_err"] = err2
     res["layers2_token_near_ties"] = near_ties
     res["layers2_carry_launches"] = launches2["flash_fwd_carry"]
@@ -871,10 +941,10 @@ def phase_serve(torch):
 # 5. train
 # ---------------------------------------------------------------------------
 
-def train_setup(cfg, *, tokens_per_step=16384, capacity=4096):
+def train_setup(cfg, *, tokens_per_step=16384, capacity=4096, context=4096):
     from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
     ds = SyntheticDataset("github", cfg.vocab_size,
-                          tokens_per_step=tokens_per_step, context=4096)
+                          tokens_per_step=tokens_per_step, context=context)
     return GlobalScheduler(ds, cfg, capacity=capacity, hdp=1,
                            strategy="balance", use_offload=False)
 
@@ -966,10 +1036,16 @@ def train_full(torch, cfg, steps=3, sched=None, tcfg=None, tag="train",
     return totals, res, records
 
 
-def train_layers2(torch, cfg):
-    """One wave at full width cut to 2 layers: the kernel route (bf16,
-    flash + fused CE) and the bf16 plain route against the float32 plain
-    route (weights upcast, attn_impl="ref", plain CE)."""
+def train_hold(torch, cfg, *, layers=2, capacity=4096, tag="train",
+               lean=False):
+    """One wave (the first of step 0 at wave capacity and context
+    ``capacity``) at full width cut to ``layers`` layers: the kernel route
+    (bf16, flash + fused CE) and, unless ``lean``, the bf16 plain route
+    against the float32 plain route (weights upcast, attn_impl="ref",
+    plain CE).  ``lean`` (phase 13's widths, where the float32 route's
+    [8192, 262144] logits and their gradients take ~40 GB) keeps the
+    kernel route's gradients in host memory and frees the bf16 weights
+    before the float32 route."""
     from repro_torch.data.loader import WaveMaterializer
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import AdamWConfig
@@ -977,11 +1053,12 @@ def train_layers2(torch, cfg):
     from repro_torch.train.train_step import make_accum_steps, zeros_accum
     from repro_torch.tree import leaves, tree_map
 
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    sched = train_setup(cfg2)
+    cfg2 = dataclasses.replace(cfg, num_layers=layers)
+    sched = train_setup(cfg2, capacity=capacity, context=capacity)
     plan = sched.plan_step(0)
     sched.stop()
-    lw = WaveMaterializer(sched.ds, cfg2, 4096).materialize(0, plan.waves[0])
+    lw = WaveMaterializer(sched.ds, cfg2, capacity).materialize(
+        0, plan.waves[0])
     batch = {k: torch.tensor(v, device=DEVICE) for k, v in lw.batch.items()}
     batch["denom"] = torch.tensor(float(plan.denom), device=DEVICE)
     params = init_params(cfg2, seed=0, device=DEVICE)
@@ -993,24 +1070,35 @@ def train_layers2(torch, cfg):
         return m["loss"].item(), acc
 
     loss_k, g_k = run(cfg2, params, "flash")
-    loss_b, g_b = run(cfg2, params, "ref")
-    loss_32, g_32 = run(dataclasses.replace(cfg2, dtype="float32"),
-                        tree_map(lambda x: x.float(), params), "ref")
-    rel = [rel_l2(a, b) for a, b in zip(leaves(g_k), leaves(g_32))]
-    rel_b = [rel_l2(a, b) for a, b in zip(leaves(g_b), leaves(g_32))]
     res = {"wave_tokens": int((lw.batch["seg"] > 0).sum()),
-           "loss_kernel": loss_k, "loss_f32": loss_32, "loss_bf16_plain":
-           loss_b, "loss_rel_err": abs(loss_k - loss_32) / abs(loss_32),
-           "loss_rel_err_bf16_plain": abs(loss_b - loss_32) / abs(loss_32),
-           "grad_rel_l2_max": max(rel), "grad_rel_l2_max_bf16_plain":
-           max(rel_b), "n_leaves": len(rel)}
-    log(f"[train] layers2 {fmt(res)}")
+           "loss_kernel": loss_k}
+    if lean:
+        g_k = tree_map(lambda x: x.cpu(), g_k)
+    else:
+        loss_b, g_b = run(cfg2, params, "ref")
+    params32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    loss_32, g_32 = run(dataclasses.replace(cfg2, dtype="float32"),
+                        params32, "ref")
+    rel = [rel_l2(a, b.to(a.device)) for a, b in zip(leaves(g_k),
+                                                     leaves(g_32))]
+    res.update({"loss_f32": loss_32,
+                "loss_rel_err": abs(loss_k - loss_32) / abs(loss_32),
+                "grad_rel_l2_max": max(rel), "n_leaves": len(rel)})
+    if not lean:
+        rel_b = [rel_l2(a, b) for a, b in zip(leaves(g_b), leaves(g_32))]
+        res.update({"loss_bf16_plain": loss_b, "loss_rel_err_bf16_plain":
+                    abs(loss_b - loss_32) / abs(loss_32),
+                    "grad_rel_l2_max_bf16_plain": max(rel_b)})
+    log(f"[{tag}] layers{layers} {fmt(res)}")
     if not res["loss_rel_err"] <= TRAIN_LOSS_TOL:
-        raise AssertionError(f"2-layer loss: kernel route {loss_k} vs "
-                             f"float32 {loss_32}")
+        raise AssertionError(f"{layers}-layer loss: kernel route {loss_k} "
+                             f"vs float32 {loss_32}")
     if not max(rel) <= TRAIN_GRAD_TOL:
-        raise AssertionError(f"2-layer grads: relative L2 up to {max(rel)} "
-                             f"against the float32 route")
+        raise AssertionError(f"{layers}-layer grads: relative L2 up to "
+                             f"{max(rel)} against the float32 route")
+    return res
 
 
 def phase_train(torch):
@@ -1018,7 +1106,7 @@ def phase_train(torch):
     torch.cuda.empty_cache()
     cfg = get_config("llama3.2-3b")
     launches, _, _ = train_full(torch, cfg)
-    train_layers2(torch, cfg)
+    train_hold(torch, cfg)
     return launches
 
 
@@ -3153,17 +3241,178 @@ def phase_pipeline(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 13. report
+# 13. gemma
+# ---------------------------------------------------------------------------
+
+GEMMA_CONTEXT = 8192            # max_context, prefill and wave capacity
+GEMMA_LONG = 6000               # a prompt over gemma2-9b's 4096 window
+# (serving cut: one layer period; training depth; the float32 hold's wave
+# capacity: at 8192, gemma3-12b's float32 route, its [8192, 262144] logits
+# and their gradients (~43 GB) beside 19 GB of float32 weights and
+# gradients, ran out of the card's memory)
+GEMMA_CUTS = {"gemma2-9b": (2, 4, 8192), "gemma3-12b": (6, 6, 4096)}
+
+
+def teacher_forced_f32(torch, params, cfg, req):
+    """Logit rows of one request from a float32 packed forward over its
+    prompt and generated tokens (plain attention), the weights upcast one
+    layer at a time: a float32 copy of gemma3-12b whole would take 47 GB
+    beside its bf16 weights."""
+    import numpy as np
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.tree import tree_map
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rt = Runtime(device=DEVICE, attn_impl="ref")
+    toks = np.concatenate([req.prompt, np.asarray(req.generated[:-1])])
+    n = len(toks)
+    with torch.inference_mode():
+        seg = torch.ones(n, dtype=torch.int32, device=DEVICE)
+        pos = torch.arange(n, dtype=torch.int32, device=DEVICE)
+        emb = {"embed": params["embed"].float()}
+        x = T.embed_tokens(emb, cfg32, torch.tensor(toks, dtype=torch.int32,
+                                                    device=DEVICE))
+        period = len(cfg.layer_pattern)
+        for i in range(cfg.num_layers // period):
+            for j in range(period):
+                bp = tree_map(lambda a: a.float(),
+                              T._index(params["blocks"][j], i))
+                x = T.block_forward(bp, cfg32, rt, x, seg, pos, j)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return T.logits_head(emb, cfg32, x[req.plen - 1:]).cpu().numpy()
+
+
+def gemma_serve(torch, cfg, tag):
+    """Full width and depth: phase 4's pool plus one GEMMA_LONG-token
+    prompt at max_context and prefill capacity GEMMA_CONTEXT, held as
+    phase 4 holds it (counts, finiteness, the longest request's rms to a
+    float32 teacher-forced forward); then the depth cut to one layer
+    period, every request held element-wise -> (launches, results)."""
+    import numpy as np
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.serve_step import cache_bytes
+    from repro_torch.tree import leaves
+
+    lens = PROMPT_LENS + [GEMMA_LONG]
+    rt = Runtime(device=DEVICE)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in leaves(params))
+    log(f"{tag} {cfg.name}: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"{n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng, reqs, launches, wall = serve_pool(torch, cfg, params, rt, lens=lens,
+                                           context=GEMMA_CONTEXT)
+    peak = torch.cuda.max_memory_allocated()
+    cache_lens = sorted({c["k"].shape[2] for c in eng.cache["blocks"]})
+    slab = cache_bytes(eng.cache)
+    waves = eng.stats["prefill_waves"]
+    decode_s = sum(r.decode_s for r in reqs)
+    res = {"prefill_waves": waves,
+           "decode_waves": eng.stats["decode_waves"],
+           "carry_launches": launches["flash_fwd_carry"],
+           "cache_positions": cache_lens, "slab_gb": slab / 1e9,
+           "prefill_ms_per_wave":
+               sum(r.prefill_s for r in reqs) / waves * 1e3,
+           "prefill_tokens_per_s": sum(lens) / sum(r.prefill_s
+                                                   for r in reqs),
+           "decode_ms_per_wave": decode_s / eng.stats["decode_waves"] * 1e3,
+           "decode_tokens_per_s":
+               sum(len(r.generated) - 1 for r in reqs) / decode_s,
+           "ttft_s_last": max(r.t_first - r.t_submit for r in reqs),
+           "drain_s": wall, "peak_mem_gb": peak / 1e9}
+    del eng
+    torch.cuda.empty_cache()
+    req = max(reqs, key=lambda r: r.plen)
+    got = np.stack(req.logits)
+    ref = teacher_forced_f32(torch, params, cfg, req)
+    res["tf32ref_rms_err"] = float(np.sqrt(np.mean((got - ref) ** 2)))
+    res["tf32ref_max_abs_err"] = float(np.abs(got - ref).max())
+    res["tf32ref_same_tokens"] = [int(x) for x in ref.argmax(-1)] \
+        == req.generated
+    if not res["tf32ref_rms_err"] <= SERVE_TOL:
+        raise AssertionError(f"{cfg.name}: engine vs float32 teacher-forced "
+                             f"logits of the {req.plen}-token request: rms "
+                             f"{res['tf32ref_rms_err']} > {SERVE_TOL}")
+    want = [cfg.window if c == "l" else GEMMA_CONTEXT
+            for c in sorted(set(cfg.layer_pattern))]
+    if cache_lens != sorted(want):
+        raise AssertionError(f"{cfg.name}: cache positions {cache_lens}, "
+                             f"want {sorted(want)}")
+    del params
+    torch.cuda.empty_cache()
+
+    cut = GEMMA_CUTS[cfg.name][0]
+    cfg_c = dataclasses.replace(cfg, num_layers=cut)
+    params_c = init_params(cfg_c, seed=0, device=DEVICE)
+    _, reqs_c, launches_c, _ = serve_pool(torch, cfg_c, params_c, rt,
+                                          lens=lens, context=GEMMA_CONTEXT)
+    err, ties = hold_elementwise(torch, params_c, cfg_c, rt, reqs_c,
+                                 f"{tag} {cut}-layer")
+    res.update({f"layers{cut}_max_abs_err": err,
+                f"layers{cut}_token_near_ties": ties,
+                f"layers{cut}_carry_launches": launches_c["flash_fwd_carry"]})
+    log(f"{tag} serve {cfg.name} {fmt(res)}")
+    del params_c
+    torch.cuda.empty_cache()
+    for name, n in launches_c.items():
+        launches[name] += n
+    return launches
+
+
+def gemma_train(torch, cfg, tag):
+    """Full width cut to the training depth: 3 `Trainer` steps of github
+    lengths at context and wave capacity GEMMA_CONTEXT with exact launches
+    a wave, then one wave held to the float32 plain route."""
+    from repro_torch.train.trainer import TrainerConfig
+    _, layers, hold_capacity = GEMMA_CUTS[cfg.name]
+    cfg_t = dataclasses.replace(cfg, num_layers=layers)
+    want = {"flash_fwd": 0, "flash_fwd_carry": 2 * layers,
+            "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+            "fused_ce_fwd": 1, "fused_ce_bwd": 1}
+    launches, _, _ = train_full(
+        torch, cfg_t, sched=train_setup(cfg_t, capacity=GEMMA_CONTEXT,
+                                        context=GEMMA_CONTEXT),
+        tcfg=TrainerConfig(capacity=GEMMA_CONTEXT), tag=f"{tag[1:-1]} train",
+        want=want)
+    train_hold(torch, cfg, layers=layers, capacity=hold_capacity,
+               tag=f"{tag[1:-1]} train", lean=True)
+    return launches
+
+
+def phase_gemma(torch, card):
+    """gemma2-9b and gemma3-12b served at full depth and trained cut to
+    depth -> their launches, summed."""
+    from repro_torch.configs.registry import get_config
+    tag = "[gemma]"
+    log(f"{tag} {card}")
+    total = {name: 0 for name, *_ in KERNELS}
+    for arch in ("gemma2-9b", "gemma3-12b"):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        for part in (gemma_serve, gemma_train):
+            torch.cuda.empty_cache()
+            for name, n in part(torch, cfg, tag).items():
+                total[name] += n
+        log(f"{tag} {arch} done in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 14. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
                  hdp_launches, offload_launches, hdp_serve_launches,
-                 ckpt_launches, moe_launches, pp_launches):
+                 ckpt_launches, moe_launches, pp_launches, gemma_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
     its ranks), the offloading trainer's, the hdp = 4 engine's (summed
-    over its ranks), the checkpoint phase's, the MoE phase's and the
-    pipelined trainer's (summed over its ranks)."""
+    over its ranks), the checkpoint phase's, the MoE phase's, the
+    pipelined trainer's (summed over its ranks) and the Gemma phase's."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -3177,7 +3426,8 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             "launches": launches[name] + ring_launches[name]
             + hdp_launches[name] + offload_launches[name]
             + hdp_serve_launches[name] + ckpt_launches[name]
-            + moe_launches[name] + pp_launches[name],
+            + moe_launches[name] + pp_launches[name]
+            + gemma_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -3219,10 +3469,13 @@ def main() -> int:
     log(f"[moe] done at {time.perf_counter() - t0:.1f} s")
     pp_launches = phase_pipeline(torch, card)
     log(f"[pipeline] done at {time.perf_counter() - t0:.1f} s")
+    gemma_launches = phase_gemma(torch, card)
+    log(f"[gemma] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
                                 offload_launches, hdp_serve_launches,
-                                ckpt_launches, moe_launches, pp_launches)))
+                                ckpt_launches, moe_launches, pp_launches,
+                                gemma_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,9 +23,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import stage_periods
 from repro_torch.parallel.sharding import resolve_device
 
-# leaves kept in float32 whatever the model dtype (norm scales, the MoE
-# router)
-_FP32_LEAVES = ("scale", "router")
+# leaves kept in float32 whatever the model dtype (norm scales, the q/k
+# head norms, the MoE router)
+_FP32_LEAVES = ("scale", "router", "q_norm", "k_norm")
 _LIST_NODES = ("blocks", "head_blocks")
 
 

@@ -134,7 +134,11 @@ def ring_liveness(comm, composition: Sequence[int], q_seg, q_pos, k_seg,
     gate, identical in the forward and the backward.  Step 0 (the local
     block) is always live.  One ``all_gather`` of the eight metadata ints
     of every rank and one host fetch per call; none when there is no
-    visiting block to judge."""
+    visiting block to judge.  Each attention layer calls it with its own
+    ``window`` (0 for a global layer, the config's for a local one), so
+    one wave's global and local layers get the reference's gate each: a
+    visiting block further back than a local layer's window is dead for
+    that layer only."""
     size = sum(composition)
     steps = max(composition) - 1
     sizes, starts = (x.tolist() for x in composition_tables(composition))

@@ -42,7 +42,8 @@
 //    tile and head: S = Q K^T and dP = dO V^T (m64n64k16, both operands in
 //    shared memory); ds in registers; dQ += dS K (m64n{Dk}k16, dS as hi +
 //    lo register A fragments, K read MN-major from the tile S used).  dq
-//    stays in registers (64 floats a thread at Dk = 128).  A warpgroup
+//    stays in registers (64 floats a thread at Dk = 128; 128 at Dk = 256,
+//    where the block holds one head: `DqCfg`).  A warpgroup
 //    whose head is past Hg skips the products and stores but reaches every
 //    barrier.  The blocks of the last q tiles, which see the most KV tiles
 //    under a causal mask, start first.  On an H100 three heads a block beat
@@ -65,6 +66,15 @@
 //    (128 KV rows a block, a three-stage ring, one block per SM) gave the
 //    same bits but ran slower on an H100 (PERF.md): the Q/dO loads do not
 //    bound this kernel.
+//  * dkv at Dk = Dv = 256 (`DkvCfg::SPLIT`): dk and dv would be 128 + 128
+//    fp32 a thread, more than the 255 registers a thread can hold.  Two
+//    warpgroups share each 64-row KV tile and its Q/dO ring (256 threads,
+//    one block an SM, 194 KB of shared memory): warpgroup 0 holds dV and
+//    warpgroup 1 dK.  Each computes S^T = K Q^T itself (the dV warpgroup
+//    needs P^T, the dK one dS^T, which also takes dP^T = V dO^T), so one
+//    product of the four a step is done twice, where sharing P^T through
+//    shared memory would add a barrier between the warpgroups on every
+//    step; two passes over the q tiles would load Q and dO twice.
 // Ragged tails (T % 64, S % 64) load as zeros with segment 0.  dq writes
 // every row < T of its tile (zeros where no key is visible), dkv every
 // row < S of its tile.
@@ -93,7 +103,6 @@ namespace {
 
 using namespace flash;
 
-constexpr int NTHREADS = 128;             // dkv: one warpgroup a block
 
 __device__ __forceinline__ bool visible(int qs, int qp, int ks, int kp,
                                         int causal, int window) {
@@ -121,9 +130,16 @@ __device__ __forceinline__ void pair_grad(float raw, float dp, bool ok,
 // dq
 // ---------------------------------------------------------------------------
 
-constexpr int DQ_NW = 3;                  // heads (warpgroups) per block
-constexpr int DQ_NT = 128 * DQ_NW;        // threads per block
 constexpr int DQ_NSTAGE = 2;              // K/V ring depth
+
+// heads (warpgroups) per block: three up to head dim 128; one at 256,
+// whose dq accumulator is 128 fp32 a thread (255 registers at 128 threads
+// a block) and whose Q and dO tiles take 64 KB a head
+template <int DK, int DV>
+struct DqCfg {
+  static constexpr int NW = (DK > 128 || DV > 128) ? 1 : 3;
+  static constexpr int NT = 128 * NW;     // threads per block
+};
 
 // shared memory of the dq kernel: per warpgroup its Q and dO tiles, then
 // DQ_NSTAGE x (K tile, V tile, k_seg, k_pos), per warpgroup the delta and
@@ -131,6 +147,7 @@ constexpr int DQ_NSTAGE = 2;              // K/V ring depth
 // full-tile bitmasks
 template <int DK, int DV>
 struct DqSmem {
+  static constexpr int DQ_NW = DqCfg<DK, DV>::NW;
   static constexpr int Q = TILE * DK * 2;
   static constexpr int DO = TILE * DV * 2;
   static constexpr int HEAD = Q + DO;
@@ -145,7 +162,7 @@ struct DqSmem {
 };
 
 template <int DK, int DV>
-__global__ void __launch_bounds__(DQ_NT, 1)
+__global__ void __launch_bounds__(DqCfg<DK, DV>::NT, 1)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -160,6 +177,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     float* __restrict__ delta, int Hg, int T, int S,
                     float scale, int causal, int window, float softcap) {
   using L = DqSmem<DK, DV>;
+  constexpr int DQ_NW = DqCfg<DK, DV>::NW;
+  constexpr int DQ_NT = DqCfg<DK, DV>::NT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int n_kv = (S + TILE - 1) / TILE;
   const int words = (n_kv + 31) / 32;
@@ -197,7 +216,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   // K and V are copied by the first NLOAD threads, which split every tile
   // evenly, from a thread index read at each copy: the copy's addresses
   // hold no registers across the products
-  constexpr int NLOAD = 256;
+  constexpr int NLOAD = DQ_NT < 256 ? DQ_NT : 256;
   auto issue = [&](int kt, int stage) {
     const uint32_t st = sStage + stage * L::STAGE;
     const int tid = tid_here();
@@ -379,6 +398,16 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 
 constexpr int DKV_NSTAGE = 2;             // q-tile ring depth
 
+// one warpgroup a block (two blocks an SM) holding dk and dv, or at Dk = Dv
+// = 256 two (one block an SM), warpgroup 0 holding dv and warpgroup 1 dk
+template <int DK, int DV>
+struct DkvCfg {
+  static constexpr bool SPLIT = DK + DV > 256;
+  static constexpr int NT = SPLIT ? 256 : 128;
+  static constexpr int MIN_BLOCKS = SPLIT ? 1 : 2;
+  static_assert(!SPLIT || DK == DV, "the split holds dk and dv alike");
+};
+
 // shared memory of the dkv kernel: the K and V tiles, DKV_NSTAGE x (Q tile,
 // dO tile, q_seg, q_pos, lse, delta), then the live-tile and full-tile
 // bitmasks
@@ -396,7 +425,8 @@ struct DkvSmem {
 };
 
 template <int DK, int DV>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(DkvCfg<DK, DV>::NT,
+                                  DkvCfg<DK, DV>::MIN_BLOCKS)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -412,6 +442,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      float scale, int causal, int window, float softcap) {
   using namespace flash;
   using L = DkvSmem<DK, DV>;
+  using C = DkvCfg<DK, DV>;
+  constexpr int NTHREADS = C::NT;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int n_q = (T + TILE - 1) / TILE;
   const int words = (n_q + 31) / 32;
@@ -423,8 +455,11 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int g = blockIdx.y;
   const int k0 = blockIdx.x * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
+  // which accumulators this warpgroup holds (both, unless SPLIT)
+  const bool do_v = !C::SPLIT || threadIdx.x < 128;
+  const bool do_k = !C::SPLIT || threadIdx.x >= 128;
 
   // the q tiles whose queries can see any key of this KV tile (the same for
   // every head of the group), and those that see it whole
@@ -440,10 +475,12 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   const int kpos_lo = j_lo < S ? k_pos[j_lo] : 0;
   const int kpos_hi = j_hi < S ? k_pos[j_hi] : 0;
 
-  // dk / scale and dv for this warp's 16 kv rows (wgmma accumulator layout)
-  float acc_k[DK / 2], acc_v[DV / 2];
+  // dk / scale and dv for this warp's 16 kv rows (wgmma accumulator
+  // layout); SPLIT keeps one of them in acc_v, dv in warpgroup 0 and dk /
+  // scale in warpgroup 1
+  float acc_k[C::SPLIT ? 1 : DK / 2], acc_v[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DK / 2; ++i) acc_k[i] = 0.f;
+  for (int i = 0; i < (C::SPLIT ? 1 : DK / 2); ++i) acc_k[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < DV / 2; ++i) acc_v[i] = 0.f;
 
@@ -498,9 +535,11 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < DK / 16; ++kk)
       wgmma_ss_n64(st, desc_k<DK>(sK, kk), desc_k<DK>(sQ, kk), 1);
+    if (do_k) {                           // warpgroup-uniform
 #pragma unroll
-    for (int kk = 0; kk < DV / 16; ++kk)
-      wgmma_ss_n64(dpt, desc_k<DV>(sV, kk), desc_k<DV>(sdO, kk), 1);
+      for (int kk = 0; kk < DV / 16; ++kk)
+        wgmma_ss_n64(dpt, desc_k<DV>(sV, kk), desc_k<DV>(sdO, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(st);
@@ -521,31 +560,52 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
       st[i] = p;
       dpt[i] = ds;
     }
-    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+    if constexpr (C::SPLIT) {
+      // dv += P^T dO (warpgroup 0) or dk += dS^T Q (warpgroup 1) into
+      // acc_v: hi and lo fragments, dO or Q MN-major
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      acc_to_a_split(ph[kk], pl[kk], st, kk);
-      acc_to_a_split(sh[kk], sl[kk], dpt, kk);
-    }
+      for (int i = 0; i < 32; ++i) st[i] = do_v ? st[i] : dpt[i];
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a_split(ah[kk], al[kk], st, kk);
+      const uint32_t sB = do_v ? sdO : sQ;
+      reg_fence(acc_v);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<DV>(acc_v, ah[kk], desc_mn<DV>(sB, kk), 1);
+        wgmma_rs<DV>(acc_v, al[kk], desc_mn<DV>(sB, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc_v);
+    } else {
+      uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc_to_a_split(ph[kk], pl[kk], st, kk);
+        acc_to_a_split(sh[kk], sl[kk], dpt, kk);
+      }
 
-    // dv += P^T dO, dk += dS^T Q: hi and lo fragments, dO and Q MN-major
-    reg_fence(acc_v);
-    reg_fence(acc_k);
-    wgmma_fence();
+      // dv += P^T dO, dk += dS^T Q: hi and lo fragments, dO and Q MN-major
+      reg_fence(acc_v);
+      reg_fence(acc_k);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<DV>(acc_v, ph[kk], desc_mn<DV>(sdO, kk), 1);
-      wgmma_rs<DV>(acc_v, pl[kk], desc_mn<DV>(sdO, kk), 1);
-    }
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<DV>(acc_v, ph[kk], desc_mn<DV>(sdO, kk), 1);
+        wgmma_rs<DV>(acc_v, pl[kk], desc_mn<DV>(sdO, kk), 1);
+      }
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<DK>(acc_k, sh[kk], desc_mn<DK>(sQ, kk), 1);
-      wgmma_rs<DK>(acc_k, sl[kk], desc_mn<DK>(sQ, kk), 1);
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<DK>(acc_k, sh[kk], desc_mn<DK>(sQ, kk), 1);
+        wgmma_rs<DK>(acc_k, sl[kk], desc_mn<DK>(sQ, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc_v);
+      reg_fence(acc_k);
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-    reg_fence(acc_v);
-    reg_fence(acc_k);
     __syncthreads();                      // this stage may be refilled
     h = nh;
     qt = nqt;
@@ -556,25 +616,40 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dk_g = dk + (size_t)g * S * DK;
   __nv_bfloat16* dv_g = dv + (size_t)g * S * DV;
   const bool in_lo = j_lo < S, in_hi = j_hi < S;
+  if constexpr (C::SPLIT) {
+    __nv_bfloat16* dst = do_v ? dv_g : dk_g;
+    const float f = do_v ? 1.f : scale;
 #pragma unroll
-  for (int nt = 0; nt < DK / 8; ++nt) {
-    const int c = nt * 8 + 2 * tig;
-    if (in_lo)
-      *reinterpret_cast<uint32_t*>(dk_g + (size_t)j_lo * DK + c) =
-          pack_f2(acc_k[4 * nt] * scale, acc_k[4 * nt + 1] * scale);
-    if (in_hi)
-      *reinterpret_cast<uint32_t*>(dk_g + (size_t)j_hi * DK + c) =
-          pack_f2(acc_k[4 * nt + 2] * scale, acc_k[4 * nt + 3] * scale);
-  }
+    for (int nt = 0; nt < DV / 8; ++nt) {
+      const int c = nt * 8 + 2 * tig;
+      if (in_lo)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)j_lo * DV + c) =
+            pack_f2(acc_v[4 * nt] * f, acc_v[4 * nt + 1] * f);
+      if (in_hi)
+        *reinterpret_cast<uint32_t*>(dst + (size_t)j_hi * DV + c) =
+            pack_f2(acc_v[4 * nt + 2] * f, acc_v[4 * nt + 3] * f);
+    }
+  } else {
 #pragma unroll
-  for (int nt = 0; nt < DV / 8; ++nt) {
-    const int c = nt * 8 + 2 * tig;
-    if (in_lo)
-      *reinterpret_cast<uint32_t*>(dv_g + (size_t)j_lo * DV + c) =
-          pack_f2(acc_v[4 * nt], acc_v[4 * nt + 1]);
-    if (in_hi)
-      *reinterpret_cast<uint32_t*>(dv_g + (size_t)j_hi * DV + c) =
-          pack_f2(acc_v[4 * nt + 2], acc_v[4 * nt + 3]);
+    for (int nt = 0; nt < DK / 8; ++nt) {
+      const int c = nt * 8 + 2 * tig;
+      if (in_lo)
+        *reinterpret_cast<uint32_t*>(dk_g + (size_t)j_lo * DK + c) =
+            pack_f2(acc_k[4 * nt] * scale, acc_k[4 * nt + 1] * scale);
+      if (in_hi)
+        *reinterpret_cast<uint32_t*>(dk_g + (size_t)j_hi * DK + c) =
+            pack_f2(acc_k[4 * nt + 2] * scale, acc_k[4 * nt + 3] * scale);
+    }
+#pragma unroll
+    for (int nt = 0; nt < DV / 8; ++nt) {
+      const int c = nt * 8 + 2 * tig;
+      if (in_lo)
+        *reinterpret_cast<uint32_t*>(dv_g + (size_t)j_lo * DV + c) =
+            pack_f2(acc_v[4 * nt], acc_v[4 * nt + 1]);
+      if (in_hi)
+        *reinterpret_cast<uint32_t*>(dv_g + (size_t)j_hi * DV + c) =
+            pack_f2(acc_v[4 * nt + 2], acc_v[4 * nt + 3]);
+    }
   }
 }
 
@@ -605,10 +680,11 @@ cudaError_t launch_dq(const Args& a) {
   if (err != cudaSuccess) return err;
   // the q tiles go on z, which starts the last ones first: at most 65535
   // (T up to 4M rows), a larger T fails the launch and the wrapper raises
+  constexpr int DQ_NW = DqCfg<DK, DV>::NW;
   const int n_q = (a.T + TILE - 1) / TILE;
   const int n_hb = (a.Hg + DQ_NW - 1) / DQ_NW;
   const dim3 grid(a.G, n_hb, n_q);
-  kern<<<grid, DQ_NT, smem, a.stream>>>(
+  kern<<<grid, DqCfg<DK, DV>::NT, smem, a.stream>>>(
       FLASH_BWD_INPUTS(a), static_cast<const __nv_bfloat16*>(a.out),
       static_cast<const float*>(a.lse),
       static_cast<const __nv_bfloat16*>(a.dout),
@@ -626,7 +702,7 @@ cudaError_t launch_dkv(const Args& a) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + flash::TILE - 1) / flash::TILE, a.G);
-  kern<<<grid, NTHREADS, smem, a.stream>>>(
+  kern<<<grid, DkvCfg<DK, DV>::NT, smem, a.stream>>>(
       FLASH_BWD_INPUTS(a), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.lse),
       static_cast<const __nv_bfloat16*>(a.dout),
@@ -640,12 +716,20 @@ cudaError_t dispatch_dv(int dv, int which, const Args& a) {
 #define FLASH_BWD_DV(DV)                                                     \
   case DV:                                                                   \
     return which == 0 ? launch_dq<DK, DV>(a) : launch_dkv<DK, DV>(a);
-  switch (dv) {
-    FLASH_BWD_DV(32)
-    FLASH_BWD_DV(64)
-    FLASH_BWD_DV(128)
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (DK == 256) {              // head dim 256: (256, 256) only
+    switch (dv) {
+      FLASH_BWD_DV(256)
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (dv) {
+      FLASH_BWD_DV(32)
+      FLASH_BWD_DV(64)
+      FLASH_BWD_DV(128)
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 #undef FLASH_BWD_DV
 }
@@ -659,6 +743,8 @@ cudaError_t dispatch(int dk, int dv, int which, const Args& a) {
       return dispatch_dv<64>(dv, which, a);
     case 128:
       return dispatch_dv<128>(dv, which, a);
+    case 256:
+      return dispatch_dv<256>(dv, which, a);
     default:
       return cudaErrorInvalidValue;
   }

@@ -44,7 +44,14 @@
 //  * wgmma.  S = Q K^T is m64n64k16 with Q and K in shared memory; O += P V
 //    is m64n{Dv}k16 with P (bf16) taken from the score accumulator in
 //    registers and V read MN-major from shared memory, so P never touches
-//    shared memory.  Every Dk, Dv in {32, 64, 128} uses wgmma.
+//    shared memory.  Every Dk, Dv in {32, 64, 128}, and Dk = Dv = 256
+//    (Gemma-2 and Gemma-3), uses wgmma.
+//  * Head dim 256 (`FwdCfg`).  The O accumulator is 128 fp32 a thread, and
+//    three warpgroups at one block an SM would have 170 registers each;
+//    three q tiles and three stages of 64.5 KB K/V would take 289.5 KB of
+//    shared memory.  So the (256, 256) instantiation runs two warpgroups
+//    (up to 255 registers a thread) over a two-stage ring (193 KB); the
+//    smaller head dims keep three and three.
 // Ragged tails (T % 64, S % 64) load as zeros with segment 0 (masked) and
 // are never stored.
 //
@@ -74,15 +81,25 @@ namespace {
 
 using namespace flash;
 
-constexpr int NWG = 3;                    // consumer warpgroups per block
-constexpr int NTHREADS = 128 * NWG;       // each: 4 warps x 16 q rows
-constexpr int NSTAGE = 3;                 // K/V ring depth (2 tiles ahead)
 constexpr float NEG_INF = -1.0e30f;
+
+// consumer warpgroups per block (each: 4 warps x 16 q rows) and the K/V
+// ring's depth, per instantiation: three and three (two tiles ahead) up to
+// head dim 128, two and two at 256
+template <int DK, int DV>
+struct FwdCfg {
+  static constexpr bool WIDE = DK > 128 || DV > 128;
+  static constexpr int NWG = WIDE ? 2 : 3;
+  static constexpr int NTHREADS = 128 * NWG;
+  static constexpr int NSTAGE = WIDE ? 2 : 3;
+};
 
 // shared memory: NWG q tiles, NSTAGE x (K tile, V tile, k_seg, k_pos), then
 // per warpgroup the live-tile and full-tile bitmasks and their union
 template <int DK, int DV>
 struct FwdSmem {
+  static constexpr int NWG = FwdCfg<DK, DV>::NWG;
+  static constexpr int NSTAGE = FwdCfg<DK, DV>::NSTAGE;
   static constexpr int Q = TILE * DK * 2;
   static constexpr int K = TILE * DK * 2;
   static constexpr int V = TILE * DV * 2;
@@ -124,7 +141,7 @@ __device__ __forceinline__ uint32_t mask_scores(
 }
 
 template <int DK, int DV, bool CARRY>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(FwdCfg<DK, DV>::NTHREADS, 1)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -135,6 +152,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  int Hg, int T, int S, float scale, int causal, int window,
                  float softcap) {
   using L = FwdSmem<DK, DV>;
+  constexpr int NWG = FwdCfg<DK, DV>::NWG;
+  constexpr int NTHREADS = FwdCfg<DK, DV>::NTHREADS;
+  constexpr int NSTAGE = FwdCfg<DK, DV>::NSTAGE;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int n_kv = (S + TILE - 1) / TILE;
   const int words = (n_kv + 31) / 32;
@@ -368,8 +388,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  constexpr int NWG = FwdCfg<DK, DV>::NWG;
   const dim3 grid((T + NWG * TILE - 1) / (NWG * TILE), Hg, G);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  kern<<<grid, FwdCfg<DK, DV>::NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_seg),
       static_cast<const int*>(k_seg), static_cast<const int*>(q_pos),
@@ -408,12 +429,20 @@ cudaError_t launch_dv(int dv, int carry, const void* q, const void* k,
     return launch_mode<DK, DV>(carry, q, k, v, q_seg, k_seg, q_pos, k_pos,  \
                                acc, m, l, out, lse, G, Hg, T, S, scale,     \
                                causal, window, softcap, stream);
-  switch (dv) {
-    FLASH_DV(32)
-    FLASH_DV(64)
-    FLASH_DV(128)
-    default:
-      return cudaErrorInvalidValue;
+  if constexpr (DK == 256) {              // head dim 256: (256, 256) only
+    switch (dv) {
+      FLASH_DV(256)
+      default:
+        return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (dv) {
+      FLASH_DV(32)
+      FLASH_DV(64)
+      FLASH_DV(128)
+      default:
+        return cudaErrorInvalidValue;
+    }
   }
 #undef FLASH_DV
 }
@@ -444,6 +473,10 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                            window, softcap, st);
     case 128:
       return launch_dv<128>(dv, carry, q, k, v, q_seg, k_seg, q_pos, k_pos,
+                            acc, m, l, out, lse, G, Hg, T, S, scale, causal,
+                            window, softcap, st);
+    case 256:
+      return launch_dv<256>(dv, carry, q, k, v, q_seg, k_seg, q_pos, k_pos,
                             acc, m, l, out, lse, G, Hg, T, S, scale, causal,
                             window, softcap, st);
     default:

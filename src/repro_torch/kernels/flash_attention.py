@@ -15,7 +15,7 @@ gradient do and returns (dq, dk, dv) through two kernels:
 `flash_attention_bwd_dq` returns dq and delta = rowsum(do·out) [G,Hg,T]
 fp32, which `flash_attention_bwd_dkv` then takes.  On a CUDA tensor
 each wrapper launches its Hopper kernel (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``; bf16, Dk/Dv in {32, 64, 128}) or raises; on a CPU
+``csrc/flash_bwd.cu``; bf16, `KERNEL_DIMS`) or raises; on a CPU
 tensor it runs the plain version, which repeats the Pallas kernels'
 arithmetic panel by panel.  Each kernel wrapper counts its launches in its
 ``launches`` attribute.
@@ -29,6 +29,10 @@ from repro_torch.core.attention import NEG_INF, attention_mask
 BLOCK_Q = 64          # the CUDA kernel's q-tile and KV-tile rows
 BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
+# the (Dk, Dv) pairs the CUDA kernels are instantiated for: every pair of
+# HEAD_DIMS, and (256, 256) (Gemma-2 and Gemma-3)
+KERNEL_DIMS = frozenset({(a, b) for a in HEAD_DIMS for b in HEAD_DIMS}
+                        | {(256, 256)})
 
 
 # ---------------------------------------------------------------------------
@@ -193,9 +197,9 @@ def _launch(source, symbol, q, k, v, args, *, block_q, block_k):
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA flash kernels take bfloat16, got "
                         f"{q.dtype}")
-    if dk not in HEAD_DIMS or dv not in HEAD_DIMS:
+    if (dk, dv) not in KERNEL_DIMS:
         raise ValueError(f"the CUDA flash kernels take Dk, Dv in "
-                         f"{HEAD_DIMS}, got {dk}, {dv}")
+                         f"{HEAD_DIMS} or Dk = Dv = 256, got {dk}, {dv}")
     if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
         raise ValueError(f"the CUDA flash kernels tile {BLOCK_Q}x{BLOCK_K}, "
                          f"got block_q={block_q}, block_k={block_k}")

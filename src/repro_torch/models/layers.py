@@ -51,6 +51,15 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * (1.0 + params["scale"])).to(x.dtype)
 
 
+def qk_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """Per-head RMS norm over head_dim (Gemma-3 / Qwen-3): ``scale`` [D]
+    fp32 in the (1 + scale) form, fp32 internals, output in x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + scale)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary embeddings
 # ---------------------------------------------------------------------------

@@ -2,8 +2,11 @@
 
 Port of `repro/models/transformer.py` for the serving and training
 slices: token frontend, RMSNorm, GQA attention with RoPE over packed
-segments, a gated or plain MLP or a capacity-bounded MoE per layer
-(`models/moe.py`), tied or untied logits.  Activations are flat packed
+segments, global (``g``) or sliding-window local (``l``) layers, a gated
+or plain MLP or a capacity-bounded MoE per layer (`models/moe.py`), tied
+or untied logits; and the Gemma-style flags: attention and final logit
+softcaps, post-block norms, the sqrt(d_model) embedding scale and per-head
+q/k norms.  Activations are flat packed
 buffers [T, d]; every token carries (segment_id, position).  Parameters
 keep the reference's tree and layouts, so a JAX parameter tree bridges by
 a plain copy (`repro_torch.bridge`):
@@ -12,13 +15,13 @@ a plain copy (`repro_torch.bridge`):
     layer (``moe.first_k_dense``); final_norm {scale [d] f32};
     blocks: one dict per layer-pattern position, every leaf stacked
     [n_periods, ...]: norm1/norm2 {scale}, attn {w_q [d, h*Dk],
-    w_kv [d, 2, G, Dk], w_o [h*Dk, d]}, and mlp {w_in, w_gate, w_out}
-    or moe {router [d, E] f32, w_in, w_gate [E, d, f], w_out [E, f, d],
-    shared_*}.
+    w_kv [d, 2, G, Dk], w_o [h*Dk, d], and with ``qk_norm`` q_norm/k_norm
+    [Dk] f32}, mlp {w_in, w_gate, w_out} or moe {router [d, E] f32, w_in,
+    w_gate [E, d, f], w_out [E, f, d], shared_*}, and with
+    ``post_block_norm`` postnorm1/postnorm2 {scale}.
 
 Dense weights are [in, out] and used as ``x @ W``.  MLA, SSM mixers,
-non-token frontends and the Gemma-style extras (window, softcaps,
-post-block norms, embedding scale, q/k norms) are later slices and raise
+non-token frontends and M-RoPE are later slices and raise
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -39,7 +42,7 @@ from repro_torch.tree import leaves, tree_map
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     missing = []
-    if set(cfg.layer_pattern) - {"g"}:
+    if set(cfg.layer_pattern) - {"g", "l"}:
         missing.append(f"layer pattern {cfg.layer_pattern!r}")
     for name in ("mla", "rwkv", "mamba"):
         if getattr(cfg, name) is not None:
@@ -48,15 +51,11 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"frontend {cfg.frontend!r}")
     if cfg.pos_embed not in ("rope", "none"):
         missing.append(f"pos_embed {cfg.pos_embed!r}")
-    for flag in ("window", "attn_softcap", "final_softcap", "qk_norm",
-                 "embed_scale", "post_block_norm"):
-        if getattr(cfg, flag):
-            missing.append(flag)
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            f"global-attention decoders, dense or MoE, with a token "
-            f"frontend)")
+            f"attention decoders with global and local layers, dense or "
+            f"MoE, with a token frontend)")
 
 
 def head_layer_count(cfg: ModelConfig) -> int:
@@ -73,12 +72,16 @@ def _attn_init(gen, cfg: ModelConfig, layout, dtype, device) -> dict:
     d = cfg.d_model
     dk = cfg.resolved_head_dim
     g = cfg.num_kv_heads
-    return {
+    p = {
         "w_q": L.dense_init(gen, d, layout.h_pad * dk, dtype, device),
         "w_kv": L.normal(gen, (d, 2, g, dk), 1.0 / math.sqrt(d), dtype,
                          device),
         "w_o": L.dense_init(gen, layout.h_pad * dk, d, dtype, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros(dk, dtype=torch.float32, device=device)
+        p["k_norm"] = torch.zeros(dk, dtype=torch.float32, device=device)
+    return p
 
 
 def _mlp_init(gen, cfg: ModelConfig, d_ff: int, dtype, device) -> dict:
@@ -101,6 +104,9 @@ def _block_init(gen, cfg: ModelConfig, layer_idx: int, layout, dtype,
         if cfg.moe is not None and cfg.moe.dense_d_ff:
             d_ff = cfg.moe.dense_d_ff
         p["mlp"] = _mlp_init(gen, cfg, d_ff, dtype, device)
+    if cfg.post_block_norm:
+        p["postnorm1"] = L.rmsnorm_init(cfg.d_model, device)
+        p["postnorm2"] = L.rmsnorm_init(cfg.d_model, device)
     return p
 
 
@@ -199,6 +205,9 @@ def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
     q = (x @ bp["w_q"]).reshape(t, layout.h_pad, dk)
     kv = torch.einsum("td,dsgk->tsgk", x, bp["w_kv"])       # [T, 2, G, Dk]
     k, v = kv[:, 0], kv[:, 1]
+    if cfg.qk_norm:
+        q = L.qk_head_norm(bp["q_norm"], q, cfg.norm_eps)
+        k = L.qk_head_norm(bp["k_norm"], k, cfg.norm_eps)
     q, k = L.positional_rotate(cfg, q, k, pos, pos)
     if collect is not None:
         collect.append({"k": k, "v": v})
@@ -239,17 +248,20 @@ def _moe_block(bp, cfg: ModelConfig, rt: Runtime, x):
 def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
                   layer_idx: int, collect: Optional[list] = None):
     code = cfg.layer_code(layer_idx)
-    if code != "g":
-        raise NotImplementedError(f"layer code {code!r} not ported yet")
+    window = cfg.window if code == "l" else 0
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    h = _attention_block(bp["attn"], cfg, rt, h, seg, pos, 0,
+    h = _attention_block(bp["attn"], cfg, rt, h, seg, pos, window,
                          collect=collect)
+    if cfg.post_block_norm:
+        h = L.rmsnorm(bp["postnorm1"], h, cfg.norm_eps)
     x = x + h.to(x.dtype)
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
     if "moe" in bp:
         h = _moe_block(bp["moe"], cfg, rt, h)
     else:
         h = _ffn_block(bp["mlp"], cfg, h)
+    if cfg.post_block_norm:
+        h = L.rmsnorm(bp["postnorm2"], h, cfg.norm_eps)
     return x + h.to(x.dtype)
 
 
@@ -258,8 +270,15 @@ def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"].index_select(0, tokens.reshape(-1)).reshape(
+    x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, cfg.d_model)
+    if cfg.embed_scale:
+        # the reference multiplies by a weakly typed Python float, which
+        # JAX rounds to the activation dtype first (59.866 -> 59.75 in
+        # bf16 at d_model 3584); a Python float here would multiply in
+        # fp32 with the full scalar and round otherwise
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
 
 
 def embed_frontend(params, cfg: ModelConfig, rt: Runtime, batch,

@@ -30,7 +30,9 @@ each other before the first wave of every admission round.  Rank r runs
 rows ``[r·c, (r+1)·c)`` of each wave (c = ``prefill_capacity · c_mult``)
 under the wave's composition, through the ring.  Each rank holds its
 `train/serve_step.py::slab_shard` of the slab (whole slots, or every
-slot's share of the positions), so the KV rows a rank computed mostly
+slot's share of the positions; of each layer's own positions, a local
+layer's ring buffer of ``min(window, max_context)`` included), so the KV
+rows a rank computed mostly
 belong to other ranks' shards: one all-gather per layer of the wave's K
 and V rows, after which every rank writes the rows it owns.  The first
 token of a request comes from the rank that holds its last prompt row,
@@ -56,7 +58,8 @@ from repro_torch.obs.numerics import fingerprints_by_rank
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.serve.pool import Request, RequestPool
 from repro_torch.train.serve_step import (init_decode_cache, make_decode_step,
-                                          make_prefill_kv_step, slab_shard)
+                                          layer_shards, make_prefill_kv_step,
+                                          slab_shard)
 
 
 @dataclass(frozen=True)
@@ -115,6 +118,7 @@ class ServeEngine:
 
         b, s = scfg.max_slots, scfg.max_context
         self.shard = slab_shard(rt, b, s)
+        self.shards = layer_shards(cfg, rt, b, s)
         self.cache = init_decode_cache(cfg, rt, b, s)
         self._decode = make_decode_step(cfg, rt, b, s)
         self._prefill_fns: Dict[Tuple[int, ...], object] = {}
@@ -302,18 +306,31 @@ class ServeEngine:
     def _scatter_kv(self, entries, head_kv, block_kv) -> None:
         """Write the wave's requests' KV rows into their slab slots, in
         place.  ``entries``: (slot, flat rows of positions 0..plen-1) per
-        request.  Every layer caches every position (`check_supported`
-        rejects ring-buffer layers).  Over several ranks the wave's rows
-        of each layer come from one all-gather of every rank's K and V, and
-        each rank writes the (slot, position) pairs its shard holds."""
-        slots = np.concatenate([np.full(len(fl), slot) for slot, fl in
-                                entries])
-        pos = np.concatenate([np.arange(len(fl)) for _, fl in entries])
-        rows = np.concatenate([fl for _, fl in entries])
-        own = self.shard.owns(slots, pos)
-        ls = self._dev(slots[own] - self.shard.slot0, torch.int64)
-        lp = self._dev(pos[own] - self.shard.base, torch.int64)
-        rows = self._dev(rows[own], torch.int64)
+        request.  A layer of ``S_l`` cache positions keeps the last
+        ``S_l`` positions of each prompt at ``p % S_l``, as decode writes
+        them: all of them in a global layer, the last window in a local
+        layer's ring buffer.  Over several ranks the wave's rows of each
+        layer come from one all-gather of every rank's K and V, and each
+        rank writes the (slot, position) pairs its shard of the layer
+        holds."""
+        index = {}
+
+        def indices(sh):
+            """(local slots, local cache positions, wave rows) of the
+            pairs this rank's shard ``sh`` holds, once per shard."""
+            if sh not in index:
+                keep = [(slot, fl[max(0, len(fl) - sh.length):],
+                         np.arange(max(0, len(fl) - sh.length), len(fl)))
+                        for slot, fl in entries]
+                slots = np.concatenate([np.full(len(fl), slot)
+                                        for slot, fl, _ in keep])
+                pos = np.concatenate([p % sh.length for _, _, p in keep])
+                rows = np.concatenate([fl for _, fl, _ in keep])
+                own = sh.owns(slots, pos)
+                index[sh] = (self._dev(slots[own] - sh.slot0, torch.int64),
+                             self._dev(pos[own] - sh.base, torch.int64),
+                             self._dev(rows[own], torch.int64))
+            return index[sh]
 
         def wave_rows(k, v):
             if self.rt.hdp_size == 1:
@@ -322,17 +339,20 @@ class ServeEngine:
             kv = kv.flatten(0, 1)        # [ranks·c, G, Dk + Dv]
             return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
 
-        def write(cache_layer, kv):
+        def write(cache_layer, kv, sh):
+            ls, lp, rows = indices(sh)
             k, v = wave_rows(kv["k"], kv["v"])
             for buf, src in ((cache_layer["k"], k), (cache_layer["v"], v)):
                 buf[ls, lp] = src[rows].to(buf.dtype)
 
         for i, kv in enumerate(head_kv):
-            write(self.cache["head_layers"][i], kv)
+            write(self.cache["head_layers"][i], kv,
+                  self.shards["head_layers"][i])
         for j, kv in enumerate(block_kv):
             for i in range(kv["k"].shape[0]):    # one layer at a time
                 write({n: b[i] for n, b in self.cache["blocks"][j].items()},
-                      {n: a[i] for n, a in kv.items()})
+                      {n: a[i] for n, a in kv.items()},
+                      self.shards["blocks"][j])
 
     # -- decode --------------------------------------------------------
     def _decode_wave(self) -> List[Request]:

@@ -1,20 +1,24 @@
 """Serving steps: prefill over packed buffers, decode against a KV slab.
 
-Port of `repro/train/serve_step.py` for global-attention models, dense or
-MoE.  The decode cache keeps the reference's layout, ``{"head_layers": [...],
-"blocks": [{"k", "v"} per pattern position]}`` with block leaves stacked
-``[n_periods, B, S, G, Dk]``, and the port UPDATES IT IN PLACE: each
-decode step writes its new K/V rows into the slab tensors with an indexed
-assignment and returns the same dict.
+Port of `repro/train/serve_step.py` for attention models, dense or MoE,
+with global and sliding-window local layers.  The decode cache keeps the
+reference's layout, ``{"head_layers": [...], "blocks": [{"k", "v"} per
+pattern position]}`` with block leaves stacked ``[n_periods, B, S_l, G,
+Dk]``, and the port UPDATES IT IN PLACE: each decode step writes its new
+K/V rows into the slab tensors with an indexed assignment and returns the
+same dict.  A global layer caches ``S_l = seq_len`` positions; a local
+(``l``) layer keeps a ring buffer of ``S_l = min(window, seq_len)``
+(`layer_cache_len`): position p lives at ``p % S_l`` and attention reads
+the ``min(p + 1, S_l)`` filled entries, which are exactly the window.
 
 Over several HDP ranks (``rt.comm``) each rank holds one shard of the
 slab, by the reference's `decode_axes` rule (`decode_layout`): the slots
 split over the ranks when they tile them (``"batch"``), otherwise every
 rank holds every slot's share of the cache positions (``"seq"``) and
 attention merges the ranks' partials (`core/ring.py::
-decode_attention_sharded`).  Every layer caches all ``seq_len``
-positions: `check_supported` rejects windowed (ring-buffer) layers, so
-neither layout meets one.
+decode_attention_sharded`).  The layout is the slab's, so every layer has
+the same one; under ``"seq"`` each layer splits its own ``S_l`` positions
+(a local layer's ring buffer as well), so ``S_l % hdp == 0`` is needed.
 
 An MoE layer routes the whole slab as one group in decode, as the
 reference does (its ``moe_forward`` on the global ``[B, d]``): every slot
@@ -61,7 +65,7 @@ def decode_layout(batch: int, hdp: int) -> str:
 
 @dataclass(frozen=True)
 class SlabShard:
-    """One rank's shard of a ``[batch, seq_len]`` decode slab: slots
+    """One rank's shard of a ``[batch, length]`` decode slab: slots
     ``[slot0, slot0 + slots)`` at cache positions ``[base, base +
     positions)``.  One rank holds the whole slab."""
     layout: str
@@ -69,6 +73,7 @@ class SlabShard:
     slot0: int
     positions: int
     base: int
+    length: int
 
     def owns(self, slot, pos):
         """Whether (global) ``slot`` and cache position ``pos`` lie in this
@@ -77,20 +82,43 @@ class SlabShard:
                 & (pos >= self.base) & (pos < self.base + self.positions))
 
 
+def layer_cache_len(cfg: ModelConfig, layer_idx: int, seq_len: int) -> int:
+    """Cache positions of one layer: ``seq_len``, or a local layer's
+    ring buffer of ``min(window, seq_len)`` (the reference's
+    ``_layer_cache_len``)."""
+    if cfg.layer_code(layer_idx) == "l" and cfg.window:
+        return min(cfg.window, seq_len)
+    return seq_len
+
+
+def layer_shards(cfg: ModelConfig, rt: Runtime, batch: int,
+                 seq_len: int) -> dict:
+    """{"head_layers": [SlabShard per head layer], "blocks": [SlabShard
+    per pattern position]}: this rank's shard of each layer's cache."""
+    head_n = head_layer_count(cfg)
+
+    def shard(i):
+        return slab_shard(rt, batch, layer_cache_len(cfg, i, seq_len))
+
+    return {"head_layers": [shard(i) for i in range(head_n)],
+            "blocks": [shard(head_n + j)
+                       for j in range(len(cfg.layer_pattern))]}
+
+
 def slab_shard(rt: Runtime, batch: int, seq_len: int) -> SlabShard:
     hdp = rt.hdp_size
     rank = 0 if rt.comm is None else rt.comm.rank
     layout = decode_layout(batch, hdp)
     if layout == "batch":
         n = batch // hdp
-        return SlabShard(layout, n, rank * n, seq_len, 0)
+        return SlabShard(layout, n, rank * n, seq_len, 0, seq_len)
     if seq_len % hdp:
         raise ValueError(
             f"{batch} slots do not tile {hdp} HDP ranks, so the decode slab "
             f"splits its {seq_len} cache positions over them, which needs "
             f"seq_len % hdp == 0")
     n = seq_len // hdp
-    return SlabShard(layout, batch, 0, n, rank * n)
+    return SlabShard(layout, batch, 0, n, rank * n, seq_len)
 
 
 # ---------------------------------------------------------------------------
@@ -108,17 +136,17 @@ def _layer_cache(cfg: ModelConfig, rt: Runtime, sh: SlabShard,
 
 def init_decode_cache(cfg: ModelConfig, rt: Runtime, batch: int,
                       seq_len: int) -> dict:
-    """This rank's shard (`slab_shard`) of a ``batch``-slot slab of
+    """This rank's shard (`layer_shards`) of a ``batch``-slot slab of
     ``seq_len`` positions: the whole slab on one rank."""
     check_supported(cfg)
-    sh = slab_shard(rt, batch, seq_len)
+    shards = layer_shards(cfg, rt, batch, seq_len)
     head_n = head_layer_count(cfg)
-    period = len(cfg.layer_pattern)
-    n_periods = (cfg.num_layers - head_n) // period
+    n_periods = (cfg.num_layers - head_n) // len(cfg.layer_pattern)
     return {
-        "head_layers": [_layer_cache(cfg, rt, sh) for _ in range(head_n)],
+        "head_layers": [_layer_cache(cfg, rt, sh)
+                        for sh in shards["head_layers"]],
         "blocks": [_layer_cache(cfg, rt, sh, lead=(n_periods,))
-                   for _ in range(period)],
+                   for sh in shards["blocks"]],
     }
 
 
@@ -135,10 +163,12 @@ def cache_bytes(cache: dict) -> int:
 def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
                       sh: SlabShard):
     """``pos`` [B]: each slot decodes at its own depth; its new K/V row
-    lands at position ``pos`` of that slot, written into ``cache`` in place
-    by the rank whose shard holds it.  As in the reference, a position past
-    the slab (a free slot whose last request filled its context) wraps
-    round it and attends to at most ``seq_len`` positions."""
+    lands at cache position ``pos % S_l`` of that slot (``sh`` is this
+    rank's shard of the layer's ``S_l`` positions), written into ``cache``
+    in place by the rank whose shard holds it, and attention reads the
+    ``min(pos + 1, S_l)`` filled positions.  A local layer's ring buffer
+    wraps there; as in the reference, so does a global layer at a position
+    past the slab (a free slot whose last request filled its context)."""
     b = x.shape[0]
     rows = torch.arange(b, device=x.device)
     layout = rt.layout(cfg)
@@ -147,11 +177,13 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
     q = (x @ bp["w_q"]).reshape(b, layout.h_pad, dk)
     kv = torch.einsum("bd,dsgk->bsgk", x, bp["w_kv"])
     k_new, v_new = kv[:, 0], kv[:, 1]
+    if cfg.qk_norm:
+        q = L.qk_head_norm(bp["q_norm"], q, cfg.norm_eps)
+        k_new = L.qk_head_norm(bp["k_norm"], k_new, cfg.norm_eps)
     q, k_new = L.positional_rotate(cfg, q, k_new, pos, pos)
     k_cache, v_cache = cache["k"], cache["v"]
     k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
-    seq_len = sh.positions * (rt.hdp_size if sh.layout == "seq" else 1)
-    local = pos % seq_len
+    local = pos % sh.length
     if sh.layout == "seq":
         # every rank runs every slot; only the one holding ``pos`` changes
         # its row (the others write back what they hold)
@@ -164,7 +196,7 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
     v_cache[rows, local] = v_new
     qg = q.reshape(b, g, layout.hpg_pad, dk)
     out = R.decode_attention_sharded(
-        qg, k_cache, v_cache, (pos + 1).clamp(max=seq_len),
+        qg, k_cache, v_cache, (pos + 1).clamp(max=sh.length),
         comm=rt.comm if sh.layout == "seq" else None, base=sh.base,
         scale=dk ** -0.5, softcap=cfg.attn_softcap)
     out = out.reshape(b, layout.h_pad, dk)
@@ -177,12 +209,16 @@ def _decode_block(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
                   sh: SlabShard):
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
     h = _decode_attention(bp["attn"], cache, cfg, rt, h, pos, sh)
+    if cfg.post_block_norm:
+        h = L.rmsnorm(bp["postnorm1"], h, cfg.norm_eps)
     x = x + h.to(x.dtype)
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
     if "moe" in bp:
         h = _decode_moe(bp["moe"], cfg, rt, h, sh)
     else:
         h = _ffn_block(bp["mlp"], cfg, h)
+    if cfg.post_block_norm:
+        h = L.rmsnorm(bp["postnorm2"], h, cfg.norm_eps)
     return x + h.to(x.dtype)
 
 
@@ -202,6 +238,7 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime, batch: int,
     under ``"seq"`` every rank runs every slot and attention merges the
     ranks' partials, so every rank returns the same logits."""
     check_supported(cfg)
+    shards = layer_shards(cfg, rt, batch, seq_len)
     sh = slab_shard(rt, batch, seq_len)
     period = len(cfg.layer_pattern)
     mine = slice(sh.slot0, sh.slot0 + sh.slots)
@@ -217,14 +254,14 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime, batch: int,
         x = embed_tokens(params, cfg, tokens)
         for i, bp in enumerate(params["head_blocks"]):
             x = _decode_block(bp, cache["head_layers"][i], cfg, rt, x, pos,
-                              sh)
+                              shards["head_layers"][i])
         n_periods = params["blocks"][0]["norm1"]["scale"].shape[0]
         for i in range(n_periods):
             for j in range(period):
                 # the period's cache views alias the stacked slab
                 x = _decode_block(_index(params["blocks"][j], i),
                                   _index(cache["blocks"][j], i), cfg, rt, x,
-                                  pos, sh)
+                                  pos, shards["blocks"][j])
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return logits_head(params, cfg, x), cache
 

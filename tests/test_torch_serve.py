@@ -301,7 +301,7 @@ def test_engine_fails_nonfinite_request_and_survives():
 
 def test_unported_features_raise():
     _, cfg = _cfgs("float32")
-    for change in ({"attn_softcap": 50.0}, {"layer_pattern": "gm"},
+    for change in ({"pos_embed": "mrope"}, {"layer_pattern": "gm"},
                    {"frontend": "vision_stub"}):
         with pytest.raises(NotImplementedError):
             T.init_params(dataclasses.replace(cfg, **change), device="cpu")

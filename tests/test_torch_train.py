@@ -245,12 +245,14 @@ def _record_plans(sched, fingerprint, out):
     sched.plan_step = wrapped
 
 
-def _jax_history(rt1, arch):
+def _jax_history(rt1, arch, context=512):
     """The reference's `Trainer`, 3 steps -> (initial params, history,
-    plan fingerprints, [(params after the step, its wave losses)])."""
+    plan fingerprints, [(params after the step, its wave losses)]).
+    ``context`` bounds the sequences (at 256, the capacity, every wave
+    has one shape, so the reference compiles one grad step)."""
     jcfg, _ = _cfgs(arch)
     ds = JDataset(JDist(*DIST), jcfg.vocab_size, tokens_per_step=1024,
-                  context=512)
+                  context=context)
     sched = JScheduler(ds, jcfg, capacity=256, hdp=1, use_offload=False)
     plans = []
     _record_plans(sched, jax_fingerprint, plans)
@@ -284,14 +286,15 @@ def jax_moe_history(rt1):
     return _jax_history(rt1, MOE_ARCH)
 
 
-def _port_history(history, impl, arch=ARCH):
+def _port_history(history, impl, arch=ARCH, context=512):
     """The port's `Trainer` from the reference's initial params on the
-    same data, held to the reference's 3-step history -> (the trainer,
-    [(params after each step, its wave losses)])."""
+    same data (``context`` as `_jax_history`'s), held to the reference's
+    3-step history -> (the trainer, [(params after each step, its wave
+    losses)])."""
     p0, jhist, jplans, _ = history
     _, cfg = _cfgs(arch)
     ds = SyntheticDataset(LengthDistribution(*DIST), cfg.vocab_size,
-                          tokens_per_step=1024, context=512)
+                          tokens_per_step=1024, context=context)
     sched = GlobalScheduler(ds, cfg, capacity=256, hdp=1, use_offload=False)
     plans = []
     _record_plans(sched, plan_fingerprint, plans)
