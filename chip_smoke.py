@@ -11,8 +11,11 @@ Phases (any failure raises and exits non-zero before the result line):
    sources (flash_fwd, flash_bwd, fused_ce: one nvcc per source, all
    started together) and prints ptxas' registers and spills per kernel;
    fails unless the report holds all nine instantiations of the dq
-   kernel (Dk, Dv in 32, 64, 128) and the (256, 256) instantiations of
-   the carry and finalising forward, dq and dkv, and none of them spills.
+   kernel (Dk, Dv in 32, 64, 128), the (256, 256) instantiations of the
+   carry and finalising forward, dq and dkv, and the (576, 512) ones
+   (DeepSeek-V2's latent attention: `flash_fwd_mla_kernel<1>` and `<0>`,
+   `flash_bwd_dq_mla_kernel`, `flash_bwd_dkv_mla_kernel`), and none of
+   them spills.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card.  Flash forward: the slice's shape [8,3,4096,128] bf16 with packed
    segments (3000/900/120), padding rows and a non-zero carry-in; the
@@ -22,8 +25,12 @@ Phases (any failure raises and exits non-zero before the result line):
    Hg 2): T=S=8192 with segments 6000/2000/150 + padding, window 4096,
    softcap 50 (gemma2-9b's local layers over one prefill wave), and
    T=S=4096 with segments 3000/900/120, window 1024, no softcap
-   (gemma3-12b's).  Flash backward (dq, then dkv from dq's delta): the
-   same seven cases from the forward kernel's (out, lse); dq's delta is
+   (gemma3-12b's); and (Dk, Dv) = (576, 512) at deepseek-v2-lite's
+   shape in the reference's gather mode (G 16 heads, Hg 1, each head's k
+   the one latent and v its first 512 columns, scale 1/sqrt(192)):
+   T=S=4096 with segments 3000/900/120 + padding.  Flash backward (dq,
+   then dkv from dq's delta): the same eight cases from the forward
+   kernel's (out, lse); dq's delta is
    held to rowsum(do * out) within 1e-4, and the Dk=128 Dv=64 case has
    Hg = 4, which the dq kernel's three heads per block do not divide.
    Each attention case prints the fraction of 64x64 tiles the kernels
@@ -239,12 +246,35 @@ Phases (any failure raises and exits non-zero before the result line):
    (phase 5's 1e-2 loss and 5e-2 per-leaf gates; the kernel route's
    gradients kept in host memory).  Prints the card, ms a wave, tokens/s
    and peaks.
-14. report — one JSON line of every kernel (launches on the paths that
+14. mla    — DeepSeek-V2-Lite's Multi-head Latent Attention (the (576,
+   512) flash kernels, the latent decode cache) and qwen3-moe-30b-a3b,
+   random weights from seed 0.  (a) deepseek-v2-lite-16b at full width
+   and depth (27 layers: a dense head layer, 26 MoE layers of 64 routed
+   experts top-6 and 2 shared; 15.7 G parameters, 31.4 GB) served
+   through `ServeEngine` at max_context and prefill capacity 8192: phase
+   4's 8 prompts plus one of 5000 tokens, 16 new tokens each; phase 4's
+   gates (the carry kernel 27 x prefill waves times); the pool drained
+   again with its MoE calls recorded (phase 11's `moe_record`, bit-equal
+   to the timed drain), every call's kept pairs the capacity rule's over
+   its group, and every request held by `moe_hold_replayed` to a float32
+   teacher-forced forward (weights upcast a layer at a time) replaying
+   the engine's experts and kept pairs: tokens its argmax but at
+   near-ties, logits within an rms of 0.08.  (b) trained at full width
+   cut to 3 layers (the dense head layer and two MoE layers): 3 `Trainer`
+   steps as phase 5's, exactly 5 carry (3 forward, 2 recomputed: the head
+   layer runs outside the remat periods), 3 dq, 3 dkv and one CE each way
+   a wave; then one wave held to the float32 plain route replaying the
+   kernel route's experts (phase 11 (c)).  (c) qwen3-moe-30b-a3b at full
+   width (128 experts top-8, q/k norms) served at 8 layers (phase 4's
+   pool at 4096) with (a)'s holds and trained at 2 layers with (b)'s.
+   Prints the card, prefill and decode ms a wave, decode tokens/s, the
+   slab, tokens/s and peaks.
+15. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
    engine's, the checkpoint phase's, the MoE phase's, the pipelined
-   trainer's and the Gemma phase's; errors, times, bounds), then the
-   result line.
+   trainer's, the Gemma phase's and the MLA phase's; errors, times,
+   bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -367,13 +397,16 @@ DQ_KERNELS = {f"flash_bwd_dq_kernel<{dk},{dv}>"
 D256_KERNELS = {"flash_fwd_kernel<256,256,1>", "flash_fwd_kernel<256,256,0>",
                 "flash_bwd_dq_kernel<256,256>",
                 "flash_bwd_dkv_kernel<256,256>"}
-GATED_KERNELS = DQ_KERNELS | D256_KERNELS
+# (Dk, Dv) = (576, 512), DeepSeek-V2's latent attention: kernels of their own
+MLA_KERNELS = {"flash_fwd_mla_kernel<1>", "flash_fwd_mla_kernel<0>",
+               "flash_bwd_dq_mla_kernel", "flash_bwd_dkv_mla_kernel"}
+GATED_KERNELS = DQ_KERNELS | D256_KERNELS | MLA_KERNELS
 
 
 def phase_build() -> dict:
     """-> {kernel<template args>: (registers, spill stores, spill loads)};
     raises if an instantiation of the dq kernel or one of the (256, 256)
-    instantiations is missing from the report or spills."""
+    or (576, 512) instantiations is missing from the report or spills."""
     from repro_torch.kernels import build
     names = sorted({Path(src).stem for _, src, _, _, _ in KERNELS})
     t0 = time.perf_counter()
@@ -453,14 +486,23 @@ def hold(torch, name, got, want):
     return err, rl2
 
 
-def attn_inputs(torch, g, hg, t, dk, dv, lens, seed):
+def attn_inputs(torch, g, hg, t, dk, dv, lens, seed, latent=False):
+    """``latent``: the reference's MLA gather mode, every group's k the one
+    latent [t, dk] and v its first dv columns."""
     import numpy as np
     rng = np.random.RandomState(seed)
     dev = "cuda"
     q = torch.tensor(rng.randn(g, hg, t, dk), dtype=torch.bfloat16,
                      device=dev)
-    k = torch.tensor(rng.randn(g, t, dk), dtype=torch.bfloat16, device=dev)
-    v = torch.tensor(rng.randn(g, t, dv), dtype=torch.bfloat16, device=dev)
+    if latent:
+        k = torch.tensor(rng.randn(t, dk), dtype=torch.bfloat16,
+                         device=dev).expand(g, t, dk).contiguous()
+        v = k[..., :dv].contiguous()
+    else:
+        k = torch.tensor(rng.randn(g, t, dk), dtype=torch.bfloat16,
+                         device=dev)
+        v = torch.tensor(rng.randn(g, t, dv), dtype=torch.bfloat16,
+                         device=dev)
     seg_np, pos_np = packed_meta(rng, t, lens)
     seg = torch.tensor(seg_np, device=dev)
     pos = torch.tensor(pos_np, device=dev)
@@ -486,15 +528,15 @@ def visible_pairs(seg_np, pos_np, window) -> int:
 
 
 def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
-             softcap=0.0, seed=0, ptxas=None):
+             softcap=0.0, seed=0, ptxas=None, scale=None, latent=False):
     """Both forward kernels (self-attention over one packed buffer); with
     the build report ``ptxas``, each row prints its instantiation's
-    registers and spills."""
+    registers and spills.  ``scale`` defaults to 1/sqrt(dk)."""
     from repro_torch.core.attention import attention_mask
     rng, args, seg_np, pos_np = attn_inputs(torch, g, hg, t, dk, dv, lens,
-                                            seed)
+                                            seed, latent)
     q, k, v, seg = args[:4]
-    scale = dk ** -0.5
+    scale = dk ** -0.5 if scale is None else scale
     kw = dict(scale=scale, causal=True, window=window, softcap=softcap)
     pad = torch.tensor(seg_np == 0, device="cuda")
 
@@ -566,27 +608,32 @@ def fwd_case(torch, FA, name, *, g, hg, t, dk, dv, lens, window=0,
              "live_tiles": live_fraction(torch, seg_np, pos_np, window)}
     for key, row in rows.items():
         regs = "" if ptxas is None else " " + fmt(ptxas_of(
-            ptxas, "flash_fwd_kernel", dk, dv, int(key == "flash_fwd_carry")))
+            ptxas, "flash_fwd", dk, dv, int(key == "flash_fwd_carry")))
         log(f"[kernels] {name} {key}: "
             f"{fmt({**row, 'bound': row['bound'][0], **extra})}{regs}")
     return rows
 
 
-def ptxas_of(ptxas, kernel, *targs) -> dict:
-    """Registers and spill bytes of the instantiation of ``kernel`` for
-    the template arguments ``targs`` (dk, dv[, carry]) in the build
-    report; raises if the report lacks it."""
-    regs, st, ld = ptxas[f"{kernel}<{','.join(map(str, targs))}>"]
+def ptxas_of(ptxas, kernel, dk, dv, *carry) -> dict:
+    """Registers and spill bytes of the instantiation of ``kernel``
+    (flash_fwd, flash_bwd_dq, flash_bwd_dkv) for (dk, dv[, carry]) in the
+    build report; (576, 512) has kernels of its own.  Raises if the report
+    lacks it."""
+    if (dk, dv) == (576, 512):
+        key = f"{kernel}_mla_kernel" + "".join(f"<{c}>" for c in carry)
+    else:
+        key = f"{kernel}_kernel<{','.join(map(str, (dk, dv, *carry)))}>"
+    regs, st, ld = ptxas[key]
     return {"registers": regs, "spill_bytes": st + ld}
 
 
 def bwd_case(torch, FA, ptxas, name, *, g, hg, t, dk, dv, lens, window=0,
-             softcap=0.0, seed=0):
+             softcap=0.0, seed=0, scale=None, latent=False):
     """Both backward kernels from the forward kernel's (out, lse)."""
     rng, args, seg_np, pos_np = attn_inputs(torch, g, hg, t, dk, dv, lens,
-                                            seed)
+                                            seed, latent)
     q, k, v = args[:3]
-    scale = dk ** -0.5
+    scale = dk ** -0.5 if scale is None else scale
     kw = dict(scale=scale, causal=True, window=window, softcap=softcap)
     pad = torch.tensor(seg_np == 0, device="cuda")
     out, lse = FA.flash_attention_fwd(*args, **kw)
@@ -653,7 +700,7 @@ def bwd_case(torch, FA, ptxas, name, *, g, hg, t, dk, dv, lens, window=0,
     for key, row in rows.items():
         log(f"[kernels] {name} {key}: "
             f"{fmt({**row, 'bound': row['bound'][0], **extra})} "
-            f"{fmt(ptxas_of(ptxas, f'{key}_kernel', dk, dv))}")
+            f"{fmt(ptxas_of(ptxas, key, dk, dv))}")
     return rows
 
 
@@ -730,6 +777,16 @@ D256_CASES = [
 ]
 
 
+# (576, 512) at deepseek-v2-lite's shape: 16 heads in the reference's
+# gather mode (each head's k the one latent, v its first 512 columns),
+# scale 1/sqrt(qk_nope 128 + qk_rope 64), the slice's segments
+MLA_CASES = [
+    ("deepseek-v2-lite MLA [16,1,4096,576/512]", dict(
+        g=16, hg=1, t=4096, dk=576, dv=512, lens=SLICE_LENS, seed=7,
+        scale=192 ** -0.5, latent=True)),
+]
+
+
 def phase_kernels(torch, ptxas):
     """-> list of cases, each {kernel name: row}; the first case of each
     kernel is at the slice's shape."""
@@ -748,7 +805,7 @@ def phase_kernels(torch, ptxas):
         ("Dk=128 Dv=64", dict(g=2, hg=4, t=512, dk=128, dv=64,
                               lens=[300, 150, 33], seed=3)),
     ]
-    attn += D256_CASES
+    attn += D256_CASES + MLA_CASES
     cases = [fwd_case(torch, FA, name, ptxas=ptxas, **kw)
              for name, kw in attn]
     cases += [bwd_case(torch, FA, ptxas, name, **kw) for name, kw in attn]
@@ -2604,14 +2661,15 @@ def moe_group_faults(torch, spec, calls: list) -> dict:
             "groups_unlike_the_rule": bad}
 
 
-def moe_hold_replayed(torch, params, cfg, reqs, routes: dict):
-    """Each request's engine tokens and logits against its bf16
-    teacher-forced forward replaying, row by row, the experts and the kept
-    pairs the engine computed (``routes`` from `moe_record`): a capacity
-    drop depends on the group a row routed in, and a routing margin within
-    bf16's error flips an expert between two evaluations, so the replay
-    holds the engine's own function.  Greedy tokens equal its argmax but
-    for near-ties below SERVE_TOL (printed), logits within SERVE_TOL rms.
+def moe_hold_replayed(torch, params, cfg, reqs, routes: dict, f32=False):
+    """Each request's engine tokens and logits against its bf16 (``f32``:
+    float32, `teacher_forced_f32`) teacher-forced forward replaying, row
+    by row, the experts and the kept pairs the engine computed (``routes``
+    from `moe_record`, one entry per MoE layer): a capacity drop depends
+    on the group a row routed in, and a routing margin within bf16's error
+    flips an expert between two evaluations, so the replay holds the
+    engine's own function.  Greedy tokens equal its argmax but for
+    near-ties below SERVE_TOL (printed), logits within SERVE_TOL rms.
     -> (results, failures)."""
     import numpy as np
     from repro_torch.parallel.sharding import Runtime
@@ -2625,13 +2683,18 @@ def moe_hold_replayed(torch, params, cfg, reqs, routes: dict):
                                 device=DEVICE),
                    torch.tensor([row[layer][1] for row in rows],
                                 device=DEVICE))
-                  for layer in range(cfg.num_layers)]
+                  for layer in range(len(rows[0]))]
         dropped += sum(int((~keep).sum()) for _, keep in replay)
+
+        def forward():
+            if f32:
+                return teacher_forced_f32(torch, params, cfg, r)
+            return teacher_forced(torch, params, cfg, rt, r)
         with moe_routes(torch, replay=list(replay)):
-            ref = teacher_forced(torch, params, cfg, rt, r)
+            ref = forward()
         own = []
         with moe_routes(torch, record=own):
-            teacher_forced(torch, params, cfg, rt, r)
+            forward()
         other += sum(int((torch.sort(a, -1)[0] != torch.sort(b, -1)[0])
                          .sum()) for (a, _), b in zip(replay, own))
         pairs += sum(a.numel() for a, _ in replay)
@@ -2669,19 +2732,25 @@ def same_out(a, b) -> bool:
         x[0] == y[0] and np.array_equal(x[1], y[1]) for x, y in zip(a, b))
 
 
-def moe_serve_case(torch, cfg, params):
-    """(b) The 8-request pool at hdp = 1 at the config's capacity factor:
-    phase 4's gates and times, the pairs of tokens dropped counted.  The
-    drain again with its MoE calls recorded (bit-equal to the first):
-    every call's kept pairs are the capacity rule's over the call's group,
-    and every request is held by `moe_hold_replayed`.  -> (launches,
-    results, failures)."""
+def moe_serve_case(torch, cfg, params, *, lens=PROMPT_LENS, context=4096,
+                   f32=False):
+    """(b) The pool of ``lens`` (default phase 4's 8 requests) at hdp = 1
+    at the config's capacity factor, max_context and prefill capacity
+    ``context``: phase 4's gates and times, the slab, the pairs of tokens
+    dropped counted.  The drain again with its MoE calls recorded
+    (bit-equal to the first): every call's kept pairs are the capacity
+    rule's over the call's group, and every request is held by
+    `moe_hold_replayed` (``f32``: to the float32 teacher-forced forward).
+    -> (launches, results, failures)."""
     from repro_torch.launch.profile_serve import tokens_and_logits
     from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.serve_step import cache_bytes
     rt = Runtime(device=DEVICE)
     with moe_drop_counter(torch) as drops:
-        eng, reqs, launches, wall = serve_pool(torch, cfg, params, rt)
+        eng, reqs, launches, wall = serve_pool(torch, cfg, params, rt,
+                                               lens=lens, context=context)
     peak = torch.cuda.max_memory_allocated()
+    slab = cache_bytes(eng.cache)
     waves = eng.stats["prefill_waves"]
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
     decode_s = sum(r.decode_s for r in reqs)
@@ -2692,13 +2761,19 @@ def moe_serve_case(torch, cfg, params):
            "decode_ms_per_wave": decode_s / eng.stats["decode_waves"] * 1e3,
            "decode_tokens_per_s": decode_tokens / decode_s,
            "drain_s": wall, "peak_mem_gb": peak / 1e9,
+           "slab_gb": slab / 1e9,
+           "slab_bytes_per_token": slab / (len(lens) * context),
            "dropped_pairs_of_tokens": int(drops)}
     timed = tokens_and_logits(reqs)
     del eng, reqs
+    torch.cuda.empty_cache()
 
     routes, calls = {}, []
     with moe_record(torch, routes, calls) as during:
-        eng, reqs, _, _ = serve_pool(torch, cfg, params, rt, during=during)
+        eng, reqs, _, _ = serve_pool(torch, cfg, params, rt, during=during,
+                                     lens=lens, context=context)
+    del eng
+    torch.cuda.empty_cache()
     fails = []
     if not same_out(tokens_and_logits(reqs), timed):
         fails.append("the recorded drain's tokens or logits differ from the "
@@ -2706,7 +2781,7 @@ def moe_serve_case(torch, cfg, params):
     groups = moe_group_faults(torch, cfg.moe, calls)
     if groups["groups_unlike_the_rule"]:
         fails.append(f"kept pairs unlike the capacity rule: {groups}")
-    held, bad = moe_hold_replayed(torch, params, cfg, reqs, routes)
+    held, bad = moe_hold_replayed(torch, params, cfg, reqs, routes, f32=f32)
     res.update({"groups": groups, **held})
     return launches, res, fails + bad
 
@@ -3256,8 +3331,8 @@ GEMMA_CUTS = {"gemma2-9b": (2, 4, 8192), "gemma3-12b": (6, 6, 4096)}
 def teacher_forced_f32(torch, params, cfg, req):
     """Logit rows of one request from a float32 packed forward over its
     prompt and generated tokens (plain attention), the weights upcast one
-    layer at a time: a float32 copy of gemma3-12b whole would take 47 GB
-    beside its bf16 weights."""
+    layer at a time (the head blocks first): a float32 copy of gemma3-12b
+    whole would take 47 GB beside its bf16 weights."""
     import numpy as np
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
@@ -3270,15 +3345,20 @@ def teacher_forced_f32(torch, params, cfg, req):
     with torch.inference_mode():
         seg = torch.ones(n, dtype=torch.int32, device=DEVICE)
         pos = torch.arange(n, dtype=torch.int32, device=DEVICE)
-        emb = {"embed": params["embed"].float()}
+        emb = {name: params[name].float() for name in ("embed", "lm_head")
+               if name in params}
         x = T.embed_tokens(emb, cfg32, torch.tensor(toks, dtype=torch.int32,
                                                     device=DEVICE))
+        for i, bp in enumerate(params["head_blocks"]):
+            x = T.block_forward(tree_map(lambda a: a.float(), bp), cfg32, rt,
+                                x, seg, pos, i)
+        head_n = len(params["head_blocks"])
         period = len(cfg.layer_pattern)
-        for i in range(cfg.num_layers // period):
+        for i in range((cfg.num_layers - head_n) // period):
             for j in range(period):
                 bp = tree_map(lambda a: a.float(),
                               T._index(params["blocks"][j], i))
-                x = T.block_forward(bp, cfg32, rt, x, seg, pos, j)
+                x = T.block_forward(bp, cfg32, rt, x, seg, pos, head_n + j)
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return T.logits_head(emb, cfg32, x[req.plen - 1:]).cpu().numpy()
 
@@ -3402,17 +3482,109 @@ def phase_gemma(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 14. report
+# 14. mla
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_CONTEXT = 8192              # (a): max_context and prefill capacity
+MLA_LONG = 5000                 # (a): a prompt over 4096 tokens
+MLA_TRAIN_LAYERS = 3            # (b): the dense head layer, two MoE layers
+QWEN_ARCH = "qwen3-moe-30b-a3b"
+QWEN_SERVE_LAYERS, QWEN_TRAIN_LAYERS = 8, 2     # (c)
+
+
+def mla_serve(torch, cfg, tag, *, lens, context):
+    """``cfg`` at full width (its depth) served as phase 11 (b) serves
+    (`moe_serve_case`), every request held to a float32 teacher-forced
+    forward replaying the engine's experts -> (launches, failures)."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in leaves(params))
+    log(f"{tag} {cfg.name}: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"{n / 1e9:.3f} B params, {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB, init {time.perf_counter() - t0:.1f} s")
+    launches, res, fails = moe_serve_case(torch, cfg, params, lens=lens,
+                                          context=context, f32=True)
+    log(f"{tag} serve {cfg.name} {json.dumps(res)}")
+    del params
+    torch.cuda.empty_cache()
+    return launches, fails
+
+
+def mla_train(torch, cfg, tag):
+    """``cfg`` (cut to its training depth): 3 `Trainer` steps as phase 5's
+    with exact launches a wave, then one wave held to the float32 plain
+    route replaying the kernel route's experts (phase 11 (c)) ->
+    (launches, failures)."""
+    from repro_torch.models.transformer import head_layer_count
+    # the dense head layers run outside the remat periods: no recompute
+    want = wave_launches_want(cfg.num_layers, 1)
+    want["flash_fwd_carry"] -= head_layer_count(cfg)
+    launches, _, _ = train_full(torch, cfg, tag=f"{tag[1:-1]} train",
+                                want=want)
+    res, fails = moe_train_wave(torch, cfg)
+    log(f"{tag} train {cfg.name} at {cfg.num_layers} layers, one wave: "
+        f"{fmt(res)}")
+    torch.cuda.empty_cache()
+    return launches, fails
+
+
+def phase_mla(torch, card):
+    """deepseek-v2-lite-16b served at full depth and trained at 3 layers,
+    qwen3-moe-30b-a3b served at 8 layers and trained at 2 -> their
+    launches, summed."""
+    from repro_torch.configs.registry import get_config
+    tag = "[mla]"
+    log(f"{tag} {card}")
+    t0 = time.perf_counter()
+    total = {name: 0 for name, *_ in KERNELS}
+    fails = []
+    ds = get_config(MLA_ARCH)
+    qw = get_config(QWEN_ARCH)
+    parts = [
+        ("(a)", lambda: mla_serve(torch, ds, tag, lens=PROMPT_LENS
+                                  + [MLA_LONG], context=MLA_CONTEXT)),
+        ("(b)", lambda: mla_train(torch, dataclasses.replace(
+            ds, num_layers=MLA_TRAIN_LAYERS), tag)),
+        ("(c) serve", lambda: mla_serve(torch, dataclasses.replace(
+            qw, num_layers=QWEN_SERVE_LAYERS), tag, lens=PROMPT_LENS,
+            context=4096)),
+        ("(c) train", lambda: mla_train(torch, dataclasses.replace(
+            qw, num_layers=QWEN_TRAIN_LAYERS), tag)),
+    ]
+    for part, run in parts:
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        launches, bad = run()
+        fails += [f"{part} {f}" for f in bad]
+        for name, n in launches.items():
+            total[name] += n
+        log(f"{tag} {part} done in {time.perf_counter() - t1:.1f} s")
+    zero_counts()
+    log(f"{tag} launches {json.dumps(total)}, phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fails:
+        raise AssertionError("phase 14: " + "; ".join(fails))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# 15. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
                  hdp_launches, offload_launches, hdp_serve_launches,
-                 ckpt_launches, moe_launches, pp_launches, gemma_launches):
+                 ckpt_launches, moe_launches, pp_launches, gemma_launches,
+                 mla_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
     its ranks), the offloading trainer's, the hdp = 4 engine's (summed
     over its ranks), the checkpoint phase's, the MoE phase's, the
-    pipelined trainer's (summed over its ranks) and the Gemma phase's."""
+    pipelined trainer's (summed over its ranks), the Gemma phase's and
+    the MLA phase's."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -3427,7 +3599,7 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             + hdp_launches[name] + offload_launches[name]
             + hdp_serve_launches[name] + ckpt_launches[name]
             + moe_launches[name] + pp_launches[name]
-            + gemma_launches[name],
+            + gemma_launches[name] + mla_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -3471,11 +3643,13 @@ def main() -> int:
     log(f"[pipeline] done at {time.perf_counter() - t0:.1f} s")
     gemma_launches = phase_gemma(torch, card)
     log(f"[gemma] done at {time.perf_counter() - t0:.1f} s")
+    mla_launches = phase_mla(torch, card)
+    log(f"[mla] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
                                 offload_launches, hdp_serve_launches,
                                 ckpt_launches, moe_launches, pp_launches,
-                                gemma_launches)))
+                                gemma_launches, mla_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

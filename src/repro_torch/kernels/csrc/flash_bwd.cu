@@ -75,6 +75,10 @@
 //    product of the four a step is done twice, where sharing P^T through
 //    shared memory would add a barrier between the warpgroups on every
 //    step; two passes over the q tiles would load Q and dO twice.
+//  * (Dk, Dv) = (576, 512) (DeepSeek-V2's latent attention) has kernels of
+//    their own, `flash_bwd_dq_mla_kernel` and `flash_bwd_dkv_mla_kernel`
+//    below: one warpgroup a block, each block one column range of dq, dk
+//    or dv.
 // Ragged tails (T % 64, S % 64) load as zeros with segment 0.  dq writes
 // every row < T of its tile (zeros where no key is visible), dkv every
 // row < S of its tile.
@@ -653,6 +657,431 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// (Dk, Dv) = (576, 512): DeepSeek-V2's absorbed MLA
+// ---------------------------------------------------------------------------
+//
+// The templates above do not hold this shape.  A 64-row tile of dq is 64 x
+// 576 fp32 (288 registers a thread in one warpgroup), dk and dv of a KV
+// tile 64 x 1088 (544), and the four tiles one step reads (Q 72 KB, K
+// 72 KB, dO 64 KB, V 64 KB) take 272 KB, more than a block's 227 KB.  So:
+//  * Every block is one warpgroup holding one column range of one output
+//    tile (at most 192 columns, 96 fp32 a thread): dq in three blocks of
+//    192 columns per (g, h, q tile); dv in blocks of 192, 192 and 128
+//    columns and dk in three of 192 per (g, KV tile).  Each block computes
+//    the score tiles its columns need (S and dP for dq and dk, S alone for
+//    dv) itself, so every block of one tile repeats them: the tensor-core
+//    work is ~3.3x the bound's, the price of holding no output in shared
+//    memory and exchanging nothing between blocks.
+//  * One operand buffer of 72 KB takes the two tiles of a step in turn,
+//    beside the two tiles that stay for the whole block (Q and dO for dq;
+//    K and V for dk and dv): dq loads V_t (dP = dO V^T), then K_t (S = Q
+//    K^T, then dq += dS K[:, cols]); a dk block loads dO (dP^T = V dO^T),
+//    then Q (S^T = K Q^T, then dk += dS^T Q[:, cols]); a dv block loads Q
+//    (S^T), then dO (dv += P^T dO[:, cols]).  The loads do not overlap the
+//    products (214 KB of shared memory, one block an SM).
+//  * The arithmetic per pair is the templates': p and ds in fp32, each
+//    entering its product as bf16 hi + lo fragments; a column range [c0,
+//    c0 + N) of a tile is the MN-major B operand with its start address
+//    moved by 16 c0 bytes.
+constexpr int MLA_DK = 576, MLA_DV = 512;
+constexpr int MLA_COLS = 192;             // output columns a block
+constexpr int MLA_DQ_CB = MLA_DK / MLA_COLS;   // dq column blocks: 3
+constexpr int MLA_DKV_CB = 6;             // dv: 192, 192, 128; dk: 3 x 192
+constexpr int MLA_BUF = TILE * MLA_DK * 2;     // the operand buffer
+
+// shared memory of the dq kernel: Q, dO, the operand buffer, the KV tile's
+// k_seg and k_pos, per q row delta, lse, q_seg and q_pos, then the
+// live-tile and full-tile bitmasks
+struct MlaDqSmem {
+  static constexpr int Q = TILE * MLA_DK * 2;
+  static constexpr int DO = TILE * MLA_DV * 2;
+  static constexpr int BUF = Q + DO;
+  static constexpr int KMETA = BUF + MLA_BUF;
+  static constexpr int ROWS = KMETA + 2 * TILE * 4;
+  static constexpr int MASK = ROWS + 4 * TILE * 4;
+  static size_t bytes(int n_tiles) {
+    return MASK + (size_t)((n_tiles + 31) / 32) * 8;
+  }
+};
+
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dq_mla_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const int* __restrict__ q_seg,
+                        const int* __restrict__ k_seg,
+                        const int* __restrict__ q_pos,
+                        const int* __restrict__ k_pos,
+                        const __nv_bfloat16* __restrict__ out,
+                        const float* __restrict__ lse,
+                        const __nv_bfloat16* __restrict__ dout,
+                        __nv_bfloat16* __restrict__ dq,
+                        float* __restrict__ delta, int Hg, int T, int S,
+                        float scale, int causal, int window, float softcap) {
+  using L = MlaDqSmem;
+  constexpr int DK = MLA_DK, DV = MLA_DV, NC = MLA_COLS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int n_kv = (S + TILE - 1) / TILE;
+  const int words = (n_kv + 31) / 32;
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem_raw + L::MASK);
+  const uint32_t* full = live + words;
+  const int* sKseg = reinterpret_cast<const int*>(smem_raw + L::KMETA);
+  const int* sKpos = sKseg + TILE;
+  float* sDelta = reinterpret_cast<float*>(smem_raw + L::ROWS);
+  float* sLse = sDelta + TILE;
+  int* sQseg = reinterpret_cast<int*>(sLse + TILE);
+  int* sQpos = sQseg + TILE;
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sQ = base, sdO = base + L::Q, sB = base + L::BUF;
+
+  // (g, head and column block, q tile): the last q tiles start first
+  const int g = blockIdx.x;
+  const int h = blockIdx.y / MLA_DQ_CB, c0 = (blockIdx.y % MLA_DQ_CB) * NC;
+  const int qt = gridDim.z - 1 - blockIdx.z, q0 = qt * TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t head = (size_t)g * Hg + h;
+  const __nv_bfloat16* kg = k + (size_t)g * S * DK;
+  const __nv_bfloat16* vg = v + (size_t)g * S * DV;
+
+  const TileMeta mine = warp_tile_meta(q_seg, q_pos, T, qt, lane);
+  build_live_masks<128, 1>(live, words, n_kv, k_seg, k_pos, S, &mine, true,
+                           causal, window);
+
+  int kt = next_live(live, 0, n_kv);
+  if (kt < n_kv) {
+    load_tile_async<DK, 128>(sQ, q + head * T * DK, q0, T);
+    load_tile_async<DV, 128>(sdO, dout + head * T * DV, q0, T);
+  }
+  cp_async_commit();
+
+  // per q row, while Q and dO load: delta = rowsum(do * out) in fp32 (two
+  // threads a row; the first column block writes it out), lse, q_seg, q_pos
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const bool row_in = q0 + r < T;
+  float d = 0.f;
+  if (row_in) {
+    const size_t row = (head * T + q0 + r) * DV;
+#pragma unroll 4
+    for (int c = half * (DV / 2); c < (half + 1) * (DV / 2); c += 8) {
+      const uint4 ro = *reinterpret_cast<const uint4*>(out + row + c);
+      const uint4 rd = *reinterpret_cast<const uint4*>(dout + row + c);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ro);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&rd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]);
+        const float2 df = __bfloat1622float2(d2[e]);
+        d += of.x * df.x;
+        d += of.y * df.y;
+      }
+    }
+  }
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  if (half == 0) {
+    sDelta[r] = d;
+    sLse[r] = row_in ? lse[head * T + q0 + r] : 0.f;
+    sQseg[r] = row_in ? q_seg[q0 + r] : 0;
+    sQpos[r] = row_in ? q_pos[q0 + r] : 0;
+    if (row_in && c0 == 0) delta[head * T + q0 + r] = d;
+  }
+  __syncthreads();
+
+  const int r_lo = warp * 16 + gid, r_hi = r_lo + 8;
+  const int t_lo = q0 + r_lo, t_hi = q0 + r_hi;
+
+  // dq / scale, columns [c0, c0 + 192), for this warp's 16 q rows
+  float acc[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+
+  while (kt < n_kv) {
+    // V_kt and the tile's k_seg / k_pos: dp = dO V^T
+    load_tile_async<DV, 128>(sB, vg, kt * TILE, S);
+    load_vec_async(base + L::KMETA, k_seg, kt * TILE, S);
+    load_vec_async(base + L::KMETA + TILE * 4, k_pos, kt * TILE, S);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    float dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<DV>(sdO, kk), desc_k<DV>(sB, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dp);
+    __syncthreads();                      // every warp is done with V_kt
+
+    // K_kt: s = Q K^T
+    load_tile_async<DK, 128>(sB, kg, kt * TILE, S);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n64(s, desc_k<DK>(sQ, kk), desc_k<DK>(sB, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+
+    // ds into s (no element-wise mask on a full tile)
+    const bool whole = bit(full, kt);
+    const int qseg_lo = sQseg[r_lo], qseg_hi = sQseg[r_hi];
+    const int qpos_lo = sQpos[r_lo], qpos_hi = sQpos[r_hi];
+    const float lse_lo = sLse[r_lo], lse_hi = sLse[r_hi];
+    const float dl_lo = sDelta[r_lo], dl_hi = sDelta[r_hi];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = (i >> 2) * 8 + 2 * tig + (i & 1);
+      const bool hi = (i & 2) != 0;
+      const bool ok = whole || visible(hi ? qseg_hi : qseg_lo,
+                                       hi ? qpos_hi : qpos_lo, sKseg[col],
+                                       sKpos[col], causal, window);
+      float p, ds;
+      pair_grad(s[i], dp[i], ok, hi ? lse_hi : lse_lo, hi ? dl_hi : dl_lo,
+                scale, softcap, p, ds);
+      s[i] = ds;
+    }
+    uint32_t sh[4][4], sl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a_split(sh[kk], sl[kk], s, kk);
+
+    // dq[:, c0 : c0 + 192] += dS K[:, c0 : c0 + 192]: hi and lo fragments
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs<NC>(acc, sh[kk], desc_mn<DK>(sB + c0 * 16, kk), 1);
+      wgmma_rs<NC>(acc, sl[kk], desc_mn<DK>(sB + c0 * 16, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    __syncthreads();                      // every warp is done with K_kt
+    kt = next_live(live, kt + 1, n_kv);
+  }
+
+  // epilogue: every row < T, scaled; a tile no key is visible to writes
+  // zeros (the wrapper's dq is uninitialised)
+  __nv_bfloat16* dq_h = dq + head * T * DK + c0;
+#pragma unroll
+  for (int nt = 0; nt < NC / 8; ++nt) {
+    const int c = nt * 8 + 2 * tig;
+    if (t_lo < T)
+      *reinterpret_cast<uint32_t*>(dq_h + (size_t)t_lo * DK + c) =
+          pack_f2(acc[4 * nt] * scale, acc[4 * nt + 1] * scale);
+    if (t_hi < T)
+      *reinterpret_cast<uint32_t*>(dq_h + (size_t)t_hi * DK + c) =
+          pack_f2(acc[4 * nt + 2] * scale, acc[4 * nt + 3] * scale);
+  }
+}
+
+// shared memory of the dkv kernel: K, V, the operand buffer, the q tile's
+// q_seg, q_pos, lse and delta, then the live-tile and full-tile bitmasks
+struct MlaDkvSmem {
+  static constexpr int K = TILE * MLA_DK * 2;
+  static constexpr int V = TILE * MLA_DV * 2;
+  static constexpr int BUF = K + V;
+  static constexpr int VEC = BUF + MLA_BUF;
+  static constexpr int MASK = VEC + 4 * TILE * 4;
+  static size_t bytes(int n_tiles) {
+    return MASK + (size_t)((n_tiles + 31) / 32) * 8;
+  }
+};
+
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dkv_mla_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const int* __restrict__ q_seg,
+                         const int* __restrict__ k_seg,
+                         const int* __restrict__ q_pos,
+                         const int* __restrict__ k_pos,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ lse,
+                         const __nv_bfloat16* __restrict__ dout,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int Hg, int T, int S,
+                         float scale, int causal, int window, float softcap) {
+  using L = MlaDkvSmem;
+  constexpr int DK = MLA_DK, DV = MLA_DV, NC = MLA_COLS;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int n_q = (T + TILE - 1) / TILE;
+  const int words = (n_q + 31) / 32;
+  uint32_t* live = reinterpret_cast<uint32_t*>(smem_raw + L::MASK);
+  const uint32_t* full = live + words;
+  const int* sQseg = reinterpret_cast<const int*>(smem_raw + L::VEC);
+  const int* sQpos = sQseg + TILE;
+  const float* sLse = reinterpret_cast<const float*>(sQpos + TILE);
+  const float* sDelta = sLse + TILE;
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t sK = base, sV = base + L::K, sB = base + L::BUF;
+
+  // (KV tile, g, column block): blocks 0-2 hold dv columns [0, 192),
+  // [192, 384), [384, 512); blocks 3-5 dk columns [0, 192), [192, 384),
+  // [384, 576)
+  const int g = blockIdx.y, k0 = blockIdx.x * TILE;
+  const bool is_v = blockIdx.z < 3;       // block-uniform
+  const int c0 = (blockIdx.z % 3) * NC;
+  const bool narrow = is_v && c0 + NC > DV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // the q tiles whose queries can see any key of this KV tile, and those
+  // that see it whole
+  const TileMeta mine = warp_tile_meta(k_seg, k_pos, S, blockIdx.x, lane);
+  build_live_masks<128, 1>(live, words, n_q, q_seg, q_pos, T, &mine, false,
+                           causal, window);
+
+  const int r_lo = warp * 16 + gid, r_hi = r_lo + 8;
+  const int j_lo = k0 + r_lo, j_hi = k0 + r_hi;
+  const int kseg_lo = j_lo < S ? k_seg[j_lo] : 0;
+  const int kseg_hi = j_hi < S ? k_seg[j_hi] : 0;
+  const int kpos_lo = j_lo < S ? k_pos[j_lo] : 0;
+  const int kpos_hi = j_hi < S ? k_pos[j_hi] : 0;
+
+  // dv, or dk / scale, columns [c0, c0 + 192) (128 on the narrow block)
+  float acc[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+
+  const int first = next_live(live, 0, n_q);
+  if (first < n_q) {
+    load_tile_async<DK, 128>(sK, k + (size_t)g * S * DK, k0, S);
+    if (!is_v) load_tile_async<DV, 128>(sV, v + (size_t)g * S * DV, k0, S);
+  }
+  cp_async_commit();                      // waited with the first step's
+  for (int h = 0; first < n_q && h < Hg; ++h) {
+    const size_t head = (size_t)g * Hg + h;
+    const __nv_bfloat16* qh = q + head * T * DK;
+    const __nv_bfloat16* doh = dout + head * T * DV;
+    for (int qt = first; qt < n_q; qt = next_live(live, qt + 1, n_q)) {
+      const int q0 = qt * TILE;
+      // the first tile of the step (Q for dv, dO for dk) and the rows' data
+      if (is_v) load_tile_async<DK, 128>(sB, qh, q0, T);
+      else load_tile_async<DV, 128>(sB, doh, q0, T);
+      load_vec_async(base + L::VEC, q_seg, q0, T);
+      load_vec_async(base + L::VEC + TILE * 4, q_pos, q0, T);
+      load_vec_async(base + L::VEC + 2 * TILE * 4, lse + head * T, q0, T);
+      load_vec_async(base + L::VEC + 3 * TILE * 4, delta + head * T, q0, T);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_smem();
+      __syncthreads();
+      // s^T = K Q^T (dv) or dp^T = V dO^T (dk): 16 kv rows x 64 q columns
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      wgmma_fence();
+      if (is_v) {
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk)
+          wgmma_ss_n64(st, desc_k<DK>(sK, kk), desc_k<DK>(sB, kk), 1);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk)
+          wgmma_ss_n64(dpt, desc_k<DV>(sV, kk), desc_k<DV>(sB, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(st);
+      reg_fence(dpt);
+      __syncthreads();                    // every warp is done with it
+
+      // the second tile (dO for dv, Q for dk)
+      if (is_v) load_tile_async<DV, 128>(sB, doh, q0, T);
+      else load_tile_async<DK, 128>(sB, qh, q0, T);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_async_smem();
+      __syncthreads();
+      if (!is_v) {                        // s^T = K Q^T
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DK / 16; ++kk)
+          wgmma_ss_n64(st, desc_k<DK>(sK, kk), desc_k<DK>(sB, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(st);
+      }
+
+      // p^T (dv) or ds^T (dk) into st (no element-wise mask on a full tile)
+      const bool whole = bit(full, qt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = (i >> 2) * 8 + 2 * tig + (i & 1);
+        const bool hi = (i & 2) != 0;
+        const bool ok = whole || visible(sQseg[col], sQpos[col],
+                                         hi ? kseg_hi : kseg_lo,
+                                         hi ? kpos_hi : kpos_lo, causal,
+                                         window);
+        float p, ds;
+        pair_grad(st[i], dpt[i], ok, sLse[col], sDelta[col], scale, softcap,
+                  p, ds);
+        st[i] = is_v ? p : ds;
+      }
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a_split(ah[kk], al[kk], st, kk);
+
+      // acc += P^T dO[:, cols] or dS^T Q[:, cols]: hi and lo fragments
+      reg_fence(acc);
+      wgmma_fence();
+      if (narrow) {
+        float(&acc128)[64] = *reinterpret_cast<float(*)[64]>(&acc[0]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs<128>(acc128, ah[kk], desc_mn<DV>(sB + c0 * 16, kk), 1);
+          wgmma_rs<128>(acc128, al[kk], desc_mn<DV>(sB + c0 * 16, kk), 1);
+        }
+      } else if (is_v) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs<NC>(acc, ah[kk], desc_mn<DV>(sB + c0 * 16, kk), 1);
+          wgmma_rs<NC>(acc, al[kk], desc_mn<DV>(sB + c0 * 16, kk), 1);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_rs<NC>(acc, ah[kk], desc_mn<DK>(sB + c0 * 16, kk), 1);
+          wgmma_rs<NC>(acc, al[kk], desc_mn<DK>(sB + c0 * 16, kk), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+      __syncthreads();                    // the buffer may be refilled
+    }
+  }
+
+  // epilogue: rows < S, dk scaled; a tile no q row sees writes zeros
+  const int width = is_v ? DV : DK;
+  __nv_bfloat16* dst = (is_v ? dv : dk) + (size_t)g * S * width + c0;
+  const float f = is_v ? 1.f : scale;
+  const int ncols = narrow ? DV - c0 : NC;
+#pragma unroll
+  for (int nt = 0; nt < NC / 8; ++nt) {
+    const int c = nt * 8 + 2 * tig;
+    if (nt * 8 >= ncols) break;
+    if (j_lo < S)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)j_lo * width + c) =
+          pack_f2(acc[4 * nt] * f, acc[4 * nt + 1] * f);
+    if (j_hi < S)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)j_hi * width + c) =
+          pack_f2(acc[4 * nt + 2] * f, acc[4 * nt + 3] * f);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *q_seg, *k_seg, *q_pos, *k_pos, *out, *lse, *dout;
   void* delta;                            // written by dq, read by dkv
@@ -711,6 +1140,35 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_mla(int which, const Args& a) {
+  const bool dq_k = which == 0;
+  const size_t smem = dq_k ? MlaDqSmem::bytes((a.S + TILE - 1) / TILE)
+                           : MlaDkvSmem::bytes((a.T + TILE - 1) / TILE);
+  const void* kern = dq_k ? reinterpret_cast<const void*>(flash_bwd_dq_mla_kernel)
+                          : reinterpret_cast<const void*>(flash_bwd_dkv_mla_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  if (dq_k) {
+    const dim3 grid(a.G, a.Hg * MLA_DQ_CB, (a.T + TILE - 1) / TILE);
+    flash_bwd_dq_mla_kernel<<<grid, 128, smem, a.stream>>>(
+        FLASH_BWD_INPUTS(a), static_cast<const __nv_bfloat16*>(a.out),
+        static_cast<const float*>(a.lse),
+        static_cast<const __nv_bfloat16*>(a.dout),
+        static_cast<__nv_bfloat16*>(a.d0), static_cast<float*>(a.delta),
+        a.Hg, a.T, a.S, a.scale, a.causal, a.window, a.softcap);
+  } else {
+    const dim3 grid((a.S + TILE - 1) / TILE, a.G, MLA_DKV_CB);
+    flash_bwd_dkv_mla_kernel<<<grid, 128, smem, a.stream>>>(
+        FLASH_BWD_INPUTS(a), static_cast<const float*>(a.delta),
+        static_cast<const float*>(a.lse),
+        static_cast<const __nv_bfloat16*>(a.dout),
+        static_cast<__nv_bfloat16*>(a.d0), static_cast<__nv_bfloat16*>(a.d1),
+        a.Hg, a.T, a.S, a.scale, a.causal, a.window, a.softcap);
+  }
+  return cudaGetLastError();
+}
+
 template <int DK>
 cudaError_t dispatch_dv(int dv, int which, const Args& a) {
 #define FLASH_BWD_DV(DV)                                                     \
@@ -745,6 +1203,8 @@ cudaError_t dispatch(int dk, int dv, int which, const Args& a) {
       return dispatch_dv<128>(dv, which, a);
     case 256:
       return dispatch_dv<256>(dv, which, a);
+    case MLA_DK:                          // (576, 512) only
+      return dv == MLA_DV ? launch_mla(which, a) : cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

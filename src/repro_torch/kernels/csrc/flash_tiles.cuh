@@ -24,7 +24,8 @@
 //  * cp.async loads into that layout (zero-filled past the end of the
 //    buffer), wgmma descriptors, and the wgmma instructions the kernels use
 //    (m64n64k16 with both operands in shared memory; m64n{32,64,128}k16 with
-//    A in registers and an MN-major B, and N = 256 as two of 128).
+//    A in registers and an MN-major B, and N = 192 and 256 as 128 + 64 and
+//    128 + 128).
 //
 // Fragment layouts: the accumulator of an m64nNk16 wgmma gives warp w of the
 // warpgroup rows 16w + gid and 16w + gid + 8 (gid = lane / 4) and, for each
@@ -415,21 +416,28 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// d[N/2] (+)= A[64x16] . B[16xN] with A in registers, B MN-major.  N = 256
-// issues two m64n128k16 on the halves of B: in the core layout columns
-// [128, 256) start 16 core matrices (2048 bytes) further along N, so the
-// second descriptor is the first with its start address moved by 2048 >> 4,
-// and the halves of d are the two accumulators in the same fragment layout
+// d[N/2] (+)= A[64x16] . B[16xN] with A in registers, B MN-major.  N = 192
+// and 256 issue an m64n128k16 on columns [0, 128) and an m64n64k16 or a
+// second m64n128k16 on the rest: in the core layout column c starts c / 8
+// core matrices (16 c bytes) further along N, so columns [128, N) take the
+// first descriptor with its start address moved by 2048 >> 4, and the parts
+// of d are their accumulators in the same fragment layout.  The same shift
+// of the start address by 16 c0 bytes makes any column range [c0, c0 + N)
+// of a wider tile the B operand (the (576, 512) kernels).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128 || N == 256,
-                "N in {32, 64, 128, 256}");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "N in {32, 64, 128, 192, 256}");
   if constexpr (N == 32) wgmma_rs_n32(d, a, db, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db, scale_d);
-  else {
+  else if constexpr (N == 192) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, db, scale_d);
+    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&d[64]), a,
+                 db + (2048 >> 4), scale_d);
+  } else {
     wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a, db, scale_d);
     wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a,
                   db + (2048 >> 4), scale_d);

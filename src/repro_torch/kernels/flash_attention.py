@@ -30,9 +30,10 @@ BLOCK_Q = 64          # the CUDA kernel's q-tile and KV-tile rows
 BLOCK_K = 64
 HEAD_DIMS = (32, 64, 128)
 # the (Dk, Dv) pairs the CUDA kernels are instantiated for: every pair of
-# HEAD_DIMS, and (256, 256) (Gemma-2 and Gemma-3)
+# HEAD_DIMS, (256, 256) (Gemma-2 and Gemma-3) and (576, 512) (DeepSeek-V2's
+# absorbed latent attention: kv_lora_rank 512 + qk_rope 64, v the first 512)
 KERNEL_DIMS = frozenset({(a, b) for a in HEAD_DIMS for b in HEAD_DIMS}
-                        | {(256, 256)})
+                        | {(256, 256), (576, 512)})
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +200,8 @@ def _launch(source, symbol, q, k, v, args, *, block_q, block_k):
                         f"{q.dtype}")
     if (dk, dv) not in KERNEL_DIMS:
         raise ValueError(f"the CUDA flash kernels take Dk, Dv in "
-                         f"{HEAD_DIMS} or Dk = Dv = 256, got {dk}, {dv}")
+                         f"{HEAD_DIMS}, Dk = Dv = 256 or (Dk, Dv) = "
+                         f"(576, 512), got {dk}, {dv}")
     if (block_q, block_k) != (BLOCK_Q, BLOCK_K):
         raise ValueError(f"the CUDA flash kernels tile {BLOCK_Q}x{BLOCK_K}, "
                          f"got block_q={block_q}, block_k={block_k}")

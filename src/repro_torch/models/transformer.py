@@ -6,7 +6,8 @@ segments, global (``g``) or sliding-window local (``l``) layers, a gated
 or plain MLP or a capacity-bounded MoE per layer (`models/moe.py`), tied
 or untied logits; and the Gemma-style flags: attention and final logit
 softcaps, post-block norms, the sqrt(d_model) embedding scale and per-head
-q/k norms.  Activations are flat packed
+q/k norms; and DeepSeek-V2's Multi-head Latent Attention (``cfg.mla``,
+`models/mla.py`) in place of GQA.  Activations are flat packed
 buffers [T, d]; every token carries (segment_id, position).  Parameters
 keep the reference's tree and layouts, so a JAX parameter tree bridges by
 a plain copy (`repro_torch.bridge`):
@@ -16,13 +17,13 @@ a plain copy (`repro_torch.bridge`):
     blocks: one dict per layer-pattern position, every leaf stacked
     [n_periods, ...]: norm1/norm2 {scale}, attn {w_q [d, h*Dk],
     w_kv [d, 2, G, Dk], w_o [h*Dk, d], and with ``qk_norm`` q_norm/k_norm
-    [Dk] f32}, mlp {w_in, w_gate, w_out} or moe {router [d, E] f32, w_in,
-    w_gate [E, d, f], w_out [E, f, d], shared_*}, and with
-    ``post_block_norm`` postnorm1/postnorm2 {scale}.
+    [Dk] f32} (with ``mla``: w_q, w_dkv, latent_norm {scale}, w_uk, w_uv,
+    w_o, `models/mla.py`), mlp {w_in, w_gate, w_out} or moe {router
+    [d, E] f32, w_in, w_gate [E, d, f], w_out [E, f, d], shared_*}, and
+    with ``post_block_norm`` postnorm1/postnorm2 {scale}.
 
-Dense weights are [in, out] and used as ``x @ W``.  MLA, SSM mixers,
-non-token frontends and M-RoPE are later slices and raise
-`NotImplementedError`.
+Dense weights are [in, out] and used as ``x @ W``.  SSM mixers, non-token
+frontends and M-RoPE are later slices and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ring as R
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.parallel.sharding import Runtime, resolve_device
 from repro_torch.tree import leaves, tree_map
@@ -44,7 +46,7 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if set(cfg.layer_pattern) - {"g", "l"}:
         missing.append(f"layer pattern {cfg.layer_pattern!r}")
-    for name in ("mla", "rwkv", "mamba"):
+    for name in ("rwkv", "mamba"):
         if getattr(cfg, name) is not None:
             missing.append(name)
     if cfg.frontend != "none":
@@ -54,8 +56,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
-            f"attention decoders with global and local layers, dense or "
-            f"MoE, with a token frontend)")
+            f"attention decoders, GQA or MLA, with global and local layers, "
+            f"dense or MoE, with a token frontend)")
 
 
 def head_layer_count(cfg: ModelConfig) -> int:
@@ -69,6 +71,8 @@ def head_layer_count(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _attn_init(gen, cfg: ModelConfig, layout, dtype, device) -> dict:
+    if cfg.mla is not None:
+        return MLA.mla_init(gen, cfg, dtype, device)
     d = cfg.d_model
     dk = cfg.resolved_head_dim
     g = cfg.num_kv_heads
@@ -196,11 +200,34 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
 def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
                      window: int, collect: Optional[list] = None):
     """``collect`` (serving): a list the block appends its post-rotation
-    per-token cache rows ``{"k", "v"}`` [T, G, Dk] to, in the layout the
-    decode cache stores per position."""
+    per-token cache rows to, ``{"k", "v"}`` [T, G, Dk] or the MLA latent
+    ``{"kv_lat"}`` [T, 1, kv_lora+rope], in the layout the decode cache
+    stores per position.
+
+    MLA runs the reference's gather mode: every (padded) head takes the one
+    latent as its KV (``kv_group_of_head`` zeros), and v is the latent's
+    first kv_lora_rank columns (``v_in_k``)."""
     t = x.shape[0]
     pos_s = L.scalar_positions(cfg, pos)
     layout = rt.layout(cfg)
+    if cfg.mla is not None:
+        q_eff, kv_eff = MLA.mla_qkv(bp, cfg, x, pos_s)
+        if collect is not None:
+            collect.append({"kv_lat": kv_eff})
+        if q_eff.shape[1] < layout.h_pad:            # pad heads to tp
+            q_eff = torch.nn.functional.pad(
+                q_eff, (0, 0, 0, layout.h_pad - q_eff.shape[1]))
+        out = R.ring_attention(
+            q_eff, kv_eff, None, seg, seg, pos_s, pos_s,
+            composition=rt.composition, kv_sharded=False,
+            kv_group_of_head=torch.zeros(layout.h_pad, dtype=torch.int64,
+                                         device=x.device),
+            scale=MLA.mla_scale(cfg), window=window,
+            softcap=cfg.attn_softcap, kv_chunk=rt.kv_chunk,
+            block_skip=rt.block_skip, attn_impl=rt.attn_impl,
+            v_in_k=(0, cfg.mla.kv_lora_rank), block_q=rt.attn_block_q,
+            block_k=rt.attn_block_k, comm=rt.comm)
+        return MLA.mla_output(bp, cfg, out[:, :cfg.num_heads])
     dk = cfg.resolved_head_dim
     q = (x @ bp["w_q"]).reshape(t, layout.h_pad, dk)
     kv = torch.einsum("td,dsgk->tsgk", x, bp["w_kv"])       # [T, 2, G, Dk]

@@ -304,13 +304,14 @@ class ServeEngine:
         return out.cpu().numpy()
 
     def _scatter_kv(self, entries, head_kv, block_kv) -> None:
-        """Write the wave's requests' KV rows into their slab slots, in
-        place.  ``entries``: (slot, flat rows of positions 0..plen-1) per
+        """Write the wave's requests' KV rows (``k`` and ``v``, or an MLA
+        layer's latent ``kv_lat``) into their slab slots, in place.
+        ``entries``: (slot, flat rows of positions 0..plen-1) per
         request.  A layer of ``S_l`` cache positions keeps the last
         ``S_l`` positions of each prompt at ``p % S_l``, as decode writes
         them: all of them in a global layer, the last window in a local
         layer's ring buffer.  Over several ranks the wave's rows of each
-        layer come from one all-gather of every rank's K and V, and each
+        layer come from one all-gather of every rank's rows, and each
         rank writes the (slot, position) pairs its shard of the layer
         holds."""
         index = {}
@@ -332,24 +333,30 @@ class ServeEngine:
                              self._dev(rows[own], torch.int64))
             return index[sh]
 
-        def wave_rows(k, v):
+        def wave_rows(kv):
+            """{name: this rank's rows} -> {name: the wave's rows}."""
             if self.rt.hdp_size == 1:
-                return k, v
-            kv = self.rt.comm.all_gather(torch.cat([k, v], dim=-1))
-            kv = kv.flatten(0, 1)        # [ranks·c, G, Dk + Dv]
-            return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
+                return kv
+            cat = self.rt.comm.all_gather(torch.cat(
+                list(kv.values()), dim=-1)).flatten(0, 1)
+            out, c = {}, 0               # cat: [ranks·c, G, Σ widths]
+            for name, x in kv.items():
+                out[name] = cat[..., c:c + x.shape[-1]]
+                c += x.shape[-1]
+            return out
 
         def write(cache_layer, kv, sh):
             ls, lp, rows = indices(sh)
-            k, v = wave_rows(kv["k"], kv["v"])
-            for buf, src in ((cache_layer["k"], k), (cache_layer["v"], v)):
+            for name, src in wave_rows(kv).items():
+                buf = cache_layer[name]
                 buf[ls, lp] = src[rows].to(buf.dtype)
 
         for i, kv in enumerate(head_kv):
             write(self.cache["head_layers"][i], kv,
                   self.shards["head_layers"][i])
         for j, kv in enumerate(block_kv):
-            for i in range(kv["k"].shape[0]):    # one layer at a time
+            n_layers = next(iter(kv.values())).shape[0]
+            for i in range(n_layers):    # one layer at a time
                 write({n: b[i] for n, b in self.cache["blocks"][j].items()},
                       {n: a[i] for n, a in kv.items()},
                       self.shards["blocks"][j])

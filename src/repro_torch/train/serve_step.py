@@ -1,15 +1,17 @@
 """Serving steps: prefill over packed buffers, decode against a KV slab.
 
 Port of `repro/train/serve_step.py` for attention models, dense or MoE,
-with global and sliding-window local layers.  The decode cache keeps the
-reference's layout, ``{"head_layers": [...], "blocks": [{"k", "v"} per
-pattern position]}`` with block leaves stacked ``[n_periods, B, S_l, G,
-Dk]``, and the port UPDATES IT IN PLACE: each decode step writes its new
-K/V rows into the slab tensors with an indexed assignment and returns the
-same dict.  A global layer caches ``S_l = seq_len`` positions; a local
-(``l``) layer keeps a ring buffer of ``S_l = min(window, seq_len)``
-(`layer_cache_len`): position p lives at ``p % S_l`` and attention reads
-the ``min(p + 1, S_l)`` filled entries, which are exactly the window.
+GQA or MLA, with global and sliding-window local layers.  The decode cache
+keeps the reference's layout, ``{"head_layers": [...], "blocks": [{"k",
+"v"} per pattern position]}`` with block leaves stacked ``[n_periods, B,
+S_l, G, Dk]`` (an MLA layer caches its latent alone, ``{"kv_lat"}`` [...,
+B, S_l, 1, kv_lora+rope]), and the port UPDATES IT IN PLACE: each decode
+step writes its new K/V rows into the slab tensors with an indexed
+assignment and returns the same dict.  A global layer caches ``S_l =
+seq_len`` positions; a local (``l``) layer keeps a ring buffer of ``S_l =
+min(window, seq_len)`` (`layer_cache_len`): position p lives at ``p %
+S_l`` and attention reads the ``min(p + 1, S_l)`` filled entries, which
+are exactly the window.
 
 Over several HDP ranks (``rt.comm``) each rank holds one shard of the
 slab, by the reference's `decode_axes` rule (`decode_layout`): the slots
@@ -39,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import ring as R
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models.transformer import (_ffn_block, _index,
                                             apply_periods, check_supported,
@@ -127,9 +130,14 @@ def slab_shard(rt: Runtime, batch: int, seq_len: int) -> SlabShard:
 
 def _layer_cache(cfg: ModelConfig, rt: Runtime, sh: SlabShard,
                  lead=()) -> dict:
+    dt = L.activation_dtype(cfg)
+    if cfg.mla is not None:
+        m = cfg.mla
+        shape = (*lead, sh.slots, sh.positions, 1,
+                 m.kv_lora_rank + m.qk_rope_dim)
+        return {"kv_lat": torch.zeros(shape, dtype=dt, device=rt.device)}
     shape = (*lead, sh.slots, sh.positions, cfg.num_kv_heads,
              cfg.resolved_head_dim)
-    dt = L.activation_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=rt.device),
             "v": torch.zeros(shape, dtype=dt, device=rt.device)}
 
@@ -160,6 +168,25 @@ def cache_bytes(cache: dict) -> int:
 # decode blocks
 # ---------------------------------------------------------------------------
 
+def _write_rows(bufs, news, pos, sh: SlabShard) -> None:
+    """Write each slot's new row of every cache buffer of one layer at
+    cache position ``pos % S_l``, in place.  Under ``"seq"`` every rank
+    runs every slot and only the one holding the position changes its row
+    (the others write back what they hold)."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    local = pos % sh.length
+    if sh.layout == "seq":
+        local = local - sh.base
+        own = (local >= 0) & (local < sh.positions)
+        local = local.clamp(0, sh.positions - 1)
+    for buf, new in zip(bufs, news):
+        new = new.to(buf.dtype)
+        if sh.layout == "seq":
+            new = torch.where(own.view(-1, *[1] * (new.dim() - 1)), new,
+                              buf[rows, local])
+        buf[rows, local] = new
+
+
 def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
                       sh: SlabShard):
     """``pos`` [B]: each slot decodes at its own depth; its new K/V row
@@ -168,9 +195,21 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
     in place by the rank whose shard holds it, and attention reads the
     ``min(pos + 1, S_l)`` filled positions.  A local layer's ring buffer
     wraps there; as in the reference, so does a global layer at a position
-    past the slab (a free slot whose last request filled its context)."""
+    past the slab (a free slot whose last request filled its context).
+    An MLA layer writes its latent row and attends every head to the
+    cached latents, values their first kv_lora_rank columns."""
     b = x.shape[0]
-    rows = torch.arange(b, device=x.device)
+    filled = (pos + 1).clamp(max=sh.length)
+    comm = rt.comm if sh.layout == "seq" else None
+    if cfg.mla is not None:
+        q_eff, kv_eff = MLA.mla_qkv(bp, cfg, x, pos)   # [B,H,576], [B,1,576]
+        kv_cache = cache["kv_lat"]
+        _write_rows([kv_cache], [kv_eff], pos, sh)
+        out = R.decode_attention_sharded(
+            q_eff[:, None], kv_cache, kv_cache[..., :cfg.mla.kv_lora_rank],
+            filled, comm=comm, base=sh.base, scale=MLA.mla_scale(cfg),
+            softcap=cfg.attn_softcap)
+        return MLA.mla_output(bp, cfg, out[:, 0])
     layout = rt.layout(cfg)
     dk = cfg.resolved_head_dim
     g = cfg.num_kv_heads
@@ -182,22 +221,10 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
         k_new = L.qk_head_norm(bp["k_norm"], k_new, cfg.norm_eps)
     q, k_new = L.positional_rotate(cfg, q, k_new, pos, pos)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
-    local = pos % sh.length
-    if sh.layout == "seq":
-        # every rank runs every slot; only the one holding ``pos`` changes
-        # its row (the others write back what they hold)
-        local = local - sh.base
-        own = ((local >= 0) & (local < sh.positions))[:, None, None]
-        local = local.clamp(0, sh.positions - 1)
-        k_new = torch.where(own, k_new, k_cache[rows, local])
-        v_new = torch.where(own, v_new, v_cache[rows, local])
-    k_cache[rows, local] = k_new
-    v_cache[rows, local] = v_new
+    _write_rows([k_cache, v_cache], [k_new, v_new], pos, sh)
     qg = q.reshape(b, g, layout.hpg_pad, dk)
     out = R.decode_attention_sharded(
-        qg, k_cache, v_cache, (pos + 1).clamp(max=sh.length),
-        comm=rt.comm if sh.layout == "seq" else None, base=sh.base,
+        qg, k_cache, v_cache, filled, comm=comm, base=sh.base,
         scale=dk ** -0.5, softcap=cfg.attn_softcap)
     out = out.reshape(b, layout.h_pad, dk)
     if layout.pad_heads:
@@ -288,9 +315,10 @@ def make_prefill_kv_step(cfg: ModelConfig, rt: Runtime):
 
     Returns ``prefill_kv(params, batch) -> (hidden [T,d], head_kv,
     block_kv)``: ``head_kv`` a list (per head block) of {"k", "v"}
-    [T, G, Dk] rows and ``block_kv`` a tuple (per pattern position) of the
-    same stacked [n_periods, T, G, Dk] — the `init_decode_cache` layout
-    minus the batch dim."""
+    [T, G, Dk] rows (MLA: {"kv_lat"} [T, 1, kv_lora+rope]) and
+    ``block_kv`` a tuple (per pattern position) of the same stacked
+    [n_periods, T, ...] — the `init_decode_cache` layout minus the batch
+    dim."""
     check_supported(cfg)
     period = len(cfg.layer_pattern)
 
@@ -303,7 +331,7 @@ def make_prefill_kv_step(cfg: ModelConfig, rt: Runtime):
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         block_kv = tuple(
             {name: torch.stack([kvs[j][name] for kvs in per_period])
-             for name in ("k", "v")}
+             for name in per_period[0][j]}
             for j in range(period))
         return x, head_kv, block_kv
 

@@ -214,8 +214,6 @@ def test_check_supported_accepts_gemma_and_rejects_what_waits():
         assert cfg.reduced().window == 16 and cfg.reduced().head_dim == 16
     cfg = get_config("gemma3-12b").reduced()
     waiting = {
-        "mla": dict(mla=base.MLASpec(kv_lora_rank=32, qk_nope_dim=16,
-                                     qk_rope_dim=8, v_head_dim=16)),
         "rwkv": dict(layer_pattern="r", rwkv=base.RWKVSpec()),
         "mamba": dict(layer_pattern="m", mamba=base.MambaSpec()),
         "frontend": dict(frontend="vision_stub"),
