@@ -269,12 +269,44 @@ Phases (any failure raises and exits non-zero before the result line):
    pool at 4096) with (a)'s holds and trained at 2 layers with (b)'s.
    Prints the card, prefill and decode ms a wave, decode tokens/s, the
    slab, tokens/s and peaks.
-15. report — one JSON line of every kernel (launches on the paths that
+15. rwkv — rwkv6-7b (attention-free: the chunked WKV-6 time mix, token
+   shift and channel mix, plain PyTorch; random weights from seed 0).
+   (a) At full depth, 8 sequences of 256 tokens (seed 0): the packed
+   forward of all 8 as one wave against 256 teacher-forced decode steps
+   in 8 slots from an empty state (`make_decode_step`), in bf16: logits
+   rms within 0.08, the greedy tokens' near-ties (forward's top-two gap
+   under 0.08) and other disagreements counted; decode ms a step,
+   tokens/s at 8 slots and at the largest slot count that fits in 60% of
+   the free memory, the state a slot (its cache bytes, which must be
+   `models/rwkv6.py::state_bytes`) and the peak.  The same in float32 at
+   full depth: every logit within atol = rtol = 0.08 and the tokens equal
+   but at near-ties.  bf16 at 2 layers: every logit within 0.08 but at
+   each sequence's second and third tokens, whose error is printed (the
+   group norm of a WKV output of rank one or two while the bonus is at
+   its init 0 is ill-conditioned: bf16 rounding moves a few logits there
+   past 0.08), and the tokens equal but at near-ties.  (b) 3 `Trainer`
+   steps at 8 layers on phase 5's data: phase 5's checks with exactly one
+   CE forward and backward a wave and no flash launch; the WKV-6 scan's
+   own ms at a 4096-token wave (one layer, forward and forward +
+   backward) and the 8 layers' share of a warm wave; one 2-layer wave:
+   the loss within 1e-3 relative of the float32 plain route's, every
+   gradient leaf within 5e-2 (relative L2) of float32's but the bonus's,
+   within 0.1, and four lower-precision controls of the kernel route
+   (bf16 projections, the scan's inputs and output in bf16, the group
+   norm's input in bf16, every float32 leaf in bf16) each putting the
+   bonus's gradient past 0.1.  (c) 2 layers, the planner's
+   step-1 waves at hdp = 4 (phase 6's planner) of composition (4,) or (1,
+   2, 1): the forward loss through `ThreadRanks(4)` within 1e-2 of hdp =
+   1 over the same sequences laid contiguously, the measured "ring" bytes
+   0 and one CE forward a rank; prints the state exchange's bytes a
+   layer.  (d) Both CE kernels against their plain versions at [4096,
+   65536] bf16 (phase 3's tolerances).
+16. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
    engine's, the checkpoint phase's, the MoE phase's, the pipelined
-   trainer's, the Gemma phase's and the MLA phase's; errors, times,
-   bounds), then the result line.
+   trainer's, the Gemma phase's, the MLA phase's and the RWKV phase's;
+   errors, times, bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -1094,7 +1126,7 @@ def train_full(torch, cfg, steps=3, sched=None, tcfg=None, tag="train",
 
 
 def train_hold(torch, cfg, *, layers=2, capacity=4096, tag="train",
-               lean=False):
+               lean=False, grad_tols=None, controls=()):
     """One wave (the first of step 0 at wave capacity and context
     ``capacity``) at full width cut to ``layers`` layers: the kernel route
     (bf16, flash + fused CE) and, unless ``lean``, the bf16 plain route
@@ -1102,7 +1134,15 @@ def train_hold(torch, cfg, *, layers=2, capacity=4096, tag="train",
     plain CE).  ``lean`` (phase 13's widths, where the float32 route's
     [8192, 262144] logits and their gradients take ~40 GB) keeps the
     kernel route's gradients in host memory and frees the bf16 weights
-    before the float32 route."""
+    before the float32 route.  Every gradient leaf of the kernel route is
+    held within TRAIN_GRAD_TOL (relative L2) of float32, but a leaf whose
+    name ends with a key of ``grad_tols``, held within that key's limit.
+    ``controls`` are (name, leaf, patch) triples: the kernel route rerun
+    inside ``patch(params)``, a context manager yielding the parameters
+    of a deliberately lower-precision route; its gradient of ``leaf`` must
+    stand outside that leaf's limit, or the limit would pass such a
+    fault."""
+    from repro_torch.ckpt.checkpoint import named_leaves
     from repro_torch.data.loader import WaveMaterializer
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import AdamWConfig
@@ -1133,28 +1173,55 @@ def train_hold(torch, cfg, *, layers=2, capacity=4096, tag="train",
         g_k = tree_map(lambda x: x.cpu(), g_k)
     else:
         loss_b, g_b = run(cfg2, params, "ref")
+    g_c = []
+    for name, _, patch in controls:
+        with patch(params) as p:
+            g_c.append(run(cfg2, p, "flash")[1])
     params32 = tree_map(lambda x: x.float(), params)
     del params
     torch.cuda.empty_cache()
     loss_32, g_32 = run(dataclasses.replace(cfg2, dtype="float32"),
                         params32, "ref")
-    rel = [rel_l2(a, b.to(a.device)) for a, b in zip(leaves(g_k),
-                                                     leaves(g_32))]
+    name_of = {id(t): key for key, t in named_leaves(g_32)}
+    names = [name_of[id(t)] for t in leaves(g_32)]
+    tols = {n: next((v for k, v in (grad_tols or {}).items()
+                     if n.endswith(k)), TRAIN_GRAD_TOL) for n in names}
+
+    def rel_to_32(g):
+        return {n: rel_l2(a, b.to(a.device)) for n, a, b in
+                zip(names, leaves(g), leaves(g_32))}
+
+    def worst(rel):
+        return dict(sorted(rel.items(), key=lambda kv: kv[1])[-3:])
+
+    rel = rel_to_32(g_k)
     res.update({"loss_f32": loss_32,
                 "loss_rel_err": abs(loss_k - loss_32) / abs(loss_32),
-                "grad_rel_l2_max": max(rel), "n_leaves": len(rel)})
+                "grad_rel_l2_max": max(rel.values()), "n_leaves": len(rel),
+                "grad_rel_l2_worst": worst(rel)})
     if not lean:
-        rel_b = [rel_l2(a, b) for a, b in zip(leaves(g_b), leaves(g_32))]
+        rel_b = rel_to_32(g_b)
         res.update({"loss_bf16_plain": loss_b, "loss_rel_err_bf16_plain":
                     abs(loss_b - loss_32) / abs(loss_32),
-                    "grad_rel_l2_max_bf16_plain": max(rel_b)})
+                    "grad_rel_l2_max_bf16_plain": max(rel_b.values())})
     log(f"[{tag}] layers{layers} {fmt(res)}")
+    fails = [f"{layers}-layer grads: {n} at relative L2 {r} from float32, "
+             f"over {tols[n]}" for n, r in rel.items() if not r <= tols[n]]
+    for (name, leaf, _), g in zip(controls, g_c):
+        rel_c = rel_to_32(g)
+        got = next(r for n, r in rel_c.items() if n.endswith(leaf))
+        lim = next(tols[n] for n in names if n.endswith(leaf))
+        res[f"control_{name}"] = got
+        log(f"[{tag}] layers{layers} control {name}: {leaf} {got:.5g} from "
+            f"float32 (limit {lim}); worst {json.dumps(worst(rel_c))}")
+        if not got > lim:
+            fails.append(f"control {name}: {leaf} {got} within its limit "
+                         f"{lim}, which so cannot tell it from the reading")
     if not res["loss_rel_err"] <= TRAIN_LOSS_TOL:
-        raise AssertionError(f"{layers}-layer loss: kernel route {loss_k} "
-                             f"vs float32 {loss_32}")
-    if not max(rel) <= TRAIN_GRAD_TOL:
-        raise AssertionError(f"{layers}-layer grads: relative L2 up to "
-                             f"{max(rel)} against the float32 route")
+        fails.append(f"{layers}-layer loss: kernel route {loss_k} vs "
+                     f"float32 {loss_32}")
+    if fails:
+        raise AssertionError("; ".join(fails))
     return res
 
 
@@ -3572,19 +3639,431 @@ def phase_mla(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 15. report
+# 15. rwkv
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+RWKV_SEQS, RWKV_SEQ_LEN = 8, 256        # (a): sequences, tokens each
+RWKV_SEED = 0
+RWKV_TRAIN_LAYERS = 8                   # (b)
+RWKV_HDP_LAYERS = 2                     # (c)
+RWKV_COMPS = [(4,), (1, 2, 1)]          # (c): the planner's step-1 waves
+RWKV_LOSS_TOL = 1e-3                    # (b): 2 layers, against float32
+RWKV_HDP_TOL = 1e-2                     # (c): against hdp = 1
+# (b): the bonus's gradient, relative L2 from float32 (every other leaf:
+# TRAIN_GRAD_TOL).  At the init's bonus 0 each sequence's first WKV output
+# is 0 and the group norm's slope there is 1/sqrt(eps) = 316, so this sum
+# is the worst conditioned of the wave's gradients in bf16, the
+# reference's too (tests/test_torch_rwkv.py)
+RWKV_BONUS_U_GRAD_TOL = 0.1
+# (a): the 2-layer bf16 decode is held element-wise but at each
+# sequence's second and third tokens, whose WKV output has rank one or two
+# while the bonus is 0, a direction the group norm scales up by as much as
+# 1/sqrt(eps)
+RWKV_LOW_RANK_POSITIONS = (1, 2)
+
+
+def rwkv_tokens(fwd, dec, tie: float):
+    """Greedy tokens of the decode route against the forward's argmax,
+    but where the forward's top-two gap is under ``tie`` (a near-tie)
+    -> (near-ties, their largest gap, the other disagreements)."""
+    ties, worst, fails = 0, 0.0, []
+    want, got = fwd.argmax(-1), dec.argmax(-1)
+    for s, j in (got != want).nonzero().tolist():
+        top2 = fwd[s, j].topk(2).values
+        gap = float(top2[0] - top2[1])
+        if gap < tie:
+            ties, worst = ties + 1, max(worst, gap)
+        else:
+            fails.append(f"slot {s} position {j}: greedy token "
+                         f"{int(got[s, j])}, the forward's {int(want[s, j])}"
+                         f" with top-two gap {gap} (near-tie under {tie})")
+    return ties, worst, fails
+
+
+def rwkv_decode_vs_forward(torch, cfg, params):
+    """RWKV_SEQS sequences of RWKV_SEQ_LEN tokens (seed RWKV_SEED): the
+    packed forward of all of them as one wave, and RWKV_SEQ_LEN
+    teacher-forced decode steps in RWKV_SEQS slots from an empty state ->
+    (the two routes' logits [slots, steps, V] in float32, decode ms a
+    step)."""
+    import numpy as np
+    from repro_torch.models.transformer import forward_hidden, logits_head
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train import serve_step as S
+    b, t = RWKV_SEQS, RWKV_SEQ_LEN
+    rt = Runtime(device=DEVICE)
+    toks = np.random.RandomState(RWKV_SEED).randint(0, cfg.vocab_size,
+                                                    (b, t))
+    batch = {"tokens": torch.tensor(toks.reshape(-1), dtype=torch.int32,
+                                    device=DEVICE),
+             "seg": torch.tensor(np.repeat(np.arange(1, b + 1), t),
+                                 dtype=torch.int32, device=DEVICE),
+             "pos": torch.tensor(np.tile(np.arange(t), b), dtype=torch.int32,
+                                 device=DEVICE)}
+    with torch.no_grad():
+        fwd = logits_head(params, cfg, forward_hidden(params, cfg, rt, batch))
+        fwd = fwd.float().reshape(b, t, -1).cpu()
+        cache = S.init_decode_cache(cfg, rt, b, t)
+        step = S.make_decode_step(cfg, rt, b, t)
+        tok_d = torch.tensor(toks, device=DEVICE)
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(t):
+            lg, cache = step(params, cache, tok_d[:, i], i)
+            out.append(lg.float().cpu())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / t * 1e3
+    return fwd, torch.stack(out, dim=1), ms
+
+
+def rwkv_decode_rate(torch, cfg, params, slots, steps=8):
+    """Decode tokens/s at ``slots`` slots (the last steps - 3 steps)."""
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train import serve_step as S
+    rt = Runtime(device=DEVICE)
+    with torch.no_grad():
+        cache = S.init_decode_cache(cfg, rt, slots, 1024)
+        step = S.make_decode_step(cfg, rt, slots, 1024)
+        tok = torch.randint(0, cfg.vocab_size, (slots,), device=DEVICE)
+        for i in range(steps):
+            if i == 3:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            lg, cache = step(params, cache, tok, i)
+            tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del cache
+    return slots * (steps - 3) / wall, wall / (steps - 3) * 1e3
+
+
+def rwkv_serve(torch, cfg, tag):
+    """(a): decode against the packed forward.  bf16 at full depth: logits
+    rms <= 0.08, the greedy tokens' disagreements beyond near-ties
+    counted, decode rates, the state a slot, the peak.  float32 at full
+    depth: element-wise within 0.08 and the tokens equal but at
+    near-ties.  bf16 at 2 layers: element-wise within 0.08 but at
+    RWKV_LOW_RANK_POSITIONS (printed), and the tokens equal but at
+    near-ties -> failures."""
+    from repro_torch.models import rwkv6 as RW
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import serve_step as S
+    from repro_torch.parallel.sharding import Runtime
+    fails = []
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=DEVICE)
+    fwd, dec, ms = rwkv_decode_vs_forward(torch, cfg, params)
+    rms = float((dec - fwd).square().mean().sqrt())
+    ties, worst, beyond = rwkv_tokens(fwd, dec, SERVE_TOL)
+    state = S.cache_bytes(S.init_decode_cache(cfg, Runtime(device=DEVICE),
+                                              1, 1))
+    free = torch.cuda.mem_get_info()[0]
+    slots = max(8, int(0.6 * free / state) // 8 * 8)
+    rate8, _ = rwkv_decode_rate(torch, cfg, params, RWKV_SEQS)
+    rate_max, ms_max = rwkv_decode_rate(torch, cfg, params, slots)
+    res = {"layers": cfg.num_layers, "logits_rms": rms,
+           "logits_max_abs_err": float((dec - fwd).abs().max()),
+           "token_near_ties": ties, "near_tie_gap_max": worst,
+           "token_disagreements_beyond_near_ties": len(beyond),
+           "decode_ms_per_step_8_slots": ms,
+           "tokens_per_s_8_slots": rate8, "max_slots": slots,
+           "tokens_per_s_max_slots": rate_max,
+           "decode_ms_per_step_max_slots": ms_max,
+           "state_bytes_per_slot": state,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{tag} (a) bf16 decode vs forward: {fmt(res)}")
+    if state != RW.state_bytes(cfg):
+        fails.append(f"(a) a slot's cache is {state} bytes, the state "
+                     f"{RW.state_bytes(cfg)}")
+    if not rms <= SERVE_TOL:
+        fails.append(f"(a) logits rms {rms} over {SERVE_TOL}")
+    del params
+    torch.cuda.empty_cache()
+    for layers, dtype in ((cfg.num_layers, "float32"), (2, cfg.dtype)):
+        c = dataclasses.replace(cfg, num_layers=layers, dtype=dtype)
+        params = init_params(c, seed=0, device=DEVICE)
+        fwd, dec, _ = rwkv_decode_vs_forward(torch, c, params)
+        err = (dec - fwd).abs()
+        outside = err > SERVE_TOL + SERVE_TOL * fwd.abs()
+        over = int(outside.sum())
+        where = [tuple(x) for x in outside.any(-1).nonzero().tolist()]
+        ties, worst, bad = rwkv_tokens(fwd, dec, SERVE_TOL)
+        fails += [f"(a) {layers} layers {dtype}: {b}" for b in bad]
+        pos_rms = err.square().mean(-1).sqrt()          # [slots, steps]
+        log(f"{tag} (a) {dtype} {layers} layers: decode vs forward rms "
+            f"{float(err.square().mean().sqrt()):.5g}, max abs error "
+            f"{float(err.max()):.5g}, {over} of {err.numel()} logits "
+            f"outside atol = rtol = {SERVE_TOL} at (slot, position) "
+            f"{where}; the worst position's rms {float(pos_rms.max()):.5g} at "
+            f"{divmod(int(pos_rms.argmax()), pos_rms.shape[1])}; token "
+            f"near-ties {ties} (gaps up to {worst})")
+        held = outside if dtype == "float32" else torch.cat(
+            [outside[:, :min(RWKV_LOW_RANK_POSITIONS)],
+             outside[:, max(RWKV_LOW_RANK_POSITIONS) + 1:]], dim=1)
+        if held.any():
+            fails.append(f"(a) {layers} layers {dtype}: {int(held.sum())} "
+                         f"logits outside {SERVE_TOL}")
+        del params
+        torch.cuda.empty_cache()
+    return fails
+
+
+def rwkv_scan_ms(torch, cfg, t=4096):
+    """The WKV-6 scan alone at a training wave's shape (one layer), forward
+    and forward + backward, on seeded float32 inputs."""
+    from repro_torch.models import rwkv6 as RW
+    n = cfg.rwkv.head_size
+    h = cfg.d_model // n
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    r, k, v = (torch.randn(t, cfg.d_model, generator=gen, device=DEVICE)
+               .requires_grad_(True) for _ in range(3))
+    logw = (-torch.exp(torch.randn(t, cfg.d_model, generator=gen,
+                                   device=DEVICE) * 0.5 - 2)
+            ).requires_grad_(True)
+    u = torch.zeros(h, n, device=DEVICE)
+    seg = torch.ones(t, dtype=torch.int32, device=DEVICE)
+    s0 = torch.zeros(h, n, n, device=DEVICE)
+
+    def fwd():
+        return RW.wkv6_chunked(r, k, v, logw, u, seg, head_size=n,
+                               chunk=cfg.rwkv.chunk_size, s0=s0,
+                               carry_seg=1)[0]
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd().sum(), (r, k, v, logw))
+
+    with torch.no_grad():
+        f_ms = time_ms(torch, fwd, 5)
+    return f_ms, time_ms(torch, fwd_bwd, 5)
+
+
+@contextlib.contextmanager
+def rwkv_patched(params, name, fn):
+    """``repro_torch.models.rwkv6.<name>`` replaced by ``fn(original)``
+    while the block runs; yields ``params``."""
+    from repro_torch.models import rwkv6 as RW
+    orig = getattr(RW, name)
+    setattr(RW, name, fn(orig))
+    try:
+        yield params
+    finally:
+        setattr(RW, name, orig)
+
+
+def rwkv_bf16_projections(params):
+    """Control: the time mix's projections as bf16 GEMMs (the weights'
+    dtype), not the float32 ones JAX's promotion makes of the float32
+    mixes."""
+    return rwkv_patched(params, "_mm",
+                        lambda mm: lambda a, w: a.to(w.dtype) @ w)
+
+
+def rwkv_bf16_scan_io(params):
+    """Control: the WKV-6 scan's r, k, v, decays and output rounded to
+    bf16 (its float32 internals kept)."""
+    import torch
+
+    def wrap(scan):
+        def f(r, k, v, logw, *a, **kw):
+            y, *rest = scan(*(t.to(torch.bfloat16) for t in (r, k, v, logw)),
+                            *a, **kw)
+            return (y.to(torch.bfloat16).float(), *rest)
+        return f
+    return rwkv_patched(params, "wkv6_chunked", wrap)
+
+
+def rwkv_bf16_group_norm(params):
+    """Control: the per-head group norm's input rounded to bf16."""
+    import torch
+    return rwkv_patched(params, "_group_norm", lambda gn: lambda y, n: gn(
+        y.to(torch.bfloat16).float(), n))
+
+
+@contextlib.contextmanager
+def rwkv_bf16_leaves(params):
+    """Control: every float32 leaf in bf16 (the bases, the bonus, the
+    group norm's, the channel mix's mix: the bridge's fault before it
+    kept each leaf's dtype)."""
+    import torch
+    from repro_torch.tree import tree_map
+    yield tree_map(lambda t: t.to(torch.bfloat16)
+                   if t.dtype == torch.float32 else t, params)
+
+
+RWKV_CONTROLS = (("bf16_projections", "time_mix/bonus_u",
+                  rwkv_bf16_projections),
+                 ("bf16_scan_io", "time_mix/bonus_u", rwkv_bf16_scan_io),
+                 ("bf16_group_norm", "time_mix/bonus_u",
+                  rwkv_bf16_group_norm),
+                 ("bf16_leaves", "time_mix/bonus_u", rwkv_bf16_leaves))
+
+
+def rwkv_train(torch, cfg, tag):
+    """(b): 3 `Trainer` steps at RWKV_TRAIN_LAYERS layers (phase 5's data),
+    exact CE launches a wave and no flash launch; one 2-layer wave held
+    to the float32 plain route -> (launches, failures)."""
+    cfg8 = dataclasses.replace(cfg, num_layers=RWKV_TRAIN_LAYERS)
+    launches, res, _ = train_full(torch, cfg8, tag=f"{tag[1:-1]} train",
+                                  want=wave_launches_want(0, 1))
+    f_ms, fb_ms = rwkv_scan_ms(torch, cfg)
+    log(f"{tag} (b) WKV-6 scan, one layer at a 4096-token wave: forward "
+        f"{f_ms:.3f} ms, forward + backward {fb_ms:.3f} ms; "
+        f"{RWKV_TRAIN_LAYERS} layers' share of a warm wave "
+        f"{RWKV_TRAIN_LAYERS * (2 * f_ms + fb_ms) / res['warm_ms_per_wave']:.3f}"
+        f" (forward, recompute and backward)")
+    fails = []
+    try:
+        hold = train_hold(torch, cfg, layers=2, tag=f"{tag[1:-1]} train",
+                          grad_tols={"time_mix/bonus_u":
+                                     RWKV_BONUS_U_GRAD_TOL},
+                          controls=RWKV_CONTROLS)
+    except AssertionError as e:
+        return launches, [f"(b) {e}"]
+    if not hold["loss_rel_err"] <= RWKV_LOSS_TOL:
+        fails.append(f"(b) 2-layer loss {hold['loss_kernel']} vs float32 "
+                     f"{hold['loss_f32']}")
+    torch.cuda.empty_cache()
+    return launches, fails
+
+
+def rwkv_hdp(torch, cfg, tag):
+    """(c): RWKV_HDP_LAYERS layers at full width, the planner's step-1
+    waves at hdp = 4 with a (4,) or (1, 2, 1) composition: the forward
+    loss through ThreadRanks(4) (each rank its slice, shares summed)
+    against the hdp = 1 forward of the same sequences laid contiguously;
+    the measured "ring" bytes (0) -> (launches, failures)."""
+    import numpy as np
+    from repro_torch.data.loader import (GlobalScheduler, SyntheticDataset,
+                                         WaveMaterializer)
+    from repro_torch.launch import ring_check as RC
+    from repro_torch.models.transformer import init_params
+    from repro_torch.obs import ledger
+    from repro_torch.parallel.comm import ThreadRanks
+    from repro_torch.parallel.sharding import Runtime
+    cfg2 = dataclasses.replace(cfg, num_layers=RWKV_HDP_LAYERS)
+    c = RC.RING_CAP
+    ds = SyntheticDataset("github", cfg2.vocab_size, tokens_per_step=65536,
+                          context=16384)
+    sched = GlobalScheduler(ds, cfg2, capacity=c, hdp=RING_HDP,
+                            strategy="balance", use_offload=False)
+    try:
+        plan = sched.plan_step(1)
+    finally:
+        sched.stop()
+    mat = WaveMaterializer(ds, cfg2, c)
+    waves = [w for w in plan.waves if tuple(w.composition) in RWKV_COMPS
+             and w.c_mult == 1]
+    fails = []
+    if {tuple(w.composition) for w in waves} != set(RWKV_COMPS):
+        fails.append(f"(c) planner step 1 has waves "
+                     f"{[w.composition for w in plan.waves]}")
+    params = init_params(cfg2, seed=0, device=DEVICE)
+    den = torch.tensor(float(plan.denom), device=DEVICE)
+    n, d = cfg.rwkv.head_size, cfg.d_model
+    total = {name: 0 for name, *_ in KERNELS}
+    for w in waves:
+        comp = tuple(w.composition)
+        lw = mat.materialize(1, w)
+        batch = {k: torch.tensor(v, device=DEVICE)
+                 for k, v in lw.batch.items()}
+
+        def rank_fn(comm):
+            rt = Runtime(device=DEVICE, comm=comm, composition=comp)
+            with ledger.capture() as tally:
+                loss = RC.model_loss(params, cfg2, rt, batch, slice(
+                    comm.rank * c, (comm.rank + 1) * c), den)
+            return loss, tally.get("ring", 0.0)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        got = ThreadRanks(RING_HDP).run(rank_fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, k in read_counts().items():
+            total[name] += k
+        valid = np.flatnonzero(lw.batch["seg"] > 0)
+        compact = {k: torch.zeros_like(v) for k, v in batch.items()}
+        for k, v in batch.items():
+            compact[k][:len(valid)] = v[torch.tensor(valid, device=DEVICE)]
+        loss1 = RC.model_loss(params, cfg2, Runtime(device=DEVICE), compact,
+                              slice(None), den)
+        loss4 = sum(g[0] for g in got)
+        rel = abs(loss4 - loss1) / abs(loss1)
+        edges = sum(g - 1 for g in comp)
+        res = {"composition": list(comp),
+               "pieces": [[(p.seq_id, p.start, p.end) for p in s]
+                          for s in w.slots],
+               "loss_hdp4": loss4, "loss_hdp1": loss1, "rel_err": rel,
+               "ring_bytes": sum(g[1] for g in got), "wall_s_hdp4": wall,
+               # per layer: the time and channel mixes' boundary rows (bf16
+               # row + int32 segment id) over each group's edges, and the
+               # all-gather of every rank's (A, b) summary, fp32
+               # [H, N, N + 1], to the other ranks
+               "state_exchange_bytes_per_layer":
+                   2 * edges * (2 * d + 4) + RING_HDP * (RING_HDP - 1)
+                   * (d // n) * n * (n + 1) * 4}
+        log(f"{tag} (c) hdp = {RING_HDP}: {fmt(res)}")
+        if not rel <= RWKV_HDP_TOL:
+            fails.append(f"(c) {comp}: hdp 4 loss {loss4} vs hdp 1 {loss1}")
+        if res["ring_bytes"] != 0:
+            fails.append(f"(c) {comp}: ring bytes {res['ring_bytes']}")
+    if total["fused_ce_fwd"] != RING_HDP * len(waves) or any(
+            total[k] for k in total if k != "fused_ce_fwd"):
+        fails.append(f"(c) launches {total}")
+    del params
+    torch.cuda.empty_cache()
+    return total, fails
+
+
+def phase_rwkv(torch, card):
+    """rwkv6-7b decoded at full depth, trained at 8 layers, its forward
+    at hdp = 4 at 2 layers, and the CE kernels at its logits' shape ->
+    (launches of (b) and (c), the CE kernel cases)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import fused_ce as CE
+    tag = "[rwkv]"
+    log(f"{tag} {card}")
+    t0 = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    total = {name: 0 for name, *_ in KERNELS}
+    fails = []
+    t1 = time.perf_counter()
+    fails += rwkv_serve(torch, cfg, tag)
+    log(f"{tag} (a) done in {time.perf_counter() - t1:.1f} s")
+    for part, run in (("(b)", rwkv_train), ("(c)", rwkv_hdp)):
+        t1 = time.perf_counter()
+        launches, bad = run(torch, cfg, tag)
+        fails += bad
+        for name, n in launches.items():
+            total[name] += n
+        log(f"{tag} {part} done in {time.perf_counter() - t1:.1f} s")
+    zero_counts()
+    cases = ce_case(torch, CE, "rwkv6-7b ce [4096,65536]", t=4096,
+                    v=cfg.vocab_size, n_pad=96)
+    zero_counts()
+    log(f"{tag} launches {json.dumps(total)}, phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fails:
+        raise AssertionError("phase 15: " + "; ".join(fails))
+    return total, cases
+
+
+# ---------------------------------------------------------------------------
+# 16. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
                  hdp_launches, offload_launches, hdp_serve_launches,
                  ckpt_launches, moe_launches, pp_launches, gemma_launches,
-                 mla_launches):
+                 mla_launches, rwkv_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
     its ranks), the offloading trainer's, the hdp = 4 engine's (summed
     over its ranks), the checkpoint phase's, the MoE phase's, the
-    pipelined trainer's (summed over its ranks), the Gemma phase's and
-    the MLA phase's."""
+    pipelined trainer's (summed over its ranks), the Gemma phase's, the
+    MLA phase's and the RWKV phase's."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -3599,7 +4078,8 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             + hdp_launches[name] + offload_launches[name]
             + hdp_serve_launches[name] + ckpt_launches[name]
             + moe_launches[name] + pp_launches[name]
-            + gemma_launches[name] + mla_launches[name],
+            + gemma_launches[name] + mla_launches[name]
+            + rwkv_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -3645,11 +4125,15 @@ def main() -> int:
     log(f"[gemma] done at {time.perf_counter() - t0:.1f} s")
     mla_launches = phase_mla(torch, card)
     log(f"[mla] done at {time.perf_counter() - t0:.1f} s")
+    rwkv_launches, rwkv_cases = phase_rwkv(torch, card)
+    cases.append(rwkv_cases)
+    log(f"[rwkv] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
                                 offload_launches, hdp_serve_launches,
                                 ckpt_launches, moe_launches, pp_launches,
-                                gemma_launches, mla_launches)))
+                                gemma_launches, mla_launches,
+                                rwkv_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,9 +23,12 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import stage_periods
 from repro_torch.parallel.sharding import resolve_device
 
-# leaves kept in float32 whatever the model dtype (norm scales, the q/k
-# head norms, the MoE router)
-_FP32_LEAVES = ("scale", "router", "q_norm", "k_norm")
+# leaves kept in float32 whatever the model dtype, as the reference's
+# init makes them (npz carries bf16 leaves as float32, so the name
+# decides): norm scales, the q/k head norms, the MoE router, and RWKV-6's
+# mix and decay bases, bonus, group-norm bias and channel-mix mix
+_FP32_LEAVES = ("scale", "router", "q_norm", "k_norm", "mix_base",
+                "decay_base", "bonus_u", "bias", "mix_k")
 _LIST_NODES = ("blocks", "head_blocks")
 
 

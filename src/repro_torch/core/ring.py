@@ -25,6 +25,10 @@ ring-flash engine (`kernels/ring_flash.py` behind
 `kernels/ops.make_ring_flash`), whose carry kernel is the CUDA flash
 kernel on a CUDA device and its plain version on the CPU, and whose
 gradient runs the flash backward kernels in a reverse ring.
+
+An attention-free (RWKV) layer needs no ring: a sequence sharded over a
+group passes its last token to the next rank (`shift_from_prev_rank`)
+and composes the ranks' recurrent states (`distributed_state_scan`).
 """
 from __future__ import annotations
 
@@ -277,6 +281,90 @@ def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
         composition=tuple(composition), kv_split=kv_split,
         kv_group_index=kgi, scale=scale, causal=causal, window=window,
         softcap=softcap, kv_chunk=kv_chunk, block_skip=block_skip)
+
+
+# ---------------------------------------------------------------------------
+# cross-rank token shift and state scan (RWKV under HDP)
+# ---------------------------------------------------------------------------
+
+def shift_perm(composition: Sequence[int]) -> list:
+    """Each rank to its successor within its group; the last rank of a
+    group sends nothing and the first receives zeros (not cyclic, unlike
+    `ring_perm`)."""
+    perm = []
+    start = 0
+    for g in composition:
+        perm += [(start + j, start + j + 1) for j in range(g - 1)]
+        start += g
+    return perm
+
+
+class _Shift(torch.autograd.Function):
+    """``ppermute`` along `shift_perm`, differentiable: the gradient of
+    what a rank received goes back to its sender (the inverse
+    permutation), as `_RingShift` carries the ring's."""
+
+    @staticmethod
+    def forward(ctx, comm, perm, x, seg):
+        ctx.comm, ctx.perm = comm, perm
+        x_b, seg_b = comm.ppermute([x, seg], perm)
+        ctx.mark_non_differentiable(seg_b)
+        return x_b, seg_b
+
+    @staticmethod
+    def backward(ctx, d_x, d_seg):
+        (d_x,) = ctx.comm.ppermute([d_x.contiguous()],
+                                   [(b, a) for a, b in ctx.perm])
+        return None, None, d_x, None
+
+
+def shift_from_prev_rank(x, seg, *, comm, composition: Sequence[int]):
+    """Bring each rank the (row x [d], segment id seg []) of its
+    predecessor within its group; the first rank of every group receives
+    zeros.  Every rank calls it, those of groups of one too.  Not counted
+    as ``"ring"`` bytes: the reference's byte model leaves the SSM relay
+    out."""
+    x_b, seg_b = _Shift.apply(comm, shift_perm(composition), x,
+                              seg.reshape(1))
+    return x_b, seg_b[0]
+
+
+class _AllGather(torch.autograd.Function):
+    """``HdpComm.all_gather``, differentiable: JAX's transpose of
+    ``all_gather``, a psum-scatter: every rank's gradient of the gathered
+    rows summed, this rank's row kept."""
+
+    @staticmethod
+    def forward(ctx, comm, x):
+        ctx.comm = comm
+        return comm.all_gather(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, d_all):
+        return None, ctx.comm.reduce_scatter(d_all.contiguous())[0]
+
+
+def distributed_state_scan(a_local, b_local, *, comm,
+                           composition: Sequence[int]):
+    """Exclusive prefix of the ranks' linear-recurrence summaries.
+
+    Each rank reduces its local sweep to ``h_out = a_local ⊙ h_in +
+    b_local`` (a [H, N, 1] broadcast over b [H, N, N]).  One all-gather
+    brings every rank's (a, b); each rank then composes, in rank order,
+    those of the ranks of its group before it.  Every rank of the HDP
+    group calls it; each composition step is a select over all ranks, as
+    the reference's masked scan, so every rank's result depends on the
+    gathered rows and every rank joins the gradient's reduce-scatter."""
+    n = b_local.shape[-1]
+    both = _AllGather.apply(comm, torch.cat(
+        [a_local.expand(*b_local.shape[:-1], 1), b_local], dim=-1))
+    a_all, b_all = both[..., :1], both[..., 1:1 + n]
+    start = int(composition_tables(composition)[1][comm.rank])
+    h = torch.zeros_like(b_local)
+    for i in range(comm.size):
+        take = torch.tensor(start <= i < comm.rank, device=h.device)
+        h = torch.where(take, a_all[i] * h + b_all[i], h)
+    return h
 
 
 def _decode_partial(q, k, v, cache_len, *, base: int, scale: float,

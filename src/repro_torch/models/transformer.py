@@ -22,7 +22,11 @@ a plain copy (`repro_torch.bridge`):
     [d, E] f32, w_in, w_gate [E, d, f], w_out [E, f, d], shared_*}, and
     with ``post_block_norm`` postnorm1/postnorm2 {scale}.
 
-Dense weights are [in, out] and used as ``x @ W``.  SSM mixers, non-token
+An ``r`` layer is RWKV-6 (`models/rwkv6.py`): its blocks hold time_mix
+and channel_mix (leaves listed there) in place of attn and mlp, and a
+sequence sharded over HDP ranks is relayed across them by `_ssm_block`.
+
+Dense weights are [in, out] and used as ``x @ W``.  Mamba, non-token
 frontends and M-RoPE are later slices and raise `NotImplementedError`.
 """
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.core import ring as R
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as RW
 from repro_torch.parallel.sharding import Runtime, resolve_device
 from repro_torch.tree import leaves, tree_map
 
@@ -44,20 +49,34 @@ from repro_torch.tree import leaves, tree_map
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     missing = []
-    if set(cfg.layer_pattern) - {"g", "l"}:
-        missing.append(f"layer pattern {cfg.layer_pattern!r}")
-    for name in ("rwkv", "mamba"):
-        if getattr(cfg, name) is not None:
-            missing.append(name)
+    if set(cfg.layer_pattern) - {"g", "l", "r"}:
+        missing.append(f"layer pattern {cfg.layer_pattern!r} (the mamba "
+                       f"mixer 'm' waits for ROADMAP queue 1 item 8)")
+    if "r" in cfg.layer_pattern and cfg.rwkv is None:
+        missing.append("an 'r' layer without an RWKVSpec")
+    if cfg.mamba is not None:
+        missing.append("mamba (queue 1 item 8)")
     if cfg.frontend != "none":
-        missing.append(f"frontend {cfg.frontend!r}")
+        missing.append(f"frontend {cfg.frontend!r} (the embeds frontends "
+                       f"of queue 1 item 8)")
     if cfg.pos_embed not in ("rope", "none"):
-        missing.append(f"pos_embed {cfg.pos_embed!r}")
+        missing.append(f"pos_embed {cfg.pos_embed!r} (M-RoPE, queue 1 "
+                       f"item 8)")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
             f"attention decoders, GQA or MLA, with global and local layers, "
-            f"dense or MoE, with a token frontend)")
+            f"dense or MoE, and RWKV-6, with a token frontend)")
+
+
+def require_attention_only(cfg: ModelConfig, what: str) -> None:
+    """Raise NotImplementedError unless every layer attends: ``what``
+    (serving, prefill KV capture) cannot capture a recurrent layer's
+    state from the packed forward, as in the reference."""
+    if not set(cfg.layer_pattern) <= {"g", "l"}:
+        raise NotImplementedError(
+            f"{what} needs an attention-only layer pattern, got "
+            f"{cfg.layer_pattern!r}")
 
 
 def head_layer_count(cfg: ModelConfig) -> int:
@@ -99,15 +118,19 @@ def _mlp_init(gen, cfg: ModelConfig, d_ff: int, dtype, device) -> dict:
 def _block_init(gen, cfg: ModelConfig, layer_idx: int, layout, dtype,
                 device) -> dict:
     p = {"norm1": L.rmsnorm_init(cfg.d_model, device),
-         "norm2": L.rmsnorm_init(cfg.d_model, device),
-         "attn": _attn_init(gen, cfg, layout, dtype, device)}
-    if cfg.is_moe_layer(layer_idx):
-        p["moe"] = MOE.moe_init(gen, cfg, dtype, device)
+         "norm2": L.rmsnorm_init(cfg.d_model, device)}
+    if cfg.layer_code(layer_idx) == "r":
+        p["time_mix"] = RW.rwkv_init(gen, cfg, dtype, device)
+        p["channel_mix"] = RW.channel_mix_init(gen, cfg, dtype, device)
     else:
-        d_ff = cfg.d_ff
-        if cfg.moe is not None and cfg.moe.dense_d_ff:
-            d_ff = cfg.moe.dense_d_ff
-        p["mlp"] = _mlp_init(gen, cfg, d_ff, dtype, device)
+        p["attn"] = _attn_init(gen, cfg, layout, dtype, device)
+        if cfg.is_moe_layer(layer_idx):
+            p["moe"] = MOE.moe_init(gen, cfg, dtype, device)
+        else:
+            d_ff = cfg.d_ff
+            if cfg.moe is not None and cfg.moe.dense_d_ff:
+                d_ff = cfg.moe.dense_d_ff
+            p["mlp"] = _mlp_init(gen, cfg, d_ff, dtype, device)
     if cfg.post_block_norm:
         p["postnorm1"] = L.rmsnorm_init(cfg.d_model, device)
         p["postnorm2"] = L.rmsnorm_init(cfg.d_model, device)
@@ -272,18 +295,61 @@ def _moe_block(bp, cfg: ModelConfig, rt: Runtime, x):
     return MOE.moe_forward(bp, cfg, x)
 
 
+def _ssm_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, which: str):
+    """The RWKV time mix or channel mix on this rank's buffer (the
+    reference's ``_ssm_block``, whose shard_map body this is).  In a
+    composition with a group of more than one rank every rank passes its
+    boundary token to the next rank of its group
+    (`core/ring.py::shift_from_prev_rank`), and the time mix composes the
+    group's states (`core/ring.py::distributed_state_scan`); with groups
+    of one only, the boundary is zeros and there is no exchange.
+
+    The boundary token is the rank's last non-padding row with its
+    segment id.  The reference sends the buffer's last row, but the
+    planner lays a sharded sequence's piece at the start of each rank's
+    buffer with the padding after it, so where the piece is shorter than
+    the buffer the last row is padding (segment 0) and the reference cuts
+    the sequence's token shift and state at that rank boundary; from the
+    last non-padding row both continue, as in one unsharded buffer.  Where
+    the piece fills the buffer the two rows are the same."""
+    comp = rt.composition
+    exch = None
+    if max(comp) > 1:
+        valid = seg > 0
+        idx = torch.where(valid, torch.arange(seg.shape[0],
+                                              device=seg.device), 0).amax()
+        bseg = torch.where(valid.any(), seg[idx], 0)
+        bx, bseg = R.shift_from_prev_rank(x[idx], bseg, comm=rt.comm,
+                                          composition=comp)
+
+        def exch(s, a):
+            return R.distributed_state_scan(a[..., None], s, comm=rt.comm,
+                                            composition=comp)
+    else:
+        bx = torch.zeros_like(x[-1])
+        bseg = torch.zeros_like(seg[-1])
+    if which == "channel_mix":
+        return RW.rwkv_channel_mix(bp, cfg, x, seg, bx, bseg)
+    return RW.rwkv_time_mix(bp, cfg, x, seg, bx, bseg, state_exchange=exch)
+
+
 def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
                   layer_idx: int, collect: Optional[list] = None):
     code = cfg.layer_code(layer_idx)
     window = cfg.window if code == "l" else 0
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    h = _attention_block(bp["attn"], cfg, rt, h, seg, pos, window,
-                         collect=collect)
+    if code == "r":
+        h = _ssm_block(bp["time_mix"], cfg, rt, h, seg, "time_mix")
+    else:
+        h = _attention_block(bp["attn"], cfg, rt, h, seg, pos, window,
+                             collect=collect)
     if cfg.post_block_norm:
         h = L.rmsnorm(bp["postnorm1"], h, cfg.norm_eps)
     x = x + h.to(x.dtype)
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    if "moe" in bp:
+    if code == "r":
+        h = _ssm_block(bp["channel_mix"], cfg, rt, h, seg, "channel_mix")
+    elif "moe" in bp:
         h = _moe_block(bp["moe"], cfg, rt, h)
     else:
         h = _ffn_block(bp["mlp"], cfg, h)

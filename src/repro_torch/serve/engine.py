@@ -52,7 +52,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import PlanSpec
 from repro_torch.data.loader import WaveMaterializer
-from repro_torch.models.transformer import check_supported, logits_head
+from repro_torch.models.transformer import (check_supported, logits_head,
+                                            require_attention_only)
 from repro_torch.obs import get_metrics, get_recorder, get_tracer
 from repro_torch.obs.numerics import fingerprints_by_rank
 from repro_torch.parallel.sharding import Runtime
@@ -95,8 +96,11 @@ class ServeEngine:
                  service=None, clock=time.monotonic):
         """``rt`` defaults to ``Runtime(device=device)``: the engine runs on
         ``cuda`` unless asked for ``device="cpu"``, and raises when no GPU
-        is present and none was asked for."""
+        is present and none was asked for.  An RWKV pattern raises
+        `NotImplementedError`, as the reference's engine does: its decode
+        state cannot be captured from the packed prefill."""
         check_supported(cfg)
+        require_attention_only(cfg, "serving")
         rt = Runtime(device=device) if rt is None else rt
         scfg = ServeConfig() if scfg is None else scfg
         if params["embed"].device != rt.device:

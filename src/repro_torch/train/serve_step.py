@@ -31,6 +31,16 @@ under ``"batch"`` a rank holds its slots' rows only, and
 indices, one small collective a layer, so every rank takes the slab's
 capacity decisions for its rows.  (A prefill wave routes each rank's
 rows apart, as training does.)
+
+An RWKV-6 (``r``) layer caches O(1) state a slot instead of positions:
+``{"s" [.., B, H, N, N] float32, "x_tm" [.., B, d], "x_cm" [.., B, d]}``
+(the WKV state and the time and channel mixes' last inputs, in the
+activation dtype), updated in place by `models/rwkv6.py`'s recurrent
+step.  Under ``"batch"`` a rank holds its slots' states; under ``"seq"``
+every rank holds every slot's whole state and computes the same update
+(the reference's spec with no batch axes).  The packed forward does not
+expose the state, so `make_prefill_kv_step` refuses an ``r`` pattern, as
+the reference's does, and such a model decodes from an empty state.
 """
 from __future__ import annotations
 
@@ -43,11 +53,13 @@ from repro_torch.core import ring as R
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as RW
 from repro_torch.models.transformer import (_ffn_block, _index,
                                             apply_periods, check_supported,
                                             embed_frontend, embed_tokens,
                                             forward_hidden, head_layer_count,
-                                            logits_head)
+                                            logits_head,
+                                            require_attention_only)
 from repro_torch.parallel.sharding import Runtime
 
 
@@ -128,9 +140,16 @@ def slab_shard(rt: Runtime, batch: int, seq_len: int) -> SlabShard:
 # cache construction
 # ---------------------------------------------------------------------------
 
-def _layer_cache(cfg: ModelConfig, rt: Runtime, sh: SlabShard,
+def _layer_cache(cfg: ModelConfig, rt: Runtime, sh: SlabShard, code: str,
                  lead=()) -> dict:
     dt = L.activation_dtype(cfg)
+    if code == "r":
+        n = cfg.rwkv.head_size
+        row = (*lead, sh.slots, cfg.d_model)
+        return {"s": torch.zeros((*lead, sh.slots, cfg.d_model // n, n, n),
+                                 dtype=torch.float32, device=rt.device),
+                "x_tm": torch.zeros(row, dtype=dt, device=rt.device),
+                "x_cm": torch.zeros(row, dtype=dt, device=rt.device)}
     if cfg.mla is not None:
         m = cfg.mla
         shape = (*lead, sh.slots, sh.positions, 1,
@@ -151,10 +170,11 @@ def init_decode_cache(cfg: ModelConfig, rt: Runtime, batch: int,
     head_n = head_layer_count(cfg)
     n_periods = (cfg.num_layers - head_n) // len(cfg.layer_pattern)
     return {
-        "head_layers": [_layer_cache(cfg, rt, sh)
-                        for sh in shards["head_layers"]],
-        "blocks": [_layer_cache(cfg, rt, sh, lead=(n_periods,))
-                   for sh in shards["blocks"]],
+        "head_layers": [_layer_cache(cfg, rt, sh, cfg.layer_code(i))
+                        for i, sh in enumerate(shards["head_layers"])],
+        "blocks": [_layer_cache(cfg, rt, sh, cfg.layer_code(head_n + j),
+                                lead=(n_periods,))
+                   for j, sh in enumerate(shards["blocks"])],
     }
 
 
@@ -235,12 +255,22 @@ def _decode_attention(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
 def _decode_block(bp, cache, cfg: ModelConfig, rt: Runtime, x, pos,
                   sh: SlabShard):
     h = L.rmsnorm(bp["norm1"], x, cfg.norm_eps)
-    h = _decode_attention(bp["attn"], cache, cfg, rt, h, pos, sh)
+    if "time_mix" in bp:
+        h, st = RW.rwkv_decode_step(bp["time_mix"], cfg, h,
+                                    {"s": cache["s"], "x_tm": cache["x_tm"]})
+        cache["s"].copy_(st["s"])
+        cache["x_tm"].copy_(st["x_tm"])
+    else:
+        h = _decode_attention(bp["attn"], cache, cfg, rt, h, pos, sh)
     if cfg.post_block_norm:
         h = L.rmsnorm(bp["postnorm1"], h, cfg.norm_eps)
     x = x + h.to(x.dtype)
     h = L.rmsnorm(bp["norm2"], x, cfg.norm_eps)
-    if "moe" in bp:
+    if "channel_mix" in bp:
+        hn = h
+        h = RW.rwkv_decode_channel_mix(bp["channel_mix"], hn, cache["x_cm"])
+        cache["x_cm"].copy_(hn)                  # the normed input, for t+1
+    elif "moe" in bp:
         h = _decode_moe(bp["moe"], cfg, rt, h, sh)
     else:
         h = _ffn_block(bp["mlp"], cfg, h)
@@ -318,8 +348,10 @@ def make_prefill_kv_step(cfg: ModelConfig, rt: Runtime):
     [T, G, Dk] rows (MLA: {"kv_lat"} [T, 1, kv_lora+rope]) and
     ``block_kv`` a tuple (per pattern position) of the same stacked
     [n_periods, T, ...] — the `init_decode_cache` layout minus the batch
-    dim."""
+    dim.  An RWKV pattern raises: the packed forward does not expose the
+    recurrent state, as in the reference."""
     check_supported(cfg)
+    require_attention_only(cfg, "prefill KV capture")
     period = len(cfg.layer_pattern)
 
     def prefill_kv(params, batch):

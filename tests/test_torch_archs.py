@@ -214,7 +214,7 @@ def test_check_supported_accepts_gemma_and_rejects_what_waits():
         assert cfg.reduced().window == 16 and cfg.reduced().head_dim == 16
     cfg = get_config("gemma3-12b").reduced()
     waiting = {
-        "rwkv": dict(layer_pattern="r", rwkv=base.RWKVSpec()),
+        "layer pattern": dict(layer_pattern="m"),
         "mamba": dict(layer_pattern="m", mamba=base.MambaSpec()),
         "frontend": dict(frontend="vision_stub"),
         "mrope": dict(pos_embed="mrope")}

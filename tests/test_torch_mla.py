@@ -144,7 +144,7 @@ def test_configs_match_the_reference(arch):
 def test_check_supported_still_rejects_what_waits():
     cfg = get_config(W.ARCH).reduced()
     waiting = {
-        "rwkv": dict(layer_pattern="r", rwkv=base.RWKVSpec()),
+        "layer pattern": dict(layer_pattern="m"),
         "mamba": dict(layer_pattern="m", mamba=base.MambaSpec()),
         "frontend": dict(frontend="vision_stub"),
         "mrope": dict(pos_embed="mrope")}

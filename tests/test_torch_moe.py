@@ -38,7 +38,7 @@ from repro.models import moe as JM
 from repro.models import transformer as JT
 from repro_torch import bridge
 from repro_torch.ckpt.checkpoint import CheckpointManager
-from repro_torch.configs.base import RWKVSpec
+from repro_torch.configs.base import MambaSpec
 from repro_torch.configs.registry import get_config
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
@@ -288,9 +288,9 @@ def test_check_supported_accepts_moe_and_rejects_what_waits():
         T.check_supported(get_config(name).reduced())
     _, cfg = cfgs("shared")
     T.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="rwkv"):
-        T.check_supported(dataclasses.replace(cfg, layer_pattern="r",
-                                              rwkv=RWKVSpec()))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        T.check_supported(dataclasses.replace(cfg, layer_pattern="m",
+                                              mamba=MambaSpec()))
 
 
 def _wave_batch(cfg, t=96, lens=(40, 17, 25), seed=0):
