@@ -301,12 +301,40 @@ Phases (any failure raises and exits non-zero before the result line):
    0 and one CE forward a rank; prints the state exchange's bytes a
    layer.  (d) Both CE kernels against their plain versions at [4096,
    65536] bf16 (phase 3's tolerances).
-16. report — one JSON line of every kernel (launches on the paths that
+16. tp — tensor parallelism (`parallel/tensor.py`, the Trainer on an
+   hdp x tp grid).  (a) llama3.2-3b at full width cut to 2 layers (seed
+   0) on a 2 x 2 grid: four processes share the card as in phase 7, a
+   gloo world split by `parallel/comm.py::tp_grid` (world rank h·2 + m)
+   into HDP and model groups of `HostStagedComm`; phase 7's data at hdp
+   2, its first step (5 waves).  Each rank holds its model rank's slices
+   (12 of the 24 q heads and 4 of the 8 KV heads, half the MLP columns
+   and of the vocabulary).  Exact launches per rank: per wave layers x (1 + the live
+   visiting blocks of its HDP position) carry launches in the forward and
+   again in the recompute, as many dq and dkv, one CE each way; every
+   flash launch at the local (G, Hg) = (4, 3) and every CE launch over
+   the local vocabulary, 64128 columns.  The replicated leaves
+   bit-identical across each model group, every leaf across each HDP
+   group after the apply, applied == 1.  Then the model-rank-0 processes
+   train the same step at 2 x 1 from the same seed (not counted): the
+   same plan, the step's and every wave's loss and the grad norm within
+   1e-3 relative.  (b) The TP-local kernel shapes against their plain
+   versions (phase 3's 2e-2; not counted), forward and backward through
+   `ring_attention` over 4096 tokens: model rank 1 of 2 (12 heads over
+   its 4 KV heads, the kernels at (G, Hg) = (4, 3)), and the gather mode
+   (KV replicated over the model group; full-width llama takes it at tp
+   16): model rank 5 of 16 (2 of the 32 padded heads over the replicated
+   [4096, 8, 128] KV, G = 2, Hg = 1 in the kernels).  Both CE kernels at
+   [4096, 64128] as model rank 1 of 2 runs them: labels shifted by the
+   shard's first column, two thirds of them outside the shard (tgt
+   exactly -1e30 there, onehot 0 in the backward), the backward from a
+   global lse above the local one.  Prints the card, losses beside 2 x
+   1, peaks and step walls per rank.
+17. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
    engine's, the checkpoint phase's, the MoE phase's, the pipelined
-   trainer's, the Gemma phase's, the MLA phase's and the RWKV phase's;
-   errors, times, bounds), then the result line.
+   trainer's, the Gemma phase's, the MLA phase's, the RWKV phase's and
+   the 2 x 2 grid's; errors, times, bounds), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -4051,19 +4079,382 @@ def phase_rwkv(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 16. report
+# 16. tp
+# ---------------------------------------------------------------------------
+
+TP_HDP, TP_TP = 2, 2            # phase 16 (a): an hdp x tp grid on one card
+TP_LAYERS, TP_STEPS = 2, 1
+TP_LOCAL = ((2, 1), (16, 5))    # (b): (tp, model rank); llama3.2-3b at tp
+                                # 2 shards its 8 KV heads, at tp 16
+                                # replicates them (rank 5: 2 of 32 padded
+                                # heads)
+
+
+def tp_rank(rank: int, store: str):
+    """One rank of phase 16 (a), a process of its own on the one card
+    (world rank 0 is this script's process): a gloo world of 4 through
+    `HostStagedComm`, split into HDP x model groups by `tp_grid` (world
+    rank h·2 + m).  Returns world rank 0's results."""
+    import datetime
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import HostStagedComm, tp_grid
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import faulthandler
+    faulthandler.dump_traceback_later(2 * HDP_TIMEOUT_S, exit=True)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", world_size=TP_HDP * TP_TP,
+        rank=rank, timeout=datetime.timedelta(seconds=HDP_TIMEOUT_S))
+    try:
+        return tp_train_rank(torch, *tp_grid(TP_HDP, TP_TP, HostStagedComm))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        dist.destroy_process_group()
+
+
+def tp_trainer(cfg, comm, tp_comm):
+    """The port's `Trainer` of ``cfg`` (seed 0) on phase 7's data at hdp
+    2, recording its plans in ``.plans``."""
+    from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    from repro_torch.launch import ring_check as RC
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    ds = SyntheticDataset("github", cfg.vocab_size,
+                          tokens_per_step=HDP_TOKENS, context=HDP_CONTEXT)
+    sched = GlobalScheduler(ds, cfg, capacity=RC.RING_CAP, hdp=comm.size,
+                            strategy="balance", use_offload=False)
+    plans = []
+    plan_step = sched.plan_step
+
+    def recorded(step):
+        plans.append(plan_step(step))
+        return plans[-1]
+    sched.plan_step = recorded
+    tr = Trainer(cfg, Runtime(device=DEVICE, comm=comm, tp_comm=tp_comm),
+                 AdamWConfig(lr=3e-4, warmup_steps=0), sched,
+                 TrainerConfig(capacity=RC.RING_CAP, calibrate=False),
+                 seed=0)
+    tr.plans = plans
+    return tr
+
+
+def tp_train_rank(torch, comm, tp_comm, cfg=None):
+    """Phase 16 (a) on one rank: `TP_STEPS` steps of the 2 x 2 grid
+    (counted), then on model rank 0 of each HDP position the same steps
+    at 2 x 1 from the same seed (not counted).  ``cfg`` defaults to
+    llama3.2-3b cut to `TP_LAYERS`.  Returns world rank 0's numbers (None
+    elsewhere)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_ce as CE
+    from repro_torch.tree import leaves
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                                  num_layers=TP_LAYERS)
+    shapes = set()          # what the kernels were launched on
+    fa_launch, ce_launch = FA._launch, CE._launch
+
+    def fa_rec(source, symbol, q, k, v, args, **kw):
+        shapes.add(("flash", tuple(q.shape[:2]), int(k.shape[0])))
+        return fa_launch(source, symbol, q, k, v, args, **kw)
+
+    def ce_rec(symbol, logits, args):
+        shapes.add(("ce", int(logits.shape[1])))
+        return ce_launch(symbol, logits, args)
+
+    def grid_gather(x):
+        """Every rank's ``x`` -> [world, ...], world rank h·tp + m's at
+        that row."""
+        x = comm.all_gather(tp_comm.all_gather(x))
+        return x.reshape(-1, *x.shape[2:])
+
+    FA._launch, CE._launch = fa_rec, ce_rec
+    lead = comm.rank == 0 and tp_comm.rank == 0
+    t0 = time.perf_counter()
+    tr = tp_trainer(cfg, comm, tp_comm)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        recs, wave_losses, applied = [], [], []
+        for _ in range(TP_STEPS):
+            recs.append(tr.train_step())
+            if lead:
+                log(f"[tp] step {tr.step}: {len(tr.plans[-1].waves)} waves, "
+                    f"loss {recs[-1]['loss']:.6f}, at "
+                    f"{time.perf_counter() - t0:.1f} s")
+            wave_losses.append(list(tr.last_numerics["wave_losses"]))
+            applied.append(tr.last_numerics["applied"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        FA._launch, CE._launch = fa_launch, ce_launch
+        tr.sched.stop()
+    # the replicated leaves across the model group, every leaf across the
+    # HDP group: bit-identical
+    same_model = same_hdp = True
+    for p, split in zip(leaves(tr.params), tr._splits):
+        if split is None:
+            g = tp_comm.all_gather(p)
+            same_model &= all(torch.equal(g[0], x) for x in g)
+        g = comm.all_gather(p)
+        same_hdp &= all(torch.equal(g[0], x) for x in g)
+    local_g = cfg.num_kv_heads // TP_TP
+    hg = cfg.num_heads // cfg.num_kv_heads
+    want_shapes = {("flash", (local_g, hg), local_g),
+                   ("ce", cfg.vocab_size // TP_TP)}
+    names = [n for n, *_ in KERNELS]
+    mine = [counts[n] for n in names] + [
+        torch.cuda.max_memory_allocated() / 1e9, float(same_model),
+        float(same_hdp), float(shapes == want_shapes)] + \
+        [r["wall_s"] for r in recs] + applied
+    got = grid_gather(torch.tensor(mine, dtype=torch.float64,
+                                   device=DEVICE)).cpu().numpy()
+    want = ring_launches_want(tr, enumerate(tr.plans), TP_HDP) \
+        if lead else None
+    plans22 = [[(list(w.composition), w.c_mult) for w in p.waves]
+               for p in tr.plans]
+    del tr
+    torch.cuda.empty_cache()
+    # the control: 2 x 1 on model rank 0's HDP group, the same seed
+    ctl = None
+    if tp_comm.rank == 0:
+        tr1 = tp_trainer(cfg, comm, None)
+        try:
+            ctl = [(tr1.train_step(), list(tr1.last_numerics["wave_losses"]))
+                   for _ in range(TP_STEPS)]
+            plans21 = [[(list(w.composition), w.c_mult) for w in p.waves]
+                       for p in tr1.plans]
+        finally:
+            tr1.sched.stop()
+        del tr1
+        torch.cuda.empty_cache()
+    if not lead:
+        return None
+    k, s = len(names), TP_STEPS
+    return {
+        "model": f"{cfg.name}, {cfg.num_layers} layers, {TP_HDP} x {TP_TP}",
+        "compositions": plans22, "compositions_2x1": plans21,
+        "losses": [r["loss"] for r in recs],
+        "losses_2x1": [r["loss"] for r, _ in ctl],
+        "grad_norms": [r["grad_norm"] for r in recs],
+        "grad_norms_2x1": [r["grad_norm"] for r, _ in ctl],
+        "wave_losses": wave_losses, "wave_losses_2x1": [w for _, w in ctl],
+        "tokens_per_step": [r["tokens"] for r in recs],
+        "launches_per_rank": {n: got[:, i].astype(int).tolist()
+                              for i, n in enumerate(names)},
+        "want_launches_per_rank": {n: [w[r // TP_TP] for r in
+                                       range(TP_HDP * TP_TP)]
+                                   for n, w in want.items()},
+        "peak_mem_gb_per_rank": got[:, k].tolist(),
+        "replicated_same_across_model_group": got[:, k + 1].tolist(),
+        "same_across_hdp_group": got[:, k + 2].tolist(),
+        "kernel_shapes_local": got[:, k + 3].tolist(),
+        "kernel_shapes_rank0": sorted(map(str, shapes)),
+        "step_wall_s_per_rank": got[:, k + 4:k + 4 + s].tolist(),
+        "applied": got[:, k + 4 + s:].tolist()}
+
+
+def tp_gates(res) -> list:
+    """Phase 16 (a)'s gates on world rank 0's numbers -> what failed."""
+    import numpy as np
+    fails = []
+    if res["compositions"] != res["compositions_2x1"]:
+        fails.append("2 x 2 and 2 x 1 planned different steps")
+    for key, tol in (("losses", PP_LOSS_TOL),
+                     ("grad_norms", PP_LOSS_TOL)):
+        got, want = np.asarray(res[key]), np.asarray(res[key + "_2x1"])
+        if not (np.all(np.isfinite(got))
+                and np.all(np.abs(got - want) <= tol * np.abs(want))):
+            fails.append(f"{key} {got.tolist()} vs 2 x 1 {want.tolist()}")
+    for step, (got, want) in enumerate(zip(res["wave_losses"],
+                                           res["wave_losses_2x1"])):
+        if not (len(got) == len(want) and np.all(
+                np.abs(np.subtract(got, want))
+                <= PP_LOSS_TOL * np.abs(want))):
+            fails.append(f"step {step} wave losses {got} vs 2 x 1 {want}")
+    if res["launches_per_rank"]["flash_fwd"] != [0] * (TP_HDP * TP_TP):
+        fails.append("the training path launched the finalising forward")
+    for name, want in res["want_launches_per_rank"].items():
+        if res["launches_per_rank"][name] != want:
+            fails.append(f"{name} launches per rank "
+                         f"{res['launches_per_rank'][name]}, want {want}")
+    for key in ("replicated_same_across_model_group",
+                "same_across_hdp_group", "kernel_shapes_local"):
+        if np.any(np.asarray(res[key]) != 1):
+            fails.append(f"{key} {res[key]} (rank 0's kernel shapes "
+                         f"{res['kernel_shapes_rank0']})")
+    if np.any(np.asarray(res["applied"]) != 1):
+        fails.append(f"applied {res['applied']}")
+    return fails
+
+
+def tp_attention_case(torch, card, tp, m) -> list:
+    """Phase 16 (b): model rank ``m`` of ``tp``'s attention at llama3.2-3b's
+    head shape, forward and backward through `ring_attention` at
+    composition (1,) on bf16 inputs, against the plain route: its h_pad/tp
+    heads over its KV groups (sharded KV) or over its KV groups' rows of
+    the replicated [T, 8, 128] KV (the gather mode) -> what failed."""
+    import numpy as np
+    from repro_torch.core import ring
+    from repro_torch.models.layers import gqa_layout
+    lay = gqa_layout(24, 8, tp)
+    hpl = lay.h_pad // tp
+    g = 8 // tp if lay.kv_sharded else 8
+    kgi = None if lay.kv_sharded else \
+        lay.group_of_head(DEVICE)[m * hpl:(m + 1) * hpl]
+    t = 4096
+    rng = np.random.RandomState(16)
+    seg_np, pos_np = packed_meta(rng, t, SLICE_LENS)
+    seg = torch.tensor(seg_np, device=DEVICE)
+    pos = torch.tensor(pos_np, device=DEVICE)
+
+    def bf16(*shape):
+        return torch.tensor(rng.randn(*shape), dtype=torch.bfloat16,
+                            device=DEVICE)
+    q, k, v, do = bf16(t, hpl, 128), bf16(t, g, 128), bf16(t, g, 128), \
+        bf16(t, hpl, 128)
+    outs = {}
+    for impl in ("flash", "ref"):
+        x = [a.detach().requires_grad_(True) for a in (q, k, v)]
+        out = ring.ring_attention(
+            *x, seg, seg, pos, pos, composition=(1,),
+            kv_sharded=lay.kv_sharded, kv_group_of_head=kgi,
+            scale=128 ** -0.5, attn_impl=impl)
+        outs[impl] = (out.detach(), *torch.autograd.grad(out, x, do))
+    torch.cuda.synchronize()
+    fails = []
+    errs = {}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), outs["flash"],
+                               outs["ref"]):
+        try:
+            errs[name] = hold(torch, f"phase 16 (b) tp {tp} {name}", got,
+                              want)
+        except AssertionError as e:
+            fails.append(str(e))
+    log(f"[tp] (b) {card}: model rank {m} of {tp}: heads {hpl} of "
+        f"{lay.h_pad}, KV groups {g}, kv_sharded {lay.kv_sharded}"
+        f"{'' if kgi is None else f', gathered groups {kgi.tolist()}'}, "
+        f"T {t}; (max abs err, rel L2) against the plain route "
+        f"{json.dumps(errs)}")
+    return fails
+
+
+def tp_ce_case(torch, card) -> list:
+    """Phase 16 (b): both CE kernels on model rank 1 of 2's vocabulary
+    shard of llama3.2-3b, [4096, 64128] bf16, the global labels shifted by
+    the shard's first column (two thirds fall outside it, the shard's
+    first and last columns among those inside), the backward from a global
+    lse above the local one, against their plain versions -> what
+    failed."""
+    import numpy as np
+    from repro_torch.kernels import fused_ce as CE
+    t, v, m = 4096, 128256 // 2, 1
+    rng = np.random.RandomState(17)
+    # drawn on the card: 263M values drawn on the host took seconds
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    logits = (torch.randn(t, v, generator=gen, device=DEVICE)
+              * 3).to(torch.bfloat16)
+    glob = rng.randint(-v, 2 * v, t)       # beside the shard on both sides
+    glob[:4] = (-1, 0, v - 1, v)           # the shard's edges, and past
+    labels = torch.tensor(glob.astype(np.int32), device=DEVICE)
+    inside = (labels >= 0) & (labels < v)
+    g = torch.tensor(rng.randn(t).astype(np.float32), device=DEVICE)
+    nll, lse, tgt = CE.fused_ce_fwd(logits, labels)
+    nll_p, lse_p, tgt_p = CE.fused_ce_fwd_plain(logits, labels)
+    lse_g = lse + torch.tensor(rng.rand(t).astype(np.float32) * 2,
+                               device=DEVICE)
+    dl = CE.fused_ce_bwd(logits, labels, lse_g, g)
+    dl_p = CE.fused_ce_bwd_plain(logits, labels, lse_g, g)
+    torch.cuda.synchronize()
+    fails, errs = [], {}
+    for name, got, want in (("lse", lse, lse_p),
+                            ("nll in shard", nll[inside], nll_p[inside]),
+                            ("tgt in shard", tgt[inside], tgt_p[inside]),
+                            ("dlogits", dl, dl_p)):
+        try:
+            errs[name] = hold(torch, f"phase 16 (b) CE {name}", got, want)
+        except AssertionError as e:
+            fails.append(str(e))
+    if not bool((tgt[~inside] == CE.NEG_INF).all()):
+        fails.append("phase 16 (b) CE: a label outside the shard found a "
+                     "target")
+    log(f"[tp] (b) {card}: CE [{t}, {v}] at model rank {m} of 2, "
+        f"{int(inside.sum())} of {t} labels in the shard; (max abs err, "
+        f"rel L2) against the plain versions {json.dumps(errs)}")
+    return fails
+
+
+def phase_tp(torch, card):
+    """Phase 16: (a) 4 processes share the card, world rank 0 this one;
+    (b) the TP-local kernel shapes in this process.  -> (a)'s launches,
+    summed over the ranks."""
+    import tempfile
+    mp = torch.multiprocessing.get_context("spawn")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        store = str(Path(tmp) / "store")
+        procs = [mp.Process(target=tp_rank, args=(r, store), daemon=True)
+                 for r in range(1, TP_HDP * TP_TP)]
+        for pr in procs:
+            pr.start()
+        try:
+            res = tp_rank(0, store)
+            for pr in procs:
+                pr.join(HDP_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+        codes = [pr.exitcode for pr in procs]
+        if codes != [0] * len(procs):
+            raise AssertionError(f"phase 16 rank exit codes {codes}")
+    wall = time.perf_counter() - t0
+    shown = ("losses", "losses_2x1", "grad_norms", "grad_norms_2x1",
+             "peak_mem_gb_per_rank", "step_wall_s_per_rank")
+    log(f"[tp] (a) {card}: 4 rank processes share this card (gloo through "
+        f"host memory), so the times measure no card-to-card transfer. "
+        f"{json.dumps({k: res[k] for k in shown})} (a) wall {wall:.1f} s")
+    log(f"[tp] {json.dumps(res)}")
+    fails = tp_gates(res)
+    saved = read_counts()
+    t1 = time.perf_counter()
+    for tp, m in TP_LOCAL:
+        fails += tp_attention_case(torch, card, tp, m)
+    fails += tp_ce_case(torch, card)
+    set_counts(saved)                  # (b)'s launches are comparisons
+    log(f"[tp] (b) {time.perf_counter() - t1:.1f} s, phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fails:
+        raise AssertionError("phase 16: " + "; ".join(fails))
+    return {name: int(sum(v)) for name, v in
+            res["launches_per_rank"].items()}
+
+
+# ---------------------------------------------------------------------------
+# 17. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
                  hdp_launches, offload_launches, hdp_serve_launches,
                  ckpt_launches, moe_launches, pp_launches, gemma_launches,
-                 mla_launches, rwkv_launches):
+                 mla_launches, rwkv_launches, tp_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
     its ranks), the offloading trainer's, the hdp = 4 engine's (summed
     over its ranks), the checkpoint phase's, the MoE phase's, the
     pipelined trainer's (summed over its ranks), the Gemma phase's, the
-    MLA phase's and the RWKV phase's."""
+    MLA phase's, the RWKV phase's and the 2 x 2 grid's (summed over its
+    ranks)."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -4079,7 +4470,7 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             + hdp_serve_launches[name] + ckpt_launches[name]
             + moe_launches[name] + pp_launches[name]
             + gemma_launches[name] + mla_launches[name]
-            + rwkv_launches[name],
+            + rwkv_launches[name] + tp_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -4128,12 +4519,14 @@ def main() -> int:
     rwkv_launches, rwkv_cases = phase_rwkv(torch, card)
     cases.append(rwkv_cases)
     log(f"[rwkv] done at {time.perf_counter() - t0:.1f} s")
+    tp_launches = phase_tp(torch, card)
+    log(f"[tp] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
                                 offload_launches, hdp_serve_launches,
                                 ckpt_launches, moe_launches, pp_launches,
                                 gemma_launches, mla_launches,
-                                rwkv_launches)))
+                                rwkv_launches, tp_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,8 @@ from repro_torch.ckpt.checkpoint import flatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import stage_periods
-from repro_torch.parallel.sharding import resolve_device
+from repro_torch.parallel.sharding import (resolve_device, shard_param,
+                                           tp_split_dim)
 
 # leaves kept in float32 whatever the model dtype, as the reference's
 # init makes them (npz carries bf16 leaves as float32, so the name
@@ -47,13 +48,19 @@ def _listify(node, name=None):
 
 
 def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-                     device=None, stage=(0, 1)) -> dict:
+                     device=None, stage=(0, 1), model=(0, 1)) -> dict:
     """Flat {key: array} -> the port's parameter tree on ``device``
     (default ``cuda``).  ``stage = (s, S)``: pipeline stage s of S takes
     its window of every stacked ``blocks`` leaf
-    (`models/transformer.py::stage_periods`) and the other leaves whole."""
+    (`models/transformer.py::stage_periods`) and the other leaves whole.
+    ``model = (m, tp)``: model rank m of tp takes its slice of every split
+    leaf (`parallel/sharding.py::tp_split_dim`); ``flat`` holds the
+    reference's global leaves in its layout at that tp (its ``h_pad``)."""
     device = resolve_device(device)
     dtype = L.activation_dtype(cfg)
+    m, tp = model
+    kv_sharded = L.gqa_layout(cfg.num_heads, cfg.num_kv_heads,
+                              tp).kv_sharded
     tree: dict = {"head_blocks": {}}
     for key, arr in flat.items():
         path = key.split("/")
@@ -62,6 +69,9 @@ def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
             window = stage_periods(arr.shape[0], stage)
             arr = arr[window.start:window.stop]
         t = torch.tensor(np.asarray(arr, np.float32))
+        if tp > 1:
+            t = shard_param(t, tp_split_dim(path, t.dim(), kv_sharded),
+                            m, tp).clone()
         _insert(tree, path, t.to(device=device, dtype=leaf_dtype))
     return _listify(tree)
 

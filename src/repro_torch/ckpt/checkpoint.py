@@ -22,7 +22,12 @@ pipeline parallelism the Trainer also gathers every stage's window of the
 stacked blocks to world rank 0, so the file keeps the single global
 layout, and ``restore(..., stage=(s, S))`` slices stage s's window of a
 stacked leaf before its ZeRO-1 shard (which skips the stage's dim 0):
-a checkpoint restores at any stage count too.
+a checkpoint restores at any stage count too.  Under tensor parallelism
+the Trainer gathers every model rank's slices to world rank 0 as well, and
+``restore(..., model=(m, tp, splits))`` slices model rank m's part of a
+split leaf before its ZeRO-1 shard (which skips the split dimension): a
+checkpoint restores at any tp whose layout has the file's shapes (the
+same ``h_pad``), and raises naming the shape otherwise.
 
 Where the reference holds whole files and trees in memory, here the
 sha256 is read in chunks, and ``restore`` reads one leaf at a time and
@@ -44,6 +49,7 @@ import torch
 
 from repro_torch.models.transformer import stage_periods
 from repro_torch.parallel.zero1 import shard, shard_shape, zero1_dim
+from repro_torch.tree import leaf_paths
 
 _HASH_CHUNK = 1 << 24       # bytes read per sha256 update
 _STATE_KEYS = ("master", "m", "v")   # the optimiser leaves ZeRO-1 shards
@@ -221,14 +227,14 @@ class CheckpointManager:
         return None if manifest is None else manifest["data_state"]
 
     def restore_latest(self, params_like, opt_like, comm=None,
-                       stage=(0, 1)):
+                       stage=(0, 1), model=None):
         """Restore the newest checkpoint that passes integrity, skipping
         (and printing) damaged ones.  Returns ``(step, params, opt_state,
         data_state)`` or None when no valid checkpoint exists."""
         for s in sorted(self.steps(), reverse=True):
             try:
                 params, opt, ds = self.restore(s, params_like, opt_like,
-                                               comm, stage)
+                                               comm, stage, model)
             except (OSError, KeyError, ValueError) as e:
                 print(f"checkpoint step {s} skipped: {e}", flush=True)
                 continue
@@ -236,7 +242,7 @@ class CheckpointManager:
         return None
 
     def restore(self, step: int, params_like, opt_like, comm=None,
-                stage=(0, 1)):
+                stage=(0, 1), model=None):
         """-> (params, opt_state, data_state): the ``like`` trees, their
         leaves overwritten in place with the file's (each keeps its dtype
         and device).  With ``comm`` (the HDP ranks) an optimiser leaf
@@ -245,8 +251,12 @@ class CheckpointManager:
         ``stage = (s, S)``: the ``like`` trees hold pipeline stage s's
         window of every stacked ``blocks`` leaf, which receives those rows
         of the file's global leaf (and at S > 1 its ZeRO-1 shard skips
-        dim 0).  Raises IOError when the sha256 fails, KeyError or
-        ValueError when a key is missing or a shape differs, before any
+        dim 0).  ``model = (m, tp, splits)``: the ``like`` trees hold model
+        rank m's slices of the split leaves (``splits``: per params leaf,
+        `leaves` order, its split dimension or None), which receive those
+        slices of the file's global leaves (their ZeRO-1 shards skip the
+        split dimension).  Raises IOError when the sha256 fails, KeyError
+        or ValueError when a key is missing or a shape differs, before any
         leaf is written."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
@@ -256,36 +266,46 @@ class CheckpointManager:
             raise IOError(f"checkpoint step {step}: integrity check failed")
         hdp, rank = (1, 0) if comm is None else (comm.size, comm.rank)
         num = stage[1]
+        m, tp, splits = (0, 1, None) if model is None else model
+        split_of = {"/".join(path): sp for (path, _), sp in zip(
+            leaf_paths(params_like),
+            splits or [None] * len(leaf_paths(params_like)))}
         params = dict(named_leaves(params_like))
 
         def shapes(key):
             """A params key -> (its file shape, its stage window's rows or
-            None)."""
-            local = tuple(params[key].shape)
+            None, its model split dimension or None)."""
+            full = list(params[key].shape)
+            split = split_of[key]
+            if split is not None:
+                full[split] *= tp
             if key.split("/")[0] != "blocks":
-                return local, None
-            full = (local[0] * num,) + local[1:]
-            return full, stage_periods(full[0], stage)
+                return tuple(full), None, split
+            full[0] *= num
+            return tuple(full), stage_periods(full[0], stage), split
 
-        # (file key, like leaf, the file's shape, window rows, shard dim)
+        # (file key, like leaf, the file's shape, window rows, model split,
+        # shard dim)
         plan = [("params/" + key, leaf, *shapes(key), None)
                 for key, leaf in params.items()]
         for key, leaf in named_leaves(opt_like):
             top, _, rest = key.partition("/")
             if top in _STATE_KEYS:
-                full, rows = shapes(rest)
-                dim = zero1_dim(tuple(params[rest].shape), hdp,
-                                (0,) if rows is not None and num > 1
-                                else ())
-                plan.append(("opt/" + key, leaf, full, rows, dim))
+                full, rows, split = shapes(rest)
+                taken = ((0,) if rows is not None and num > 1 else ()) \
+                    + (() if split is None else (split,))
+                dim = zero1_dim(tuple(params[rest].shape), hdp, taken)
+                plan.append(("opt/" + key, leaf, full, rows, split, dim))
             else:
                 plan.append(("opt/" + key, leaf, tuple(leaf.shape), None,
-                             None))
+                             None, None))
         with np.load(npz_path) as arrays:
-            for key, leaf, full, rows, dim in plan:
+            for key, leaf, full, rows, split, dim in plan:
                 if key not in arrays.files:
                     raise KeyError(f"checkpoint step {step}: no {key!r}")
                 mine = full if rows is None else (len(rows),) + full[1:]
+                if split is not None:
+                    mine = shard_shape(mine, split, tp)
                 if dim is not None:
                     mine = shard_shape(mine, dim, hdp)
                 got = _npz_shape(arrays, key)
@@ -293,10 +313,12 @@ class CheckpointManager:
                     raise ValueError(
                         f"checkpoint step {step}: {key} has shape {got} for "
                         f"a leaf of {tuple(leaf.shape)}, want {full}")
-            for key, leaf, _, rows, dim in plan:   # one leaf at a time
+            for key, leaf, _, rows, split, dim in plan:   # a leaf at a time
                 x = torch.from_numpy(arrays[key])
                 if rows is not None:
                     x = x[rows.start:rows.stop]
+                if split is not None:
+                    x = shard(x, split, m, tp)
                 if dim is not None:
                     x = shard(x, dim, rank, hdp)
                 leaf.copy_(x)

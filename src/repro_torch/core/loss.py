@@ -10,6 +10,12 @@ The plain path computes the log-sum-exp in fp32 over the logits; with
 ``rt.attn_impl == "flash"`` (the reference keys it on ``"pallas"``) the
 fused cross-entropy kernels (`kernels/fused_ce.py`, behind
 `kernels/ops.fused_softmax_xent`) compute it and its gradient instead.
+
+Under tensor parallelism each model rank holds its vocabulary columns of
+the logits (the reference's vocab-sharded logits, whose log-sum-exp XLA
+reduces across the model axis), and the fused CE, given the model group,
+combines the ranks' lse and target logits (`kernels/ops.fused_softmax_xent`);
+``impl="ref"`` runs it with the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -20,14 +26,18 @@ from repro_torch.models.transformer import logits_head
 from repro_torch.parallel.sharding import Runtime
 
 
-def token_ce_from_logits(logits, labels, valid, denom, *, impl: str = "ref"):
+def token_ce_from_logits(logits, labels, valid, denom, *, impl: str = "ref",
+                         tp_comm=None):
     """logits [T, V] (any float dtype), labels [T] int32, valid [T] bool.
+    With ``tp_comm`` the logits are this model rank's columns [T, V/tp]
+    (`kernels/ops.fused_softmax_xent` over the model group).
 
     Returns (loss, metrics).  loss = Σ_valid nll / denom.
     """
-    if impl == "flash":
+    if impl == "flash" or tp_comm is not None:
         from repro_torch.kernels import ops as kernel_ops
-        nll = kernel_ops.fused_softmax_xent(logits, labels)
+        nll = kernel_ops.fused_softmax_xent(logits, labels, tp_comm,
+                                            plain=impl != "flash")
     else:
         lg = logits.float()
         m = lg.amax(dim=-1, keepdim=True)
@@ -42,7 +52,7 @@ def token_ce_from_logits(logits, labels, valid, denom, *, impl: str = "ref"):
 
 def token_ce_loss(params, cfg: ModelConfig, rt: Runtime, hidden, labels, seg,
                   denom):
-    logits = logits_head(params, cfg, hidden)
+    logits = logits_head(params, cfg, hidden, rt.tp_comm)
     return token_ce_from_logits(logits, labels, seg > 0, denom,
                                 impl="flash" if rt.attn_impl == "flash"
-                                else "ref")
+                                else "ref", tp_comm=rt.tp_comm)

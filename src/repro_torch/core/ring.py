@@ -243,7 +243,10 @@ def ring_attention(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
                    v_in_k: Optional[Tuple[int, int]] = None,
                    block_q: int = 64, block_k: int = 64, comm=None):
     """This rank's slice: q [C, h, D]; k [C, G, Dk], v [C, G, Dv]; metadata
-    [C] int32 -> out [C, h, Dv].
+    [C] int32 -> out [C, h, Dv].  Under tensor parallelism h and G are the
+    model rank's (its heads, and its KV groups or the replicated KV with
+    its heads' slice of ``kv_group_of_head``); the ring runs over the HDP
+    group ``comm`` alone.
 
     ``comm`` holds the HDP ranks (`parallel.comm.HdpComm`; None is one
     rank) and ``composition`` must sum to its size; every rank calls with

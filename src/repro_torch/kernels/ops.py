@@ -47,19 +47,36 @@ def make_ring_flash(cfg: RF.RingConfig):
 
 class _FusedXent(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels):
-        nll, lse, _ = CE.fused_ce_fwd(logits, labels)
+    def forward(ctx, comm, plain, logits, labels):
+        fwd = CE.fused_ce_fwd_plain if plain else CE.fused_ce_fwd
+        if comm is not None:
+            labels = (labels - comm.rank * logits.shape[1]).to(torch.int32)
+        nll, lse, tgt = fwd(logits, labels)
+        if comm is not None:
+            got = comm.all_gather(torch.stack([lse, tgt]))   # [tp, 2, T]
+            lse = torch.logsumexp(got[:, 0], dim=0)
+            nll = lse - got[:, 1].amax(dim=0)
+        ctx.plain = plain
         ctx.save_for_backward(logits, labels, lse)
         return nll
 
     @staticmethod
     def backward(ctx, g):
         logits, labels, lse = ctx.saved_tensors
-        return CE.fused_ce_bwd(logits, labels, lse,
+        bwd = CE.fused_ce_bwd_plain if ctx.plain else CE.fused_ce_bwd
+        return None, None, bwd(logits, labels, lse,
                                g.float().contiguous()), None
 
 
-def fused_softmax_xent(logits, labels):
+def fused_softmax_xent(logits, labels, comm=None, *, plain=False):
     """logits [T, V], labels [T] int32 -> nll [T] fp32 (differentiable in
-    the logits)."""
-    return _FusedXent.apply(logits, labels)
+    the logits).
+
+    With ``comm`` (the model group) the logits are this rank's vocabulary
+    columns [T, V/tp] and the labels global ids: the forward runs on the
+    labels shifted by the shard's first column (a label outside the shard
+    finds no target, ``tgt = -1e30``), one all-gather of every rank's lse
+    and tgt gives the global lse and the owner's tgt, the same nll on
+    every rank, and the backward runs from the global lse.  ``plain`` runs
+    the kernels' plain versions on any device."""
+    return _FusedXent.apply(comm, plain, logits, labels)

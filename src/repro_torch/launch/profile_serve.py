@@ -316,7 +316,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default cuda; --mesh runs take cpu (gloo)")
     args = ap.parse_args(argv)
-    hdp = _mesh(args.mesh)
+    hdp, tp = _mesh(args.mesh)
+    if tp > 1:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: tensor-parallel serving waits in ROADMAP "
+            f"queue 1 item 7b-iii (TP serving)")
     if hdp == 1:
         return profile_one_card(args)
 

@@ -27,7 +27,17 @@ hold; the ZeRO-1 bytes of a step; the ledger's
 totals (predicted and measured ring and offload bytes, predicted and
 measured peak memory); the step it resumed at, the checkpoint's seconds
 (gather, snapshot, write, hash, restore) and bytes, and rank 0's peak
-host memory.  M > 1 (tensor parallelism) is not ported.
+host memory.
+
+``--mesh NxM`` with M > 1 trains the dense decoders (llama3.2-3b, the
+paper's LLaMA-7B) with tensor parallelism on N·M ranks: world rank h·M + m
+is HDP position h, model rank m (`parallel/comm.py::tp_grid`, the
+reference's ``("data", "model")`` mesh); each rank holds its model rank's
+slices of the split leaves and ZeRO-1 shards over the HDP group of its
+model rank.  Other architectures, ``--num-stages`` and ``--offload`` at
+M > 1 raise `NotImplementedError` naming the queue item that brings them.
+A checkpoint keeps the global layout, so a run written at ``--mesh 2x2``
+resumes at ``--mesh 4x1`` where the two layouts pad the heads alike.
 
 ``--num-stages S`` (the reference dry-run's flag; its launcher reads a
 three-number ``--mesh`` as pod × data × model and never builds a stage
@@ -67,14 +77,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.models.transformer import check_supported
 from repro_torch.core.offload import offload_periods
 from repro_torch.data.distribution import DISTRIBUTIONS, LengthDistribution
 from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
 from repro_torch.obs import ledger
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.parallel.sharding import Runtime
+from repro_torch.parallel.sharding import Runtime, check_tp_stages
 from repro_torch.parallel.zero1 import stage_taken, zero1_bytes
-from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                      check_tp_offload)
 from repro_torch.tree import leaves
 
 
@@ -97,28 +109,35 @@ def _resolve_config(args):
 
 
 def _mesh(text: str):
+    """``NxM`` -> (N HDP ranks, M model ranks)."""
     try:
         hdp, tp = (int(x) for x in text.lower().split("x"))
     except ValueError:
         raise ValueError(f"--mesh {text!r}: expected NxM, e.g. 4x1") from None
     if hdp < 1 or tp < 1:
         raise ValueError(f"--mesh {text!r}: both sizes must be >= 1")
-    if tp > 1:
-        raise NotImplementedError(
-            f"--mesh {text}: tensor parallelism (M > 1) comes with ROADMAP "
-            f"queue 1 item 7")
-    return hdp
+    return hdp, tp
 
 
-def train(args, comm=None, say=print, stage_comm=None):
+def _check_tensor_parallel(args, tp: int) -> None:
+    """The Runtime's, the Trainer's and the model's refusals at M > 1,
+    before any rank is spawned."""
+    check_tp_stages(tp, args.num_stages)
+    check_tp_offload(tp, args.offload)
+    cfg = get_config(args.arch)
+    check_supported(cfg.reduced() if args.reduced else cfg, tp)
+
+
+def train(args, comm=None, say=print, stage_comm=None, tp_comm=None):
     """Builds the trainer on ``comm``'s HDP ranks (None: one) and, under
-    PP, ``stage_comm``'s stages, and runs ``args.steps`` steps ->
+    PP, ``stage_comm``'s stages, or under TP ``tp_comm``'s model ranks,
+    and runs ``args.steps`` steps ->
     (trainer, every dispatch (a wave, or under PP a round) as
     (composition, fresh, per-rank seconds, (c_mult, r, k)), this rank's
     peak device memory in bytes (None on the CPU), (this rank's step
     walls, under PP its (seconds, busy seconds, fresh) of every round))."""
     rt = Runtime(device=args.device, attn_impl=args.attn_impl, comm=comm,
-                 stage_comm=stage_comm)
+                 stage_comm=stage_comm, tp_comm=tp_comm)
     cfg, ds = _resolve_config(args)
     stages = rt.num_stages
     sched = GlobalScheduler(ds, cfg, capacity=args.capacity,
@@ -210,11 +229,11 @@ def summary(args, trainer, waves, peaks, ranks=None) -> dict:
     for comp, fresh, secs, (c_mult, _, _) in waves:
         if not fresh:
             by_comp[f"{comp} x{c_mult}"].append(max(secs) * 1e3)
-    hdp = trainer.rt.hdp_size
+    hdp, tp = trainer.rt.hdp_size, trainer.rt.tp
     led = trainer.ledger.summary()
     totals = trainer.ledger.totals
     out = {
-        "arch": args.arch, "reduced": args.reduced, "mesh": f"{hdp}x1",
+        "arch": args.arch, "reduced": args.reduced, "mesh": f"{hdp}x{tp}",
         "num_stages": trainer.rt.num_stages,
         "layers": trainer.cfg.num_layers,
         "device": str(trainer.rt.device),
@@ -233,9 +252,11 @@ def summary(args, trainer, waves, peaks, ranks=None) -> dict:
         "pinned_host_gb": trainer.offload_store.pinned_bytes / 1e9
         if trainer.offload_store is not None else 0.0,
         "peak_mem_gb_by_rank": peaks,
+        # under TP the reference Trainer's: the global tree, no specs
         "zero1_bytes": zero1_bytes(trainer.params, hdp,
                                    stage_taken(trainer.params,
-                                               trainer.rt.num_stages)),
+                                               trainer.rt.num_stages))
+        if tp == 1 else zero1_bytes(trainer._global_meta(), hdp),
         "resumed_at": trainer.ckpt_stats.get("resumed_at"),
         "ckpt": trainer.ckpt_stats,
         "host_peak_rss_gb": resource.getrusage(
@@ -250,12 +271,13 @@ def summary(args, trainer, waves, peaks, ranks=None) -> dict:
     return out
 
 
-def _rank_main(rank: int, hdp: int, stages: int, args, store: str) -> None:
+def _rank_main(rank: int, hdp: int, stages: int, args, store: str,
+               tp: int = 1) -> None:
     import datetime
     import torch.distributed as dist
-    from repro_torch.parallel.comm import stage_grid
+    from repro_torch.parallel.comm import stage_grid, tp_grid
     cuda = args.device is None or args.device.startswith("cuda")
-    world = hdp * stages
+    world = hdp * stages * tp
     if cuda:
         torch.cuda.set_device(rank)
         args.device = f"cuda:{rank}"
@@ -266,9 +288,15 @@ def _rank_main(rank: int, hdp: int, stages: int, args, store: str) -> None:
                             rank=rank,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        comm, stage_comm = stage_grid(stages, hdp)
+        tp_comm = None
+        if tp > 1:
+            comm, tp_comm = tp_grid(hdp, tp)
+            stage_comm = None
+        else:
+            comm, stage_comm = stage_grid(stages, hdp)
         say = print if rank == 0 else (lambda *a, **k: None)
-        trainer, waves, peak, rounds = train(args, comm, say, stage_comm)
+        trainer, waves, peak, rounds = train(args, comm, say, stage_comm,
+                                             tp_comm)
         got = [None] * world
         dist.all_gather_object(got, (peak / 1e9 if cuda else None, rounds))
         peaks = [p for p, _ in got] if cuda else None
@@ -303,8 +331,9 @@ def main(argv=None):
                     help="selective activation offload (Eq. 3 plans, the "
                          "leading periods' residuals in pinned host memory)")
     ap.add_argument("--mesh", default="1x1",
-                    help="NxM: N HDP ranks, one process each (M, tensor "
-                         "parallelism, must be 1)")
+                    help="NxM: N HDP ranks x M model ranks (tensor "
+                         "parallelism, the dense decoders), one process "
+                         "each")
     ap.add_argument("--num-stages", type=int, default=1,
                     help="pipeline stages S: S x N ranks, PP-Balance plans "
                          "run as rounds through the stages")
@@ -321,11 +350,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default cuda; pass cpu to run on the CPU")
     args = ap.parse_args(argv)
-    hdp = _mesh(args.mesh)
+    hdp, tp = _mesh(args.mesh)
     stages = args.num_stages
     if stages < 1:
         raise ValueError(f"--num-stages {stages}: must be >= 1")
-    world = hdp * stages
+    _check_tensor_parallel(args, tp)
+    world = hdp * stages * tp
     if world == 1:
         return train(args)[0]
 
@@ -344,7 +374,7 @@ def main(argv=None):
     os.makedirs("build", exist_ok=True)
     with tempfile.TemporaryDirectory(dir="build") as tmp:
         mp.start_processes(_rank_main, args=(hdp, stages, args,
-                                             os.path.join(tmp, "store")),
+                                             os.path.join(tmp, "store"), tp),
                            nprocs=world, join=True, start_method="spawn")
     return None
 

@@ -110,7 +110,10 @@ def scalar_positions(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class GQALayout:
     """How (num_heads, num_kv_heads) map onto a TP axis of size `tp`
-    (same arithmetic as the reference; the port runs tp == 1)."""
+    (same arithmetic as the reference).  Model rank m of tp runs the
+    padded heads [m·h_pad/tp, (m+1)·h_pad/tp): its slices of `head_mask`
+    and, where KV is replicated, of `group_of_head`
+    (`models/transformer.py::_attention_block`)."""
     num_heads: int
     num_kv_heads: int
     tp: int

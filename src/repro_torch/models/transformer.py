@@ -28,6 +28,15 @@ sequence sharded over HDP ranks is relayed across them by `_ssm_block`.
 
 Dense weights are [in, out] and used as ``x @ W``.  Mamba, non-token
 frontends and M-RoPE are later slices and raise `NotImplementedError`.
+
+Under tensor parallelism (``rt.tp > 1``, the dense decoders only) each
+model rank holds its slice of the split leaves
+(`parallel/sharding.py::tp_split_dim`) and runs its h_pad/tp heads, its
+columns of the MLP and its rows of the vocabulary: the column-parallel
+products take their input through `parallel/tensor.py::copy_to_model`,
+the row-parallel ones and the embedding lookup give theirs through
+``reduce_from_model``, and `logits_head` gives this rank's vocabulary
+columns (the loss combines them, `core/loss.py`).
 """
 from __future__ import annotations
 
@@ -42,12 +51,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as RW
-from repro_torch.parallel.sharding import Runtime, resolve_device
-from repro_torch.tree import leaves, tree_map
+from repro_torch.parallel.sharding import (TP_LATER, Runtime,
+                                           resolve_device, shard_param,
+                                           tp_split_dim)
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
+from repro_torch.tree import leaf_paths, leaves, tree_map
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
+def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
+    """Raise NotImplementedError for what the port does not run yet; at
+    ``tp > 1`` also for everything but the dense GQA decoders."""
+    if tp > 1:
+        _check_tensor_parallel(cfg, tp)
     missing = []
     if set(cfg.layer_pattern) - {"g", "l", "r"}:
         missing.append(f"layer pattern {cfg.layer_pattern!r} (the mamba "
@@ -67,6 +82,30 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port runs "
             f"attention decoders, GQA or MLA, with global and local layers, "
             f"dense or MoE, and RWKV-6, with a token frontend)")
+
+
+def _check_tensor_parallel(cfg: ModelConfig, tp: int) -> None:
+    """Tensor parallelism runs the dense GQA decoders with global layers
+    (llama3.2-3b, the paper's LLaMA-7B): the rest raises, naming the queue
+    item that brings it."""
+    flags = {"moe": cfg.moe is not None, "mla": cfg.mla is not None,
+             "rwkv": "r" in cfg.layer_pattern or cfg.rwkv is not None,
+             "mamba": "m" in cfg.layer_pattern or cfg.mamba is not None,
+             "local layers": "l" in cfg.layer_pattern,
+             "attention softcap": bool(cfg.attn_softcap),
+             "final softcap": bool(cfg.final_softcap),
+             "q/k norms": cfg.qk_norm,
+             "post-block norms": cfg.post_block_norm,
+             "embedding scale": bool(cfg.embed_scale),
+             f"frontend {cfg.frontend!r}": cfg.frontend != "none"}
+    missing = [k for k, v in flags.items() if v]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name} at tp {tp}: {', '.join(missing)} under tensor "
+            f"parallelism come with {TP_LATER}")
+    if cfg.vocab_size % tp:
+        raise ValueError(f"{cfg.name}: vocabulary {cfg.vocab_size} does not "
+                         f"split over {tp} model ranks")
 
 
 def require_attention_only(cfg: ModelConfig, what: str) -> None:
@@ -163,8 +202,20 @@ def stage_periods(n_periods: int, stage=(0, 1)) -> range:
     return range(s * w, (s + 1) * w)
 
 
+def _model_slice(tree, prefix: tuple, kv_sharded: bool, model):
+    """This model rank's slices (``model = (m, tp)``) of a drawn global
+    (sub)tree whose leaves sit at ``prefix`` + their path, as copies."""
+    m, tp = model
+    if tp == 1:
+        return tree
+    got = iter([shard_param(x, tp_split_dim(prefix + path, x.dim(),
+                                            kv_sharded), m, tp).clone()
+                for path, x in leaf_paths(tree)])
+    return tree_map(lambda _: next(got), tree)
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
-                stage=(0, 1)) -> dict:
+                stage=(0, 1), model=(0, 1)) -> dict:
     """Random parameters from a ``torch.Generator`` seeded with ``seed``,
     drawn on ``device`` (default ``cuda``; raises without one unless
     ``device="cpu"``).  Same tree, shapes and distributions as the
@@ -175,13 +226,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
     stacked periods (`stage_periods`) and the whole replicated leaves.
     Every period is drawn in the same order as the full init and those
     outside the window are dropped, so the window equals the same rows of
-    the full init."""
-    check_supported(cfg)
+    the full init.
+
+    ``model = (m, tp)``: model rank m of tp holds its slice of every split
+    leaf (`parallel/sharding.py::tp_split_dim`) of the global tree in the
+    reference's layout at that tp (q heads padded to its ``h_pad``).  The
+    global tree is drawn in the same order and each leaf sliced as it is
+    drawn, so a seed gives the same model at every tp with the same
+    ``h_pad``."""
+    check_supported(cfg, model[1])
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dtype = L.activation_dtype(cfg)
-    layout = L.gqa_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+    layout = L.gqa_layout(cfg.num_heads, cfg.num_kv_heads, model[1])
+    kvs = layout.kv_sharded
+
+    def block(i):
+        return _model_slice(_block_init(gen, cfg, i, layout, dtype, device),
+                            ("layer",), kvs, model)
     period = len(cfg.layer_pattern)
     head_n = head_layer_count(cfg)
     if (cfg.num_layers - head_n) % period:
@@ -190,10 +253,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
                          f"periods")
     n_periods = (cfg.num_layers - head_n) // period
     params: dict = {
-        "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype,
-                              device),
-        "head_blocks": [_block_init(gen, cfg, i, layout, dtype, device)
-                        for i in range(head_n)],
+        "embed": _model_slice(L.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                           dtype, device), ("embed",), kvs,
+                              model),
+        "head_blocks": [block(i) for i in range(head_n)],
     }
     window = stage_periods(n_periods, stage)
     blocks = []
@@ -202,17 +265,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
         # init holds the stack and one block, never two stacks
         stacked = None
         for p in range(n_periods):
-            block = _block_init(gen, cfg, head_n + p * period + j, layout,
-                                dtype, device)
+            drawn = block(head_n + p * period + j)
             if p in window:
-                stacked = _stack_into(stacked, block, p - window.start,
+                stacked = _stack_into(stacked, drawn, p - window.start,
                                       len(window))
         blocks.append(stacked)
     params["blocks"] = blocks
     params["final_norm"] = L.rmsnorm_init(cfg.d_model, device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                         dtype, device)
+        params["lm_head"] = _model_slice(
+            L.dense_init(gen, cfg.d_model, cfg.vocab_size, dtype, device),
+            ("lm_head",), kvs, model)
     return params
 
 
@@ -229,7 +292,14 @@ def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
 
     MLA runs the reference's gather mode: every (padded) head takes the one
     latent as its KV (``kv_group_of_head`` zeros), and v is the latent's
-    first kv_lora_rank columns (``v_in_k``)."""
+    first kv_lora_rank columns (``v_in_k``).
+
+    Model rank m of tp runs the heads [m·hpl, (m+1)·hpl), hpl = h_pad/tp:
+    with KV sharded its own KV groups, else the whole (replicated) KV
+    through its heads' slice of ``kv_group_of_head`` (the replicated
+    ``w_kv`` takes ``x`` through `copy_to_model`, so its gradient sums the
+    ranks' heads).  Its rows of ``w_o`` give a partial output, summed over
+    the model group."""
     t = x.shape[0]
     pos_s = L.scalar_positions(cfg, pos)
     layout = rt.layout(cfg)
@@ -252,8 +322,14 @@ def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
             block_k=rt.attn_block_k, comm=rt.comm)
         return MLA.mla_output(bp, cfg, out[:, :cfg.num_heads])
     dk = cfg.resolved_head_dim
-    q = (x @ bp["w_q"]).reshape(t, layout.h_pad, dk)
-    kv = torch.einsum("td,dsgk->tsgk", x, bp["w_kv"])       # [T, 2, G, Dk]
+    comm = rt.tp_comm
+    hpl = layout.h_pad // rt.tp
+    heads = slice(rt.model_rank * hpl, (rt.model_rank + 1) * hpl)
+    x = copy_to_model(x, comm)
+    w_kv = bp["w_kv"] if layout.kv_sharded else copy_to_model(bp["w_kv"],
+                                                              comm)
+    q = (x @ bp["w_q"]).reshape(t, hpl, dk)
+    kv = torch.einsum("td,dsgk->tsgk", x, w_kv)              # [T, 2, G, Dk]
     k, v = kv[:, 0], kv[:, 1]
     if cfg.qk_norm:
         q = L.qk_head_norm(bp["q_norm"], q, cfg.norm_eps)
@@ -265,24 +341,29 @@ def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
         q, k, v, seg, seg, pos_s, pos_s,
         composition=rt.composition, kv_sharded=layout.kv_sharded,
         kv_group_of_head=(None if layout.kv_sharded
-                          else layout.group_of_head(x.device)),
+                          else layout.group_of_head(x.device)[heads]),
         scale=dk ** -0.5, window=window, softcap=cfg.attn_softcap,
         kv_chunk=rt.kv_chunk, block_skip=rt.block_skip,
         attn_impl=rt.attn_impl, block_q=rt.attn_block_q,
         block_k=rt.attn_block_k, comm=rt.comm)
     if layout.pad_heads:
-        out = out * layout.head_mask(x.device)[None, :, None].to(out.dtype)
-    return out.reshape(t, -1) @ bp["w_o"]
+        out = out * layout.head_mask(x.device)[heads][None, :, None].to(
+            out.dtype)
+    return reduce_from_model(out.reshape(t, -1) @ bp["w_o"], comm)
 
 
-def _ffn_block(bp, cfg: ModelConfig, x):
+def _ffn_block(bp, cfg: ModelConfig, x, tp_comm=None):
+    """The MLP; under tensor parallelism this rank's columns of ``w_in``
+    and ``w_gate`` and rows of ``w_out``, its output summed over the
+    model group."""
     act = L.act_fn(cfg.act)
+    x = copy_to_model(x, tp_comm)
     h = x @ bp["w_in"]
     if cfg.gated_mlp:
         h = act(x @ bp["w_gate"]) * h
     else:
         h = act(h)
-    return h @ bp["w_out"]
+    return reduce_from_model(h @ bp["w_out"], tp_comm)
 
 
 def _moe_block(bp, cfg: ModelConfig, rt: Runtime, x):
@@ -352,7 +433,7 @@ def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
     elif "moe" in bp:
         h = _moe_block(bp["moe"], cfg, rt, h)
     else:
-        h = _ffn_block(bp["mlp"], cfg, h)
+        h = _ffn_block(bp["mlp"], cfg, h, rt.tp_comm)
     if cfg.post_block_norm:
         h = L.rmsnorm(bp["postnorm2"], h, cfg.norm_eps)
     return x + h.to(x.dtype)
@@ -362,7 +443,19 @@ def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
 # forward
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens, tp_comm=None):
+    """The embedding rows of ``tokens``.  Under tensor parallelism this
+    rank holds vocabulary rows [m·V/tp, (m+1)·V/tp): it looks up the
+    tokens in its rows, zeroes the others, and the rows are summed over
+    the model group (the reference's ``P(model, None)`` embedding)."""
+    if tp_comm is not None:
+        table = params["embed"]
+        ids = tokens.reshape(-1).long() - tp_comm.rank * table.shape[0]
+        mine = (ids >= 0) & (ids < table.shape[0])
+        x = table.index_select(0, ids.clamp(0, table.shape[0] - 1))
+        x = torch.where(mine[:, None], x, torch.zeros_like(x))
+        return reduce_from_model(x, tp_comm).reshape(*tokens.shape,
+                                                     cfg.d_model)
     x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
         *tokens.shape, cfg.d_model)
     if cfg.embed_scale:
@@ -378,9 +471,9 @@ def embed_frontend(params, cfg: ModelConfig, rt: Runtime, batch,
                    collect: Optional[list] = None) -> torch.Tensor:
     """Token frontend + the un-stacked head blocks.  ``collect``:
     per-head-block KV capture for serving (see `_attention_block`)."""
-    check_supported(cfg)
+    check_supported(cfg, rt.tp)
     seg, pos = batch["seg"], batch["pos"]
-    x = embed_tokens(params, cfg, batch["tokens"])
+    x = embed_tokens(params, cfg, batch["tokens"], rt.tp_comm)
     for i, bp in enumerate(params["head_blocks"]):
         x = block_forward(bp, cfg, rt, x, seg, pos, i, collect=collect)
     return x
@@ -509,9 +602,12 @@ def forward_hidden(params, cfg: ModelConfig, rt: Runtime,
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def logits_head(params, cfg: ModelConfig, hidden):
+def logits_head(params, cfg: ModelConfig, hidden, tp_comm=None):
+    """hidden [T, d] -> logits [T, V]; under tensor parallelism (``tp_comm``)
+    this rank's vocabulary columns [T, V/tp], the reference's
+    vocab-sharded logits."""
     w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    logits = hidden @ w.to(hidden.dtype)
+    logits = copy_to_model(hidden, tp_comm) @ w.to(hidden.dtype)
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits

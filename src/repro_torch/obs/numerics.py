@@ -24,9 +24,15 @@ from repro_torch.tree import leaves
 # sentinels
 # ---------------------------------------------------------------------------
 
-def group_norms(tree, prefix: str) -> Dict[str, Any]:
+def group_norms(tree, prefix: str,
+                counted: Optional[Sequence[bool]] = None) -> Dict[str, Any]:
     """Per-top-level-group global norms (embed / blocks / head_blocks /
-    final_norm / lm_head); leafless groups have no norm."""
+    final_norm / lm_head); leafless groups have no norm.  ``counted`` (per
+    leaf, default all): the leaves the norms add, the others count 0."""
+    if counted is not None:
+        it = iter(counted)
+        tree = {k: [x if next(it) else torch.zeros_like(x[..., :0])
+                    for x in leaves(v)] for k, v in tree.items()}
     if not isinstance(tree, dict):
         return {prefix: global_norm(tree)}
     return {f"{prefix}/{k}": global_norm(v) for k, v in tree.items()
@@ -35,7 +41,7 @@ def group_norms(tree, prefix: str) -> Dict[str, Any]:
 
 def grad_sentinels(grads, comm=None,
                    counted: Optional[Sequence[bool]] = None,
-                   stage_comm=None):
+                   stage_comm=None, tp_comm=None):
     """-> (global grad norm, {"gnorm/<group>": norm, "grad_nonfinite":
     count}) of a step's gradients, as device scalars.
 
@@ -47,7 +53,9 @@ def grad_sentinels(grads, comm=None,
     guard decision.  Under pipeline parallelism a second ``all_reduce``
     over ``stage_comm`` adds the stages' sums; the caller then counts a
     stage-owned leaf on every stage and a replicated one on stage 0 only,
-    so each is added once over the world."""
+    so each is added once over the world.  Under tensor parallelism a
+    third ``all_reduce`` over ``tp_comm`` adds the model group's sums (a
+    split leaf counted on every model rank, a replicated one on one)."""
     ls = leaves(grads)
     if counted is None:
         counted = [True] * len(ls)
@@ -58,7 +66,8 @@ def grad_sentinels(grads, comm=None,
            for x, c in zip(ls, counted) if c and x.is_floating_point()]
     bad = torch.stack(bad).sum() if bad \
         else torch.zeros((), dtype=torch.int64, device=zero.device)
-    comms = [c for c in (comm, stage_comm) if c is not None and c.size > 1]
+    comms = [c for c in (comm, stage_comm, tp_comm)
+             if c is not None and c.size > 1]
     if comms:
         vec = torch.cat([sq.double(), bad.double()[None]])
         for c in comms:

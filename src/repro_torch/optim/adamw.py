@@ -99,7 +99,7 @@ def _chunks(x: torch.Tensor):
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
                   update_sq: Optional[Dict[str, torch.Tensor]] = None,
-                  comm=None, taken=None):
+                  comm=None, taken=None, counted=None):
     """One AdamW step, in place: params, state["master"/"m"/"v"] are
     updated where they lie and state["step"] is replaced.  Returns (params,
     state, {"grad_norm", "lr"}).  ``gnorm`` lets a caller that already
@@ -110,7 +110,9 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
     fp32 accumulator: it is read, never written.  With ``comm`` (state
     from ``init_state(params, comm)``) a sharded leaf's gradient is this
     rank's shard of the reduced sum and its new bf16 values are
-    all-gathered into the parameter; ``taken`` as in `init_state`."""
+    all-gathered into the parameter; ``taken`` as in `init_state`.
+    ``counted`` (per leaf, default all): the leaves ``update_sq`` adds (a
+    leaf replicated over a model group counts on one of its ranks)."""
     step = state["step"] + 1
     lr = schedule_lr(cfg, step)
     if gnorm is None:
@@ -124,6 +126,8 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
     hdp = 1 if comm is None else comm.size
     taken = iter(taken if taken is not None
                  else [()] * len(leaves(params)))
+    counted = iter(counted if counted is not None
+                   else [True] * len(leaves(params)))
 
     def update(g, m, v, master, p, du: bool):
         """Writes the new params into ``p``; returns Σ (new p - old p)² of
@@ -150,19 +154,20 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, gnorm=None, *,
                            leaves(sel(state["master"]))):
             p, g, m, v, master = tensors
             dim = zero1_dim(p.shape, hdp, next(taken))
+            sq = update_sq is not None and next(counted)
             out = p if dim is None else torch.empty(
                 master.shape, dtype=p.dtype, device=p.device)
             for pc, gc, mc, vc, wc in zip(*(_chunks(x) for x in
                                             (out, g, m, v, master))):
-                du = update(gc, mc, vc, wc, pc,
-                            update_sq is not None and dim is None)
+                du = update(gc, mc, vc, wc, pc, sq and dim is None)
                 if du is not None:
                     acc.append(du)
             if dim is not None:
-                du = gather_leaf(p, out, dim, comm, sq=update_sq is not None)
+                du = gather_leaf(p, out, dim, comm, sq=sq)
                 if du is not None:
                     acc.append(du)
-        if update_sq is not None and acc:
-            update_sq[key] = torch.stack(acc).sum()
+        if update_sq is not None and leaves(sub):
+            update_sq[key] = torch.stack(acc).sum() if acc \
+                else torch.zeros((), dtype=torch.float32, device=gnorm.device)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -264,13 +264,33 @@ def stage_grid(stages: int, hdp: int, comm_cls=ProcessGroupComm):
     CPU, NCCL one process per card) or `HostStagedComm` (gloo, processes
     sharing a card); its construction runs one collective over each
     group, HDP group first, on every rank alike."""
+    return _grid(stages, hdp, comm_cls)
+
+
+def tp_grid(hdp: int, tp: int, comm_cls=ProcessGroupComm):
+    """This process's two groups of an ``(hdp, tp)`` grid over the world
+    -> (its HDP comm, its model comm), ``None`` for a group of one.
+
+    World rank ``h·tp + m`` is HDP position h, model rank m (the
+    reference's ``("data", "model")`` mesh, model fastest).  The model
+    group of position h is the ranks ``{h·tp + m'}``, the HDP group of
+    model rank m the ranks ``{h'·tp + m}``.  Every process creates every
+    group in one order (the model groups by position, then the HDP groups
+    by model rank) and constructs its model comm before its HDP comm, as
+    `stage_grid` does."""
+    tp_comm, hdp_comm = _grid(hdp, tp, comm_cls)
+    return hdp_comm, tp_comm
+
+
+def _grid(outer: int, inner: int, comm_cls):
+    """The groups of an ``(outer, inner)`` grid, world rank ``a·inner +
+    b`` -> (this process's inner comm, its outer comm)."""
     import torch.distributed as dist
     world = dist.get_world_size()
-    if stages * hdp != world:
-        raise ValueError(f"a {stages} x {hdp} grid needs {stages * hdp} "
+    if outer * inner != world:
+        raise ValueError(f"a {outer} x {inner} grid needs {outer * inner} "
                          f"ranks, the world has {world}")
-    rank = dist.get_rank()
-    s, h = divmod(rank, hdp)
+    a, b = divmod(dist.get_rank(), inner)
 
     def groups(members):
         if len(members[0]) == 1:
@@ -279,13 +299,13 @@ def stage_grid(stages: int, hdp: int, comm_cls=ProcessGroupComm):
             return [None]          # the world itself
         return [dist.new_group(m) for m in members]
 
-    hdp_groups = groups([[a * hdp + b for b in range(hdp)]
-                         for a in range(stages)])
-    stage_groups = groups([[a * hdp + b for a in range(stages)]
-                           for b in range(hdp)])
-    hdp_comm = None if hdp == 1 else comm_cls(hdp_groups[s])
-    stage_comm = None if stages == 1 else comm_cls(stage_groups[h])
-    return hdp_comm, stage_comm
+    inner_groups = groups([[x * inner + y for y in range(inner)]
+                           for x in range(outer)])
+    outer_groups = groups([[x * inner + y for x in range(outer)]
+                           for y in range(inner)])
+    inner_comm = None if inner == 1 else comm_cls(inner_groups[a])
+    outer_comm = None if outer == 1 else comm_cls(outer_groups[b])
+    return inner_comm, outer_comm
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """The port's runtime: what model code needs to know about placement.
 
-Port of `repro/parallel/sharding.py::Runtime`: there is no mesh and
-tensor parallelism is 1.  The HDP ranks are ``comm`` (a
-`parallel.comm.HdpComm`, the reference's ``(mesh, hdp_axes)``); ``None``
-is one rank, where every composition is ``(1,)``.  A composition must sum
+Port of `repro/parallel/sharding.py::Runtime` and of its rule table
+(`param_spec` / `params_pspecs`) for the dense decoders.  There is no
+mesh: the HDP ranks are ``comm`` (a `parallel.comm.HdpComm`, the
+reference's ``(mesh, hdp_axes)``); ``None`` is one rank, where every
+composition is ``(1,)``.  A composition must sum
 to the HDP size; left out, it is all singletons.  The device defaults to
 ``cuda``; without a GPU the caller must ask for ``device="cpu"``
 explicitly — a runtime never falls back to the CPU on its own.
@@ -22,6 +23,16 @@ kept on the device.  ``offload_store`` holds the host buffers, and k > 0
 needs one; the trainer hands one store to every wave, so the buffers are
 reused from wave to wave.
 
+Under tensor parallelism ``tp_comm`` holds this rank's model group (the
+reference's ``model_axis``; `parallel/comm.py::tp_grid`), ``None`` is
+tp = 1.  Each rank holds its slice of the split leaves: `tp_split_dim`
+is the reference's rule table for the dense decoders' leaves (``w_q``,
+``w_in``, ``w_gate``, ``lm_head`` column-parallel; ``w_o``, ``w_out``
+row-parallel; ``embed`` by vocabulary rows; ``w_kv`` by KV head where the
+layout shards KV; norms replicated), and `shard_param` takes the slice.
+Every leaf outside it raises `NotImplementedError` at tp > 1 (the rules of
+the MoE, MLA, RWKV and Mamba leaves come with ROADMAP queue 1 item 7b-ii).
+
 A runtime on the card refuses TF32 matmuls: float32 products stay IEEE
 fp32, as the reference's on the CPU, and the MoE router's top-k hangs on
 its product (`models/moe.py`).
@@ -30,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Optional, Tuple, Union
+from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -38,6 +49,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ring import ATTN_IMPLS, check_composition
 from repro_torch.models.layers import gqa_layout
 from repro_torch.parallel.comm import HdpComm
+from repro_torch.tree import leaf_paths
 
 if TYPE_CHECKING:
     from repro_torch.parallel.host_offload import HostOffload
@@ -80,6 +92,7 @@ class Runtime:
     comm: Optional[HdpComm] = None    # the HDP ranks; None: one rank
     stage_comm: Optional[HdpComm] = None   # the stage group; None: one
                                            # stage
+    tp_comm: Optional[HdpComm] = None      # the model group; None: tp 1
     offload_store: Optional["HostOffload"] = field(
         default=None, compare=False, repr=False)   # needed at k > 0
 
@@ -101,10 +114,15 @@ class Runtime:
                              "router's among them) must stay IEEE fp32")
         if self.offload_periods < 0:
             raise ValueError(f"offload_periods {self.offload_periods} < 0")
+        check_tp_stages(self.tp, self.num_stages)
 
     @property
     def tp(self) -> int:
-        return 1
+        return 1 if self.tp_comm is None else self.tp_comm.size
+
+    @property
+    def model_rank(self) -> int:
+        return 0 if self.tp_comm is None else self.tp_comm.rank
 
     @property
     def hdp_size(self) -> int:
@@ -125,3 +143,73 @@ class Runtime:
 
     def layout(self, cfg: ModelConfig):
         return gqa_layout(cfg.num_heads, cfg.num_kv_heads, self.tp)
+
+
+def check_tp_stages(tp: int, num_stages: int) -> None:
+    """Tensor parallelism runs without pipeline stages: TP x PP raises."""
+    if tp > 1 and num_stages > 1:
+        raise NotImplementedError(
+            f"tensor parallelism (tp {tp}) with pipeline stages "
+            f"({num_stages}) is not ported yet: TP x PP waits in ROADMAP "
+            f"queue 1 item 7b-iii")
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel rule table (the reference's param_spec, dense leaves)
+# ---------------------------------------------------------------------------
+
+TP_LATER = ("ROADMAP queue 1 item 7b-ii (expert parallelism and the TP "
+            "rules of the MoE, MLA, RWKV, Mamba and Gemma leaves)")
+
+# (parent, leaf) -> the split dimension from the leaf's own first one
+# ("kv": w_kv [d, 2, G, Dk] on G iff KV is sharded); norms replicated
+_RULES = {("attn", "w_q"): -1, ("mlp", "w_in"): -1, ("mlp", "w_gate"): -1,
+          ("attn", "w_o"): 0, ("mlp", "w_out"): 0, ("attn", "w_kv"): "kv",
+          ("norm1", "scale"): None, ("norm2", "scale"): None,
+          ("final_norm", "scale"): None}
+
+
+def tp_split_dim(path: Sequence[str], ndim: int,
+                 kv_sharded: bool) -> Optional[int]:
+    """The dimension a leaf is split on over the model group, or None
+    (replicated): the reference's `param_spec` for the dense decoders
+    (column-parallel ``w_q``, ``w_in``, ``w_gate``; row-parallel ``w_o``,
+    ``w_out``; ``embed`` on its rows, ``lm_head`` on its columns).
+    ``path``: the leaf's keys from the root (``("blocks", "0", "attn",
+    "w_q")``), ``ndim`` its dimensions as held (a stacked ``blocks`` leaf
+    has its [n_periods] dim first).  Every other leaf raises
+    `NotImplementedError`: its rule comes with a later item."""
+    path = [str(p) for p in path]
+    if path in (["embed"], ["lm_head"]):
+        return 0 if path[0] == "embed" else 1
+    rule = _RULES.get(tuple(path[-2:]), "later")
+    if rule == "later":
+        raise NotImplementedError(
+            f"{'/'.join(path)}: its tensor-parallel rule comes with "
+            f"{TP_LATER}")
+    if rule is None:
+        return None
+    off = 1 if path[0] == "blocks" else 0
+    if rule == "kv":
+        return off + 2 if kv_sharded else None
+    return ndim - 1 if rule == -1 else off
+
+
+def tp_splits(params, kv_sharded: bool, tp: int) -> List[Optional[int]]:
+    """Per leaf of ``params`` (`leaves` order): its `tp_split_dim`, all
+    None at tp = 1."""
+    return [None if tp == 1 else tp_split_dim(path, x.dim(), kv_sharded)
+            for path, x in leaf_paths(params)]
+
+
+def shard_param(x, dim: Optional[int], rank: int, tp: int):
+    """Model rank ``rank``'s slice of the global leaf ``x`` split on
+    ``dim`` over ``tp`` ranks (a view; ``x`` itself where ``dim`` is
+    None).  Raises unless ``tp`` divides the dimension."""
+    if dim is None:
+        return x
+    if x.shape[dim] % tp:
+        raise ValueError(f"a leaf of shape {tuple(x.shape)} does not split "
+                         f"over {tp} model ranks on dim {dim}")
+    n = x.shape[dim] // tp
+    return x.narrow(dim, rank * n, n)

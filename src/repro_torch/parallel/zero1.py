@@ -17,6 +17,13 @@ the ``stage`` axis: ``taken`` names such dimensions, and `stage_taken`
 gives them per leaf, so the port shards a stage's ``[n/S, ...]`` leaf on
 the same dimension as the reference shards the global ``[n, ...]`` one.
 
+Under tensor parallelism a split leaf's model dimension is taken too
+(`with_splits`): the reference's `zero1_spec` sees it taken by the
+``model`` axis on the global shape, and every other dimension of the
+local slice has its global size, so the port shards a rank's slice on
+the dimension the reference shards the global leaf on, over the HDP
+group of its model rank.
+
 Where the reference lets XLA lay the collectives out, here a leaf sharded on
 a dimension d > 0 is brought into rank-major order block by block (at most
 `_CHUNK` elements a block), never as a copy of the whole leaf: the stacked
@@ -66,6 +73,15 @@ def stage_taken(params, num_stages: int) -> List[tuple]:
             for owned in stage_owned(params)]
 
 
+def with_splits(taken: Sequence[tuple],
+                splits: Optional[Sequence[Optional[int]]]) -> List[tuple]:
+    """Per leaf, ``taken`` plus its model split dimension (``splits``,
+    `parallel/sharding.py::tp_splits`; None: no tensor parallelism)."""
+    if splits is None:
+        return list(taken)
+    return [t + (() if s is None else (s,)) for t, s in zip(taken, splits)]
+
+
 def shard(x: torch.Tensor, dim: int, rank: int, hdp: int) -> torch.Tensor:
     """Rank ``rank``'s shard of ``x`` along ``dim`` (a view)."""
     n = x.shape[dim] // hdp
@@ -79,13 +95,21 @@ def shard_shape(shape: Sequence[int], dim: int, hdp: int) -> tuple:
 def _blocks(shape: Sequence[int], dim: int, hdp: int):
     """A leaf of ``shape`` viewed [P, hdp, M] — P the product of the
     dimensions before ``dim``, M the elements of one rank's share of the
-    rest, so rank r's shard is [:, r, :] — -> (P, M, the (p, column
-    slice) blocks that cover a shard, at most `_CHUNK` elements each)."""
+    rest, so rank r's shard is [:, r, :] — -> (P, M, the (row slice,
+    column slice) blocks that cover a shard, at most `_CHUNK` elements
+    each over the ranks).  A block takes part of one row where M is
+    large and several whole rows where it is small (a leaf sharded on its
+    last dimension, as the vocab-split embedding is), so one collective
+    moves up to `_CHUNK` elements either way."""
     p = math.prod(shape[:dim])
     m = math.prod(shape) // (p * hdp)
     step = max(1, _CHUNK // hdp)
-    return p, m, [(i, slice(j, min(m, j + step))) for i in range(p)
-                  for j in range(0, m, step)]
+    if m >= step:
+        return p, m, [(slice(i, i + 1), slice(j, min(m, j + step)))
+                      for i in range(p) for j in range(0, m, step)]
+    rows = step // m
+    return p, m, [(slice(i, min(p, i + rows)), slice(0, m))
+                  for i in range(0, p, rows)]
 
 
 def reduce_grad(g: torch.Tensor, comm: HdpComm,
@@ -99,25 +123,27 @@ def reduce_grad(g: torch.Tensor, comm: HdpComm,
     p, m, blocks = _blocks(g.shape, dim, comm.size)
     view = g.view(p, comm.size, m)
     out = torch.empty((p, m), dtype=g.dtype, device=g.device)
-    for i, cols in blocks:
-        out[i, cols] = comm.reduce_scatter(view[i, :, cols].contiguous())[0]
+    for rows, cols in blocks:
+        out[rows, cols] = comm.reduce_scatter(
+            view[rows, :, cols].transpose(0, 1).contiguous())[0]
     return out.view(shard_shape(g.shape, dim, comm.size))
 
 
 def _gather_blocks(part: torch.Tensor, shape, dim: int, comm: HdpComm,
                    device=None):
     """Every rank's shard ``part`` (contiguous) of a leaf of ``shape``,
-    block by block -> (i, cols, the block [hdp, cols] on ``device``,
-    ``part``'s by default; a host ``part`` goes over block by block)."""
+    block by block -> (rows, cols, the block [rows, hdp, cols] on
+    ``device``, ``part``'s by default; a host ``part`` goes over block by
+    block)."""
     p, m, blocks = _blocks(shape, dim, comm.size)
     src = part.view(p, m)
     device = part.device if device is None else device
-    for i, cols in blocks:
-        new = torch.empty((comm.size, cols.stop - cols.start),
+    for rows, cols in blocks:
+        mine = src[rows, cols].to(device).reshape(-1)
+        new = torch.empty((comm.size, *src[rows, cols].shape),
                           dtype=part.dtype, device=device)
-        comm.all_gather_into(new.view(-1),
-                             src[i, cols].to(device).contiguous())
-        yield i, cols, new
+        comm.all_gather_into(new.view(-1), mine)
+        yield rows, cols, new.transpose(0, 1)
 
 
 def gather_leaf(out: torch.Tensor, part: torch.Tensor, dim: int,
@@ -127,11 +153,11 @@ def gather_leaf(out: torch.Tensor, part: torch.Tensor, dim: int,
     fp32 over the whole leaf, the same on every rank."""
     view = out.view(math.prod(out.shape[:dim]), comm.size, -1)
     acc = []
-    for i, cols, new in _gather_blocks(part, out.shape, dim, comm):
+    for rows, cols, new in _gather_blocks(part, out.shape, dim, comm):
         if sq:
             acc.append(torch.linalg.vector_norm(
-                new.float() - view[i, :, cols].float()).square())
-        view[i, :, cols] = new
+                new.float() - view[rows, :, cols].float()).square())
+        view[rows, :, cols] = new
     return torch.stack(acc).sum() if sq else None
 
 
@@ -161,9 +187,10 @@ def gather_dim_to_host(part: torch.Tensor, full_shape: Sequence[int],
     view = torch.empty(tuple(full_shape), dtype=part.dtype).view(
         math.prod(full_shape[:dim]), comm.size, -1) \
         if comm.rank == 0 else None
-    for i, cols, new in _gather_blocks(part, full_shape, dim, comm, device):
+    for rows, cols, new in _gather_blocks(part, full_shape, dim, comm,
+                                          device):
         if view is not None:
-            view[i, :, cols] = new
+            view[rows, :, cols] = new
     return None if view is None else view.view(tuple(full_shape)).numpy()
 
 

@@ -106,10 +106,20 @@ def layer_cache_len(cfg: ModelConfig, layer_idx: int, seq_len: int) -> int:
     return seq_len
 
 
+def refuse_tensor_parallel(rt: Runtime) -> None:
+    """Serving runs at tp = 1: tensor-parallel serving waits in ROADMAP
+    queue 1 item 7b-iii."""
+    if rt.tp > 1:
+        raise NotImplementedError(
+            f"serving at tp {rt.tp}: tensor-parallel serving waits in "
+            f"ROADMAP queue 1 item 7b-iii (TP serving)")
+
+
 def layer_shards(cfg: ModelConfig, rt: Runtime, batch: int,
                  seq_len: int) -> dict:
     """{"head_layers": [SlabShard per head layer], "blocks": [SlabShard
     per pattern position]}: this rank's shard of each layer's cache."""
+    refuse_tensor_parallel(rt)
     head_n = head_layer_count(cfg)
 
     def shard(i):
@@ -330,6 +340,8 @@ def make_decode_step(cfg: ModelConfig, rt: Runtime, batch: int,
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig, rt: Runtime):
+    refuse_tensor_parallel(rt)
+
     def prefill_step(params, batch):
         """Packed-buffer forward; returns logits at each sequence's last
         token (batch["last_idx"] [B])."""
@@ -352,6 +364,7 @@ def make_prefill_kv_step(cfg: ModelConfig, rt: Runtime):
     recurrent state, as in the reference."""
     check_supported(cfg)
     require_attention_only(cfg, "prefill KV capture")
+    refuse_tensor_parallel(rt)
     period = len(cfg.layer_pattern)
 
     def prefill_kv(params, batch):

@@ -63,6 +63,21 @@ the save cover every rank of the world: a save gathers ZeRO-1 within
 each HDP group, then each stage's window over the stage group, to world
 rank 0, which writes the reference's global layout.
 
+Under tensor parallelism (``rt.tp_comm``, ``rt.tp > 1``; the dense
+decoders) the world is an hdp × tp grid, world rank h·tp + m
+(`parallel/comm.py::tp_grid`): each rank holds its model rank's slices of
+the split leaves (`init_params(..., model=(m, tp))`), the model ranks of
+one HDP position take the same rows of every wave, rank 0's initial
+weights are broadcast within each model rank's HDP group (never across
+model ranks), and ZeRO-1 shards over the HDP group of each model rank.
+The plan check, the step's numbers and the checkpoint checks span the
+whole grid; a save gathers ZeRO-1 within each HDP group, then the model
+slices over the model group, to world rank 0, which writes the global
+layout, and a restore takes this rank's model slice, then its ZeRO-1
+shard, so a file moves between meshes where the layouts' ``h_pad``
+agree.  Offload and PP at tp > 1 raise `NotImplementedError` (queue 1
+item 7b-iii).
+
 What the port does not run yet raises `NotImplementedError` naming the
 ROADMAP queue item that brings it: the in-place ``resize`` to another
 HDP size and the planner thread with calibration over several ranks
@@ -84,7 +99,7 @@ from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.offload import offload_periods
 from repro_torch.data.loader import GlobalScheduler, WaveMaterializer
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import check_supported, init_params
 from repro_torch.obs import get_metrics, get_recorder, get_tracer
 from repro_torch.obs import ledger as ledger_mod
 from repro_torch.obs.numerics import fingerprints_by_rank
@@ -97,12 +112,22 @@ from repro_torch.parallel.pipeline import (assert_pipeline_ready,
                                            pipeline_schedule_stats,
                                            rounds_splitter,
                                            stage_gather_to_host)
-from repro_torch.parallel.sharding import Runtime
-from repro_torch.parallel.zero1 import (gather_to_host, stage_owned,
-                                        stage_taken, zero1_bytes, zero1_dim)
+from repro_torch.parallel.sharding import Runtime, tp_splits
+from repro_torch.parallel.zero1 import (gather_dim_to_host, gather_to_host,
+                                        stage_owned, stage_taken,
+                                        with_splits, zero1_bytes, zero1_dim)
 from repro_torch.sched.calibrate import OnlineCalibrator, fit_length_of
 from repro_torch.train.train_step import make_accum_steps, zeros_accum
 from repro_torch.tree import leaves, tree_map
+
+
+def check_tp_offload(tp: int, use_offload: bool) -> None:
+    """Tensor parallelism runs without activation offload: TP x offload
+    raises."""
+    if tp > 1 and use_offload:
+        raise NotImplementedError(
+            f"offload under tensor parallelism (tp {tp}) waits in ROADMAP "
+            f"queue 1 item 7b-iii (TP x offload)")
 
 
 @dataclass
@@ -163,6 +188,9 @@ class Trainer:
         self.pipelined = self.rt.num_stages > 1
         if self.pipelined:
             assert_pipeline_ready(cfg, self.rt)
+        tp = self.rt.tp
+        check_supported(cfg, tp)
+        check_tp_offload(tp, tcfg.use_offload)
         self.opt_cfg = opt_cfg
         self.sched = scheduler
         self.tcfg = tcfg
@@ -179,11 +207,18 @@ class Trainer:
         self.loader = WaveMaterializer(scheduler.ds, cfg, tcfg.capacity)
         self.params = params if params is not None else init_params(
             cfg, seed=seed, device=self.rt.device,
-            stage=(self.rt.stage_rank, self.rt.num_stages))
+            stage=(self.rt.stage_rank, self.rt.num_stages),
+            model=(self.rt.model_rank, tp))
         if self.rt.comm is not None:
             for p in leaves(self.params):
                 self.rt.comm.broadcast(p)
-        self._taken = stage_taken(self.params, self.rt.num_stages)
+        # per leaf: its model split dimension (None: replicated), and the
+        # dimensions ZeRO-1 must skip (the stage's and the model's)
+        self._splits = tp_splits(self.params,
+                                 self.rt.layout(cfg).kv_sharded, tp)
+        self._taken = with_splits(stage_taken(self.params,
+                                              self.rt.num_stages),
+                                  self._splits)
         self.opt_state = adamw.init_state(self.params, self.rt.comm,
                                           self._taken)
         self.step = 0
@@ -283,22 +318,25 @@ class Trainer:
     # ------------------------------------------------------------------
     @property
     def _multi(self) -> bool:
-        """More than one rank in the world (HDP ranks or stages)."""
-        return self.rt.hdp_size > 1 or self.pipelined
+        """More than one rank in the world (HDP ranks, stages or model
+        ranks)."""
+        return self.rt.hdp_size > 1 or self.pipelined or self.rt.tp > 1
 
     def _lead(self) -> bool:
         """World rank 0 (or the only rank): the one that writes
         checkpoints."""
         return (self.rt.comm is None or self.rt.comm.rank == 0) \
-            and self.rt.stage_rank == 0
+            and self.rt.stage_rank == 0 and self.rt.model_rank == 0
 
     def _gather_world(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` -> [world, ...], world rank s·hdp + h's at
-        row s·hdp + h (an all-gather over the HDP group, then one over
-        the stage group)."""
-        for comm in (self.rt.comm, self.rt.stage_comm):
+        """Every rank's ``x`` -> [world, ...], world rank s·hdp + h's (or
+        under TP h·tp + m's) at that row (an all-gather over the model
+        group, then one over the HDP group, then one over the stage
+        group)."""
+        shape = x.shape
+        for comm in (self.rt.tp_comm, self.rt.comm, self.rt.stage_comm):
             x = x[None] if comm is None else comm.all_gather(x)
-        return x.reshape(-1, *x.shape[2:])
+        return x.reshape(-1, *shape)
 
     def _all_gather_ints(self, values) -> list:
         """Every rank's ``values`` (a list of ints) -> one row a rank of
@@ -350,7 +388,8 @@ class Trainer:
         t0 = self._clock()
         res = self.ckpt.restore_latest(
             self.params, self.opt_state, comm=self.rt.comm,
-            stage=(self.rt.stage_rank, self.rt.num_stages))
+            stage=(self.rt.stage_rank, self.rt.num_stages),
+            model=(self.rt.model_rank, self.rt.tp, self._splits))
         if self._multi:
             got = [row[0] for row in self._all_gather_ints(
                 [-1 if res is None else res[0]])]
@@ -375,17 +414,31 @@ class Trainer:
         there).  None leaves elsewhere.  Every rank must call it."""
         if not self._multi:
             return self.params, self.opt_state
-        comm, stages = self.rt.comm, self.rt.stage_comm
+        comm, stages, model = self.rt.comm, self.rt.stage_comm, \
+            self.rt.tp_comm
 
-        def global_leaf(x, p, taken, owned, sharded):
+        def global_leaf(x, p, taken, owned, split, sharded):
             """This rank's part of a leaf (its ZeRO-1 shard if ``sharded``,
             else the whole leaf) -> the global leaf at world rank 0.  A
-            stage group's ranks share their HDP position, so all of them
-            or none reach the stage gather."""
+            stage group's (or model group's) ranks share their HDP
+            position, so all of them or none reach the stage (model)
+            gather."""
             if sharded and comm is not None:
                 x = gather_to_host(x, p.shape, comm, taken)
             elif comm is not None and comm.rank != 0:
                 x = None
+            if x is not None and model is not None:
+                if split is None:
+                    x = x if model.rank == 0 else None
+                else:
+                    part = torch.as_tensor(x)
+                    if part.dtype == torch.bfloat16:     # npz has no bf16
+                        part = part.float()
+                    part = part.contiguous()
+                    full = list(p.shape)
+                    full[split] *= model.size
+                    x = gather_dim_to_host(part, full, split, model,
+                                           self.rt.device)
             if x is None or stages is None:
                 return x
             if not owned:
@@ -395,9 +448,10 @@ class Trainer:
             return stage_gather_to_host(x, stages)
 
         def tree(src, sharded):
-            got = iter([global_leaf(x, p, t, o, sharded) for x, p, t, o in
+            got = iter([global_leaf(x, p, t, o, sp, sharded)
+                        for x, p, t, o, sp in
                         zip(leaves(src), leaves(self.params), self._taken,
-                            stage_owned(self.params))])
+                            stage_owned(self.params), self._splits)])
             return tree_map(lambda _: next(got), src)
 
         opt = {"step": self.opt_state["step"],
@@ -491,6 +545,16 @@ class Trainer:
         position's slowest stage) and, with the ledger on, each dispatch's
         fleet bytes and largest peak (`_share`).  At one rank the inputs
         themselves."""
+        if self.rt.tp_comm is not None:
+            # the model ranks of an HDP position computed the same loss
+            # and sent their own heads' ring bytes: model rank 0's losses
+            # and bytes, every rank's slowest seconds and largest peak,
+            # so every calibrator sees the same times
+            lead = self.rt.model_rank == 0
+            losses, seconds, meas = self._share(
+                self.rt.tp_comm, losses if lead else [0.0] * len(losses),
+                seconds, meas if meas is None or lead
+                else [[0.0] * 4 + m[4:] for m in meas], per_rank=False)
         if self.rt.stage_comm is not None:
             losses, seconds, meas = self._share(
                 self.rt.stage_comm, losses, seconds, meas, per_rank=False)
@@ -501,15 +565,18 @@ class Trainer:
 
     def _global_meta(self):
         """The global parameter tree's shapes and dtypes as meta tensors
-        (a stage's stacked windows scaled back to [n_periods, ...])."""
+        (a stage's stacked windows scaled back to [n_periods, ...], a
+        model slice to its whole leaf)."""
         num = self.rt.num_stages
 
-        def meta(p, owned):
-            shape = (p.shape[0] * num, *p.shape[1:]) if owned \
-                else tuple(p.shape)
+        def meta(p, owned, split):
+            shape = [p.shape[0] * num, *p.shape[1:]] if owned \
+                else list(p.shape)
+            if split is not None:
+                shape[split] *= self.rt.tp
             return torch.empty(shape, dtype=p.dtype, device="meta")
-        got = iter([meta(p, o) for p, o in zip(leaves(self.params),
-                                               stage_owned(self.params))])
+        got = iter([meta(p, o, sp) for p, o, sp in zip(
+            leaves(self.params), stage_owned(self.params), self._splits)])
         return tree_map(lambda _: next(got), self.params)
 
     def _ensure_ledger(self, tr) -> Optional[ledger_mod.Ledger]:
@@ -523,7 +590,8 @@ class Trainer:
         if self.ledger is None or self.ledger.hdp != self.sched.hdp:
             self.ledger = ledger_mod.Ledger(
                 self.cfg, capacity=self.tcfg.capacity, hdp=self.sched.hdp,
-                num_stages=self.rt.num_stages,
+                num_stages=self.rt.num_stages, tp=self.rt.tp,
+                kv_sharded=self.rt.layout(self.cfg).kv_sharded,
                 coeffs=self.sched.spec.coeffs,
                 offload_active=self.offload_ok)
             self.ledger.set_step_bytes(zero1_bytes(self._global_meta(),

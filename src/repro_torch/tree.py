@@ -28,3 +28,15 @@ def tree_map(fn: Callable, tree, *rest):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def leaf_paths(tree, prefix=()) -> List[tuple]:
+    """(path, leaf) pairs in `leaves` order: the path holds the dict keys
+    and the list positions (as strings) from the root."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in leaf_paths(v, prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in leaf_paths(v, prefix + (str(i),))]
+    return [(prefix, tree)]

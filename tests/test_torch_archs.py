@@ -69,6 +69,8 @@ from test_torch_flash import _cuda_inputs, _inputs
 from test_torch_kernels_bwd import GRAD_TOL, _bwd_inputs, _cuda_bwd_case
 from test_torch_kernels_bwd import _rel_l2
 from test_torch_train import _port_history
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ("gemma2-9b", "gemma3-12b")
@@ -557,8 +559,7 @@ def hdp2_procs(tmp_path_factory):
     module starts, so they run beside the in-process cases -> (out dir,
     processes, logs); stops them at the module's end."""
     out = tmp_path_factory.mktemp("archs")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
+    env = subprocess_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     procs, logs = {}, {}
     for part, cmd in (
             ("history", [sys.executable, "-c", HISTORY_SCRIPT, str(out)]),

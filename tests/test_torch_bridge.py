@@ -14,6 +14,7 @@ from repro.configs.registry import get_config as jax_config
 from repro.models.transformer import init_params as jax_init_params
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -51,6 +52,8 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the tensor-parallel layers among them
+    assert ROOT / "src" / "repro_torch" / "parallel" / "tensor.py" in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -2,6 +2,7 @@
 source, the headers and the flags, and the ptxas report that
 `chip_smoke.py` prints and gates on."""
 from repro_torch.kernels import build
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PTXAS = """\
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi128ELi64EEEvPK13__nv_bfloat16S3_S3_PKiS5_S5_S5_S3_PKfS3_PS1_PfiiifiifE' for 'sm_90a'

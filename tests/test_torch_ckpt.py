@@ -47,6 +47,7 @@ from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import tree_map
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "llama3.2-3b"
 F32_TOL = 1e-4                  # tests/test_torch_train.py

@@ -10,6 +10,7 @@ from repro.kernels import flash_attention as JFA
 from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ref
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NEG_INF = -1.0e30
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}      # tests/test_kernels.py

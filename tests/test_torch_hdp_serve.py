@@ -47,6 +47,8 @@ from repro_torch.launch import profile_serve
 from repro_torch.parallel.comm import ThreadRanks
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.train import serve_step as S
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 F32_TOL = 1e-4                  # tests/test_torch_serve.py
@@ -143,8 +145,7 @@ def results(tmp_path_factory):
     launcher together; -> (reference results, per-rank gloo results, the
     launcher's stdout)."""
     out = tmp_path_factory.mktemp("hdp_serve")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
+    env = subprocess_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     dec = json.dumps({**DEC, "softcaps": list(SOFTCAPS)})
     procs, logs = {}, {}
     for part, cmd in (

@@ -66,6 +66,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.launch import train as launch_train
 from repro_torch.obs import ledger
 from repro_torch.parallel import zero1
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 RUNS = W.IMPLS + W.OFF_RUNS     # the port's runs held to the reference
@@ -216,8 +218,7 @@ def results(out_dir):
     the launcher (2 gloo ranks, checkpointing) together; -> (reference
     results, per-rank port results, the launcher's stdout)."""
     out = out_dir
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
+    env = subprocess_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     procs, logs = {}, {}
     for part, cmd in (
             ("jax", [sys.executable, "-c", JAX_SCRIPT, str(out)]),
@@ -567,9 +568,15 @@ def test_launcher_checkpoints_and_resumes_at_another_mesh(results, out_dir,
 
 
 def test_launcher_refuses_tensor_parallelism():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        launch_train.main(["--arch", "llama3.2-3b", "--reduced", "--mesh",
+    """``--mesh 2x2`` trains the dense decoders (`tests/test_torch_tp.py`);
+    what tensor parallelism does not run yet raises: an MoE architecture
+    (queue 1 item 7b-ii) and pipeline stages (TP x PP, item 7b)."""
+    with pytest.raises(NotImplementedError, match="item 7b-ii"):
+        launch_train.main(["--arch", "mistral-8x7b", "--reduced", "--mesh",
                            "2x2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        launch_train.main(["--arch", "llama3.2-3b", "--reduced", "--mesh",
+                           "2x2", "--num-stages", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="NxM"):
         launch_train.main(["--arch", "llama3.2-3b", "--mesh", "four"])
 

@@ -19,6 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ring_flash as RF
 
 from test_torch_flash import MASKS, SHAPES, _cuda_inputs, _inputs
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}    # tests/test_kernels.py:70
 CE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}      # tests/test_kernels.py:82

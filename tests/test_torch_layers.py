@@ -9,6 +9,7 @@ from repro.configs.registry import get_config as jax_config
 from repro.models import layers as JL
 from repro_torch.configs.registry import get_config
 from repro_torch.models import layers as L
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-6
 

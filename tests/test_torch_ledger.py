@@ -39,6 +39,8 @@ from repro_torch.obs import ledger
 from repro_torch.optim import adamw
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 NAMES = ("llama3.2-3b", "llama-7b", "llama3.2-3b-reduced")
@@ -121,7 +123,7 @@ def gloo_ledger(tmp_path_factory):
     r = subprocess.run(
         [sys.executable, str(ROOT / "tests" / "_torch_hdp_train_worker.py"),
          "--ledger", str(out)], cwd=ROOT, capture_output=True, text=True,
-        timeout=600, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        timeout=600, env=subprocess_env(PYTHONPATH=str(ROOT / "src")))
     assert r.returncode == 0, r.stderr[-4000:]
     return [dict(np.load(out / f"ledger_rank{k}.npz")) for k in range(W.R)]
 

@@ -73,6 +73,8 @@ from repro_torch.parallel.sharding import Runtime
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.train import serve_step as S
 from test_torch_train import _port_history
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = (W.ARCH, "qwen3-moe-30b-a3b")
@@ -677,8 +679,7 @@ def procs(tmp_path_factory):
     ranks together when the module starts -> (out dir, processes, logs);
     stops them at the module's end."""
     out = tmp_path_factory.mktemp("mla")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
+    env = subprocess_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     running, logs = {}, {}
     for part, cmd in (
             ("history", [sys.executable, "-c", HISTORY_SCRIPT, str(out)]),

@@ -45,6 +45,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
 from repro_torch.parallel.comm import ThreadRanks
 from repro_torch.parallel.sharding import Runtime
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "mistral-8x7b"
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}      # tests/test_kernels.py:41

@@ -47,6 +47,7 @@ from repro_torch.parallel.sharding import Runtime
 from repro_torch.train import train_step as S
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "llama3.2-3b"
 LAYERS = 4

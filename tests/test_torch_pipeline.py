@@ -74,6 +74,8 @@ from repro_torch.obs import ledger
 from repro_torch.parallel import pipeline as PP
 from repro_torch.parallel import zero1
 from repro_torch.tree import leaves, tree_map
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 F32_TOL = 1e-4                  # tests/test_torch_train.py
@@ -166,8 +168,7 @@ def results(tmp_path_factory):
     the launcher (2 gloo ranks) together; -> (reference results, per-rank
     port results, the launcher's stdout, the output directory)."""
     out = tmp_path_factory.mktemp("pipeline")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
+    env = subprocess_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     procs, logs = {}, {}
     for part, cmd in (
             ("jax", [sys.executable, "-c", JAX_SCRIPT, str(out)]),

@@ -13,6 +13,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.planner import PlanSpec
 from repro_torch.data.loader import WaveMaterializer
 from repro_torch.sched.service import SchedulerService
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POOLS = [
     [3000, 1800, 900, 400, 200, 120, 64, 33],

@@ -39,6 +39,8 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ring_flash as RF
 from repro_torch.parallel.comm import ThreadRanks
 from repro_torch.parallel.sharding import Runtime
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT_TOL, GRAD_TOL, LOSS_TOL = 2e-5, 3e-4, 1e-3    # test_ring_flash.py:40-43
@@ -137,8 +139,7 @@ def results(tmp_path_factory):
     out = tmp_path_factory.mktemp("ring")
     inp = W.make_inputs()
     np.savez(out / "inputs.npz", **inp)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
-           "JAX_PLATFORMS": "cpu"}
+    env = subprocess_env(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     jax_cmd = [sys.executable, "-c", JAX_SCRIPT, str(out / "inputs.npz"),
                str(out)]
     procs, logs = {}, {}

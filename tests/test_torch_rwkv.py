@@ -74,6 +74,8 @@ from repro_torch.parallel.sharding import Runtime
 from repro_torch.train import serve_step as S
 from repro_torch.train.train_step import loss_fn as port_loss_fn
 from repro_torch.tree import leaves, tree_map
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from _torch_threads import subprocess_env
 
 ROOT = Path(__file__).resolve().parents[1]
 SSM_TOL = 2e-4                  # tests/test_ssm.py
@@ -151,7 +153,7 @@ def _jcfg(dtype="float32"):
 
 
 def _env():
-    env = dict(os.environ)
+    env = subprocess_env()
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), str(ROOT / "tests"), env.get("PYTHONPATH", "")])
     env["JAX_PLATFORMS"] = "cpu"

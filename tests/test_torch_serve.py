@@ -20,6 +20,7 @@ from repro_torch.models import transformer as T
 from repro_torch.parallel.sharding import Runtime
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.train import serve_step as S
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "llama3.2-3b"
 F32_TOL = 1e-4

@@ -10,6 +10,7 @@ import torch
 from repro.core import ring as jring
 from repro_torch.core import ring
 from repro_torch.core.attention import attention_mask
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TILE = 64
 

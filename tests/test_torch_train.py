@@ -35,6 +35,7 @@ from repro_torch.parallel.sharding import Runtime
 from repro_torch.train import train_step as S
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "llama3.2-3b"
 MOE_ARCH = "mistral-8x7b"
@@ -360,11 +361,12 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1"])
     rt = Runtime(device="cpu")
-    # pipeline parallelism is ported (tests/test_torch_pipeline.py);
-    # tensor parallelism is not
+    # pipeline parallelism is ported (tests/test_torch_pipeline.py), and
+    # tensor parallelism for the dense decoders (tests/test_torch_tp.py);
+    # an MoE model at tp > 1 is not
     from repro_torch.launch import train as launch_train
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1",
+        launch_train.main(["--arch", MOE_ARCH, "--reduced", "--steps", "1",
                            "--device", "cpu", "--mesh", "1x2"])
     # checkpointing is ported: ckpt_dir saves at the end of run, and a
     # fresh Trainer resumes there with the same parameters and state
