@@ -85,7 +85,7 @@ Phases (any failure raises and exits non-zero before the result line):
    of the hdp = 1 forward of the same tokens, with 28 x (1 + live
    visiting blocks) carry launches.
 7. hdp_train — the multi-rank `Trainer` under ZeRO-1 at hdp = 4:
-   llama3.2-3b at full width cut to 2 layers (random weights from seed
+   llama3.2-3b at full width cut to 1 layer (random weights from seed
    0), the planner's hdp = 4 steps 0 and 1 (as phase 6: github, context
    16384, 65536 tokens a step, capacity 4096, balance; step 1 holds the
    (4,), (1, 1, 1, 1), (2, 2) and (1, 2, 1) waves), calibration off.  Four
@@ -149,8 +149,8 @@ Phases (any failure raises and exits non-zero before the result line):
    per wave by composition, decode ms per wave and TTFT at hdp = 4 and 1,
    the card's peak with the four ranks and the slab bytes.
 10. ckpt    — checkpoint and resume (`ckpt/checkpoint.py`, the
-   reference's format) at llama3.2-3b's width cut to 2 layers (seed 0):
-   arrays.npz of 595.3 M parameters x 16 bytes (9.52 GB), under the
+   reference's format) at llama3.2-3b's width cut to 1 layer (seed 0):
+   arrays.npz of 494.7 M parameters x 16 bytes (7.91 GB), under the
    checkout's build/ (free space checked first, directories deleted
    after).  (a) hdp = 1, phase 5's data, calibration off: Trainer A
    (``ckpt_every=2``) runs 3 steps, writing steps 2 and 3; one byte in
@@ -301,8 +301,9 @@ Phases (any failure raises and exits non-zero before the result line):
    0 and one CE forward a rank; prints the state exchange's bytes a
    layer.  (d) Both CE kernels against their plain versions at [4096,
    65536] bf16 (phase 3's tolerances).
-16. tp — tensor parallelism (`parallel/tensor.py`, the Trainer on an
-   hdp x tp grid).  (a) llama3.2-3b at full width cut to 2 layers (seed
+16. tp — tensor and expert parallelism (`parallel/tensor.py`,
+   `models/moe.py`, the Trainer on an hdp x tp grid).  (a) llama3.2-3b
+   at full width cut to 1 layer (seed
    0) on a 2 x 2 grid: four processes share the card as in phase 7, a
    gloo world split by `parallel/comm.py::tp_grid` (world rank h·2 + m)
    into HDP and model groups of `HostStagedComm`; phase 7's data at hdp
@@ -317,18 +318,30 @@ Phases (any failure raises and exits non-zero before the result line):
    group after the apply, applied == 1.  Then the model-rank-0 processes
    train the same step at 2 x 1 from the same seed (not counted): the
    same plan, the step's and every wave's loss and the grad norm within
-   1e-3 relative.  (b) The TP-local kernel shapes against their plain
-   versions (phase 3's 2e-2; not counted), forward and backward through
-   `ring_attention` over 4096 tokens: model rank 1 of 2 (12 heads over
-   its 4 KV heads, the kernels at (G, Hg) = (4, 3)), and the gather mode
-   (KV replicated over the model group; full-width llama takes it at tp
-   16): model rank 5 of 16 (2 of the 32 padded heads over the replicated
-   [4096, 8, 128] KV, G = 2, Hg = 1 in the kernels).  Both CE kernels at
-   [4096, 64128] as model rank 1 of 2 runs them: labels shifted by the
-   shard's first column, two thirds of them outside the shard (tgt
-   exactly -1e30 there, onehot 0 in the backward), the backward from a
-   global lse above the local one.  Prints the card, losses beside 2 x
-   1, peaks and step walls per rank.
+   1e-3 relative.  (c) In the same four processes after (a):
+   Mistral-8x7B at full width (d 4096, 32/8 heads, 8 experts of 14336,
+   vocab 32000) cut to 1 layer (1.713 G parameters), one step at 2 x 2
+   with expert parallelism (each model rank 4 experts; the kernels at
+   (G, Hg) = (4, 4), the CE over 16000 columns), held as (a) to 2 x 1
+   from the same seed (the 2 x 2 Trainers freed first); besides (a)'s
+   gates every MoE call's top-k indices (forward and recompute)
+   identical across the model group.  (b) The TP-local kernel shapes
+   against their plain versions (phase 3's 2e-2; not counted), forward
+   and backward through `ring_attention`: model rank 1 of 2 of
+   llama3.2-3b (12 heads over its 4 KV heads, (G, Hg) = (4, 3)),
+   qwen3-moe-30b-a3b ((2, 8)) and gemma2-9b ((4, 2) at head dim 256,
+   T 8192, window 4096, softcap 50), deepseek-v2-lite-16b's (576, 512)
+   gather mode (8 heads over the one latent, G 8, Hg 1; the latent's
+   gradient, a sum over the 8 heads, held in relative L2 and element-wise
+   no worse than twice the bf16 plain route's error against float32),
+   and llama's gather mode at tp 16 (KV replicated: model rank 5's 2 of
+   the 32 padded heads over the [4096, 8, 128] KV, G 2, Hg 1).  Both CE
+   kernels as model rank 1 of 2 runs them, at [4096, 64128] (llama) and
+   [4096, 16000] (Mistral's shard, no multiple of 2048): labels shifted
+   by the shard's first column, two thirds of them outside the shard
+   (tgt exactly -1e30 there, onehot 0 in the backward), the backward
+   from a global lse above the local one.  Prints the card, losses
+   beside 2 x 1, peaks and step walls per rank.
 17. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
@@ -1388,7 +1401,7 @@ def phase_ring(torch, card):
 # 7. hdp_train
 # ---------------------------------------------------------------------------
 
-HDP_LAYERS = 2                  # phase 7: llama3.2-3b's width, 2 layers
+HDP_LAYERS = 1                  # phase 7: llama3.2-3b's width, 1 layer
 HDP_STEPS = 2
 HDP_TOKENS, HDP_CONTEXT = 65536, 16384   # a step, as phase 6's planner
 HDP_COMPS = [(4,), (1, 1, 1, 1), (2, 2), (1, 2, 1)]   # step 1 holds them
@@ -2210,7 +2223,7 @@ def phase_hdp_serve(torch, card):
 # 10. ckpt
 # ---------------------------------------------------------------------------
 
-CKPT_LAYERS = 2                 # (a): llama3.2-3b's width, 2 layers
+CKPT_LAYERS = 1                 # (a): llama3.2-3b's width, 1 layer
 CKPT_HDP_TOL = 1e-3             # (b): hdp = 1 against hdp = 4, relative
                                 # (the ring's loss hold,
                                 # tests/test_ring_flash.py)
@@ -2522,13 +2535,13 @@ def moe_drop_counter(torch):
         finally:
             local.seg = None
 
-    def counted(params, cfg, x, gates, idx, pos, cap):
+    def counted(params, cfg, x, gates, idx, pos, cap, *tp):
         dropped = pos >= cap
         seg = getattr(local, "seg", None)
         if seg is not None:
             dropped &= (seg > 0).repeat_interleave(cfg.moe.top_k)
         total.add_(dropped.sum())
-        return experts(params, cfg, x, gates, idx, pos, cap)
+        return experts(params, cfg, x, gates, idx, pos, cap, *tp)
 
     M.moe_experts, T.block_forward = counted, block_forward
     try:
@@ -2565,13 +2578,13 @@ def moe_routes(torch, record=None, replay=None):
             record.append(idx)
         return gates, idx
 
-    def fixed(params, cfg, x, gates, idx, pos, cap):
+    def fixed(params, cfg, x, gates, idx, pos, cap, *tp):
         if kept:
             n = x.shape[0]
             pos = torch.where(kept.pop(0),
                               M.moe_positions(idx, cfg.moe.num_experts), n)
             cap = n
-        return experts(params, cfg, x, gates, idx, pos, cap)
+        return experts(params, cfg, x, gates, idx, pos, cap, *tp)
 
     M.moe_route, M.moe_experts = routed, fixed
     try:
@@ -2694,13 +2707,13 @@ def moe_record(torch, routes: dict, calls: list):
         finally:
             local.rows = None
 
-    def recorded(params, cfg, x, gates, idx, pos, cap):
+    def recorded(params, cfg, x, gates, idx, pos, cap, *tp):
         keep = (pos < cap).view(idx.shape).cpu()
         calls.append((local.rank, local.kind, idx.cpu(), keep))
         for key, i, kp in zip(local.rows, idx.tolist(), keep.tolist()):
             if key is not None:
                 routes.setdefault(key, []).append((i, kp))
-        return experts(params, cfg, x, gates, idx, pos, cap)
+        return experts(params, cfg, x, gates, idx, pos, cap, *tp)
 
     @contextlib.contextmanager
     def during(eng, rids):
@@ -4083,18 +4096,34 @@ def phase_rwkv(torch, card):
 # ---------------------------------------------------------------------------
 
 TP_HDP, TP_TP = 2, 2            # phase 16 (a): an hdp x tp grid on one card
-TP_LAYERS, TP_STEPS = 2, 1
-TP_LOCAL = ((2, 1), (16, 5))    # (b): (tp, model rank); llama3.2-3b at tp
-                                # 2 shards its 8 KV heads, at tp 16
-                                # replicates them (rank 5: 2 of 32 padded
-                                # heads)
+TP_LAYERS, TP_STEPS = 1, 1
+EP_LAYERS = 1                   # (c): Mistral-8x7B at full width
+# (b): the local attention shapes (model, tp, model rank, q heads, KV
+# heads, (Dk, Dv), T, segment lengths, window, softcap).  llama3.2-3b at
+# tp 2 shards its 8 KV heads, at tp 16 replicates them (rank 5: 2 of 32
+# padded heads); (576, 512) is deepseek's latent in gather mode (each of
+# the rank's 8 heads over the one latent, v its first 512 columns)
+TP_ATTN = [
+    ("llama3.2-3b", 2, 1, 24, 8, (128, 128), 4096, SLICE_LENS, 0, 0.0),
+    ("llama3.2-3b", 16, 5, 24, 8, (128, 128), 4096, SLICE_LENS, 0, 0.0),
+    ("qwen3-moe-30b-a3b", 2, 1, 32, 4, (128, 128), 4096, SLICE_LENS, 0,
+     0.0),
+    ("deepseek-v2-lite-16b", 2, 1, 16, 1, (576, 512), 4096, SLICE_LENS, 0,
+     0.0),
+    ("gemma2-9b", 2, 1, 16, 8, (256, 256), 8192, [6000, 2000, 150], 4096,
+     50.0),
+]
+# (b): both CE kernels on model rank 1 of 2's vocabulary shard:
+# llama3.2-3b's 64128 columns and Mistral-8x7B's 16000 (no multiple of
+# 2048)
+TP_CE = [("llama3.2-3b", 128256 // 2), ("mistral-8x7b", 32000 // 2)]
 
 
 def tp_rank(rank: int, store: str):
-    """One rank of phase 16 (a), a process of its own on the one card
-    (world rank 0 is this script's process): a gloo world of 4 through
-    `HostStagedComm`, split into HDP x model groups by `tp_grid` (world
-    rank h·2 + m).  Returns world rank 0's results."""
+    """One rank of phase 16 (a) and (c), a process of its own on the one
+    card (world rank 0 is this script's process): a gloo world of 4
+    through `HostStagedComm`, split into HDP x model groups by `tp_grid`
+    (world rank h·2 + m).  Returns world rank 0's results of both."""
     import datetime
     if str(SRC) not in sys.path:
         sys.path.insert(0, str(SRC))
@@ -4110,15 +4139,26 @@ def tp_rank(rank: int, store: str):
         "gloo", init_method=f"file://{store}", world_size=TP_HDP * TP_TP,
         rank=rank, timeout=datetime.timedelta(seconds=HDP_TIMEOUT_S))
     try:
-        return tp_train_rank(torch, *tp_grid(TP_HDP, TP_TP, HostStagedComm))
+        grid = tp_grid(TP_HDP, TP_TP, HostStagedComm)
+        a = tp_train_rank(torch, *grid)
+        c = tp_train_rank(torch, *grid, cfg=ep_config())
+        return None if a is None else (a, c)
     finally:
         faulthandler.cancel_dump_traceback_later()
         dist.destroy_process_group()
 
 
+def ep_config():
+    """Phase 16 (c)'s model: Mistral-8x7B at full width cut to
+    `EP_LAYERS` (1.713 G parameters at one layer)."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("mistral-8x7b"),
+                               num_layers=EP_LAYERS)
+
+
 def tp_trainer(cfg, comm, tp_comm):
-    """The port's `Trainer` of ``cfg`` (seed 0) on phase 7's data at hdp
-    2, recording its plans in ``.plans``."""
+    """The port's `Trainer` of ``cfg`` (seed 0) on phase 7's data at
+    hdp 2, recording its plans in ``.plans``."""
     from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
     from repro_torch.launch import ring_check as RC
     from repro_torch.optim.adamw import AdamWConfig
@@ -4147,11 +4187,13 @@ def tp_train_rank(torch, comm, tp_comm, cfg=None):
     """Phase 16 (a) on one rank: `TP_STEPS` steps of the 2 x 2 grid
     (counted), then on model rank 0 of each HDP position the same steps
     at 2 x 1 from the same seed (not counted).  ``cfg`` defaults to
-    llama3.2-3b cut to `TP_LAYERS`.  Returns world rank 0's numbers (None
-    elsewhere)."""
+    llama3.2-3b cut to `TP_LAYERS`.  With an MoE ``cfg`` (phase 16 (c))
+    every MoE call's top-k indices are recorded and held across the
+    model group.  Returns world rank 0's numbers (None elsewhere)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_ce as CE
+    from repro_torch.models import moe as M
     from repro_torch.tree import leaves
 
     if cfg is None:
@@ -4174,7 +4216,16 @@ def tp_train_rank(torch, comm, tp_comm, cfg=None):
         x = comm.all_gather(tp_comm.all_gather(x))
         return x.reshape(-1, *x.shape[2:])
 
+    topk = []               # every MoE call's top-k indices, this rank
+    route = M.moe_route
+
+    def routed(params, c, x):
+        gates, idx = route(params, c, x)
+        topk.append(idx.reshape(-1).clone())
+        return gates, idx
+
     FA._launch, CE._launch = fa_rec, ce_rec
+    M.moe_route = routed
     lead = comm.rank == 0 and tp_comm.rank == 0
     t0 = time.perf_counter()
     tr = tp_trainer(cfg, comm, tp_comm)
@@ -4193,9 +4244,21 @@ def tp_train_rank(torch, comm, tp_comm, cfg=None):
             applied.append(tr.last_numerics["applied"])
         torch.cuda.synchronize()
         counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
     finally:
         FA._launch, CE._launch = fa_launch, ce_launch
+        M.moe_route = route
         tr.sched.stop()
+    # every MoE call's top-k indices (forward and recompute) alike over
+    # the model group
+    same_topk = 1.0
+    if cfg.moe is not None:
+        mine_idx = torch.cat(topk) if topk else torch.zeros(
+            0, dtype=torch.int64, device=DEVICE)
+        g = tp_comm.all_gather(mine_idx)
+        same_topk = float(len(topk) > 0 and all(torch.equal(g[0], x)
+                                                for x in g))
+    del topk
     # the replicated leaves across the model group, every leaf across the
     # HDP group: bit-identical
     same_model = same_hdp = True
@@ -4211,8 +4274,8 @@ def tp_train_rank(torch, comm, tp_comm, cfg=None):
                    ("ce", cfg.vocab_size // TP_TP)}
     names = [n for n, *_ in KERNELS]
     mine = [counts[n] for n in names] + [
-        torch.cuda.max_memory_allocated() / 1e9, float(same_model),
-        float(same_hdp), float(shapes == want_shapes)] + \
+        peak, float(same_model), float(same_hdp),
+        float(shapes == want_shapes), same_topk] + \
         [r["wall_s"] for r in recs] + applied
     got = grid_gather(torch.tensor(mine, dtype=torch.float64,
                                    device=DEVICE)).cpu().numpy()
@@ -4225,6 +4288,7 @@ def tp_train_rank(torch, comm, tp_comm, cfg=None):
     # the control: 2 x 1 on model rank 0's HDP group, the same seed
     ctl = None
     if tp_comm.rank == 0:
+        torch.cuda.reset_peak_memory_stats()
         tr1 = tp_trainer(cfg, comm, None)
         try:
             ctl = [(tr1.train_step(), list(tr1.last_numerics["wave_losses"]))
@@ -4235,6 +4299,9 @@ def tp_train_rank(torch, comm, tp_comm, cfg=None):
             tr1.sched.stop()
         del tr1
         torch.cuda.empty_cache()
+        peaks21 = comm.all_gather(torch.tensor(
+            [torch.cuda.max_memory_allocated() / 1e9], dtype=torch.float64,
+            device=DEVICE)).reshape(-1).tolist()
     if not lead:
         return None
     k, s = len(names), TP_STEPS
@@ -4253,16 +4320,19 @@ def tp_train_rank(torch, comm, tp_comm, cfg=None):
                                        range(TP_HDP * TP_TP)]
                                    for n, w in want.items()},
         "peak_mem_gb_per_rank": got[:, k].tolist(),
+        "peak_mem_gb_2x1_per_rank": peaks21,
         "replicated_same_across_model_group": got[:, k + 1].tolist(),
         "same_across_hdp_group": got[:, k + 2].tolist(),
         "kernel_shapes_local": got[:, k + 3].tolist(),
         "kernel_shapes_rank0": sorted(map(str, shapes)),
-        "step_wall_s_per_rank": got[:, k + 4:k + 4 + s].tolist(),
-        "applied": got[:, k + 4 + s:].tolist()}
+        "topk_same_across_model_group": got[:, k + 4].tolist(),
+        "step_wall_s_per_rank": got[:, k + 5:k + 5 + s].tolist(),
+        "applied": got[:, k + 5 + s:].tolist()}
 
 
 def tp_gates(res) -> list:
-    """Phase 16 (a)'s gates on world rank 0's numbers -> what failed."""
+    """Phase 16 (a)'s and (c)'s gates on world rank 0's numbers -> what
+    failed."""
     import numpy as np
     fails = []
     if res["compositions"] != res["compositions_2x1"]:
@@ -4286,7 +4356,8 @@ def tp_gates(res) -> list:
             fails.append(f"{name} launches per rank "
                          f"{res['launches_per_rank'][name]}, want {want}")
     for key in ("replicated_same_across_model_group",
-                "same_across_hdp_group", "kernel_shapes_local"):
+                "same_across_hdp_group", "kernel_shapes_local",
+                "topk_same_across_model_group"):
         if np.any(np.asarray(res[key]) != 1):
             fails.append(f"{key} {res[key]} (rank 0's kernel shapes "
                          f"{res['kernel_shapes_rank0']})")
@@ -4295,67 +4366,101 @@ def tp_gates(res) -> list:
     return fails
 
 
-def tp_attention_case(torch, card, tp, m) -> list:
-    """Phase 16 (b): model rank ``m`` of ``tp``'s attention at llama3.2-3b's
-    head shape, forward and backward through `ring_attention` at
-    composition (1,) on bf16 inputs, against the plain route: its h_pad/tp
-    heads over its KV groups (sharded KV) or over its KV groups' rows of
-    the replicated [T, 8, 128] KV (the gather mode) -> what failed."""
+def tp_attention_case(torch, card, case) -> list:
+    """Phase 16 (b): one of `TP_ATTN`'s model ranks' attention, forward and
+    backward through `ring_attention` at composition (1,) on bf16 inputs,
+    against the plain route: its h_pad/tp heads over its KV groups
+    (sharded KV), over its KV groups' rows of the replicated KV, or (Dk !=
+    Dv) over the one MLA latent, v its first Dv columns (the gather
+    modes) -> what failed."""
     import numpy as np
     from repro_torch.core import ring
     from repro_torch.models.layers import gqa_layout
-    lay = gqa_layout(24, 8, tp)
-    hpl = lay.h_pad // tp
-    g = 8 // tp if lay.kv_sharded else 8
-    kgi = None if lay.kv_sharded else \
-        lay.group_of_head(DEVICE)[m * hpl:(m + 1) * hpl]
-    t = 4096
+    arch, tp, m, heads, kvh, (dk, dv), t, lens, window, softcap = case
+    latent = dk != dv
+    if latent:
+        hpl, g, kv_sharded = heads // tp, 1, False
+        kgi = torch.zeros(hpl, dtype=torch.int64, device=DEVICE)
+        scale = 192 ** -0.5          # 1/sqrt(qk_nope 128 + qk_rope 64)
+    else:
+        lay = gqa_layout(heads, kvh, tp)
+        hpl, kv_sharded = lay.h_pad // tp, lay.kv_sharded
+        g = kvh // tp if kv_sharded else kvh
+        kgi = None if kv_sharded else \
+            lay.group_of_head(DEVICE)[m * hpl:(m + 1) * hpl]
+        scale = dk ** -0.5
     rng = np.random.RandomState(16)
-    seg_np, pos_np = packed_meta(rng, t, SLICE_LENS)
+    seg_np, pos_np = packed_meta(rng, t, lens)
     seg = torch.tensor(seg_np, device=DEVICE)
     pos = torch.tensor(pos_np, device=DEVICE)
 
     def bf16(*shape):
         return torch.tensor(rng.randn(*shape), dtype=torch.bfloat16,
                             device=DEVICE)
-    q, k, v, do = bf16(t, hpl, 128), bf16(t, g, 128), bf16(t, g, 128), \
-        bf16(t, hpl, 128)
+    ins = [bf16(t, hpl, dk), bf16(t, g, dk)] + \
+        ([] if latent else [bf16(t, g, dv)])
+    do = bf16(t, hpl, dv)
     outs = {}
-    for impl in ("flash", "ref"):
-        x = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    # the latent's gradient sums the rank's heads' dk and dv, so its
+    # elements cancel: it is also held against the float32 plain route
+    for impl, dt in (("flash", None), ("ref", None)) + (
+            (("ref", torch.float32),) if latent else ()):
+        x = [a.detach().to(dt or a.dtype).requires_grad_(True)
+             for a in ins]
         out = ring.ring_attention(
-            *x, seg, seg, pos, pos, composition=(1,),
-            kv_sharded=lay.kv_sharded, kv_group_of_head=kgi,
-            scale=128 ** -0.5, attn_impl=impl)
-        outs[impl] = (out.detach(), *torch.autograd.grad(out, x, do))
+            x[0], x[1], None if latent else x[2], seg, seg, pos, pos,
+            composition=(1,), kv_sharded=kv_sharded, kv_group_of_head=kgi,
+            scale=scale, window=window, softcap=softcap, attn_impl=impl,
+            v_in_k=(0, dv) if latent else None)
+        outs[impl if dt is None else "f32"] = (
+            out.detach(), *torch.autograd.grad(out, x, do.to(out.dtype)))
     torch.cuda.synchronize()
     fails = []
     errs = {}
-    for name, got, want in zip(("out", "dq", "dk", "dv"), outs["flash"],
-                               outs["ref"]):
+    names = ("out", "dq", "dlatent") if latent else ("out", "dq", "dk",
+                                                      "dv")
+    for i, (name, got, want) in enumerate(zip(names, outs["flash"],
+                                              outs["ref"])):
+        what = f"phase 16 (b) {arch} tp {tp} {name}"
         try:
-            errs[name] = hold(torch, f"phase 16 (b) tp {tp} {name}", got,
-                              want)
+            if name != "dlatent":
+                errs[name] = hold(torch, what, got, want)
+                continue
+            # relative L2 against the plain route, and element-wise no
+            # worse than twice the bf16 plain route's own error against
+            # float32
+            f32 = outs["f32"][i]
+            err = (got.float() - want.float()).abs().max().item()
+            kern = (got.float() - f32).abs().max().item()
+            plain = (want.float() - f32).abs().max().item()
+            errs[name] = (err, rel_l2(got, want), kern, plain)
+            if not (rel_l2(got, want) <= TOL and kern <= 2 * plain):
+                raise AssertionError(
+                    f"{what}: relative L2 {rel_l2(got, want)}, max abs "
+                    f"error against float32 {kern} (the bf16 plain "
+                    f"route's {plain})")
         except AssertionError as e:
             fails.append(str(e))
-    log(f"[tp] (b) {card}: model rank {m} of {tp}: heads {hpl} of "
-        f"{lay.h_pad}, KV groups {g}, kv_sharded {lay.kv_sharded}"
+    log(f"[tp] (b) {card}: {arch} model rank {m} of {tp}: heads {hpl}, KV "
+        f"groups {g}, kv_sharded {kv_sharded}"
         f"{'' if kgi is None else f', gathered groups {kgi.tolist()}'}, "
-        f"T {t}; (max abs err, rel L2) against the plain route "
+        f"(Dk, Dv) ({dk}, {dv}), T {t}, window {window}, softcap "
+        f"{softcap}; (max abs err, rel L2) against the plain route "
+        f"{'(dlatent also: max abs err of the kernels, of the bf16 plain '
+           'route, against float32) ' if latent else ''}"
         f"{json.dumps(errs)}")
     return fails
 
 
-def tp_ce_case(torch, card) -> list:
+def tp_ce_case(torch, card, arch, v) -> list:
     """Phase 16 (b): both CE kernels on model rank 1 of 2's vocabulary
-    shard of llama3.2-3b, [4096, 64128] bf16, the global labels shifted by
-    the shard's first column (two thirds fall outside it, the shard's
-    first and last columns among those inside), the backward from a global
-    lse above the local one, against their plain versions -> what
-    failed."""
+    shard of ``arch``, [4096, v] bf16, the global labels shifted by the
+    shard's first column (two thirds fall outside it, the shard's first
+    and last columns among those inside), the backward from a global lse
+    above the local one, against their plain versions -> what failed."""
     import numpy as np
     from repro_torch.kernels import fused_ce as CE
-    t, v, m = 4096, 128256 // 2, 1
+    t, m = 4096, 1
     rng = np.random.RandomState(17)
     # drawn on the card: 263M values drawn on the host took seconds
     gen = torch.Generator(device=DEVICE).manual_seed(17)
@@ -4385,7 +4490,7 @@ def tp_ce_case(torch, card) -> list:
     if not bool((tgt[~inside] == CE.NEG_INF).all()):
         fails.append("phase 16 (b) CE: a label outside the shard found a "
                      "target")
-    log(f"[tp] (b) {card}: CE [{t}, {v}] at model rank {m} of 2, "
+    log(f"[tp] (b) {card}: {arch} CE [{t}, {v}] at model rank {m} of 2, "
         f"{int(inside.sum())} of {t} labels in the shard; (max abs err, "
         f"rel L2) against the plain versions {json.dumps(errs)}")
     return fails
@@ -4407,7 +4512,7 @@ def phase_tp(torch, card):
         for pr in procs:
             pr.start()
         try:
-            res = tp_rank(0, store)
+            res, ep = tp_rank(0, store)
             for pr in procs:
                 pr.join(HDP_TIMEOUT_S)
         finally:
@@ -4420,24 +4525,31 @@ def phase_tp(torch, card):
             raise AssertionError(f"phase 16 rank exit codes {codes}")
     wall = time.perf_counter() - t0
     shown = ("losses", "losses_2x1", "grad_norms", "grad_norms_2x1",
-             "peak_mem_gb_per_rank", "step_wall_s_per_rank")
-    log(f"[tp] (a) {card}: 4 rank processes share this card (gloo through "
-        f"host memory), so the times measure no card-to-card transfer. "
-        f"{json.dumps({k: res[k] for k in shown})} (a) wall {wall:.1f} s")
-    log(f"[tp] {json.dumps(res)}")
-    fails = tp_gates(res)
+             "peak_mem_gb_per_rank", "peak_mem_gb_2x1_per_rank",
+             "step_wall_s_per_rank")
+    log(f"[tp] (a) and (c) {card}: 4 rank processes share this card (gloo "
+        f"through host memory), so the times measure no card-to-card "
+        f"transfer; (a) and (c) wall {wall:.1f} s")
+    fails = []
+    for part, r in (("a", res), ("c", ep)):
+        log(f"[tp] ({part}) {r['model']}: "
+            f"{json.dumps({k: r[k] for k in shown})}")
+        log(f"[tp] ({part}) {json.dumps(r)}")
+        fails += [f"({part}) {f}" for f in tp_gates(r)]
     saved = read_counts()
     t1 = time.perf_counter()
-    for tp, m in TP_LOCAL:
-        fails += tp_attention_case(torch, card, tp, m)
-    fails += tp_ce_case(torch, card)
+    for case in TP_ATTN:
+        fails += tp_attention_case(torch, card, case)
+    for arch, v in TP_CE:
+        fails += tp_ce_case(torch, card, arch, v)
     set_counts(saved)                  # (b)'s launches are comparisons
     log(f"[tp] (b) {time.perf_counter() - t1:.1f} s, phase wall "
         f"{time.perf_counter() - t0:.1f} s")
     if fails:
         raise AssertionError("phase 16: " + "; ".join(fails))
-    return {name: int(sum(v)) for name, v in
-            res["launches_per_rank"].items()}
+    return {name: int(sum(res["launches_per_rank"][name])
+                      + sum(ep["launches_per_rank"][name]))
+            for name in res["launches_per_rank"]}
 
 
 # ---------------------------------------------------------------------------

@@ -29,13 +29,14 @@ measured peak memory); the step it resumed at, the checkpoint's seconds
 (gather, snapshot, write, hash, restore) and bytes, and rank 0's peak
 host memory.
 
-``--mesh NxM`` with M > 1 trains the dense decoders (llama3.2-3b, the
-paper's LLaMA-7B) with tensor parallelism on N·M ranks: world rank h·M + m
+``--mesh NxM`` with M > 1 trains the attention decoders (dense, MoE,
+MLA, Gemma-style) with tensor parallelism on N·M ranks: world rank h·M + m
 is HDP position h, model rank m (`parallel/comm.py::tp_grid`, the
 reference's ``("data", "model")`` mesh); each rank holds its model rank's
-slices of the split leaves and ZeRO-1 shards over the HDP group of its
-model rank.  Other architectures, ``--num-stages`` and ``--offload`` at
-M > 1 raise `NotImplementedError` naming the queue item that brings them.
+slices of the split leaves (an MoE's experts E/M a rank: expert
+parallelism, `models/moe.py`) and ZeRO-1 shards over the HDP group of
+its model rank.  RWKV-6, ``--num-stages`` and ``--offload`` at M > 1 raise
+`NotImplementedError` naming the queue item that brings them.
 A checkpoint keeps the global layout, so a run written at ``--mesh 2x2``
 resumes at ``--mesh 4x1`` where the two layouts pad the heads alike.
 
@@ -70,7 +71,9 @@ import json
 import os
 import resource
 import subprocess
+import sys
 import tempfile
+import traceback
 from collections import defaultdict
 
 import numpy as np
@@ -305,8 +308,15 @@ def _rank_main(rank: int, hdp: int, stages: int, args, store: str,
                                      [r for _, r in got]
                                      if stages > 1 else None)), flush=True)
         dist.barrier()
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # a failed rank leaves without tearing its group down, which
+        # blocks while the other ranks wait in a collective; its exit
+        # makes `mp.start_processes` end the others
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -332,8 +342,7 @@ def main(argv=None):
                          "leading periods' residuals in pinned host memory)")
     ap.add_argument("--mesh", default="1x1",
                     help="NxM: N HDP ranks x M model ranks (tensor "
-                         "parallelism, the dense decoders), one process "
-                         "each")
+                         "parallelism), one process each")
     ap.add_argument("--num-stages", type=int, default=1,
                     help="pipeline stages S: S x N ranks, PP-Balance plans "
                          "run as rounds through the stages")

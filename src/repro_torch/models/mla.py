@@ -16,6 +16,11 @@ bridge copies them as they are:
     w_q [d, H·(nope+rope)]; w_dkv [d, kv_lora+rope]; latent_norm {scale
     [kv_lora] f32}; w_uk [H, nope, kv_lora]; w_uv [H, kv_lora, v];
     w_o [H·v, d].
+
+Under tensor parallelism model rank m holds heads [m·H/tp, (m+1)·H/tp):
+its columns of ``w_q``, its heads of ``w_uk`` and ``w_uv`` and its rows
+of ``w_o``; the latent (``w_dkv``, ``latent_norm``) is whole on every
+rank.  `mla_qkv` and `mla_output` run the heads the leaves hold.
 """
 from __future__ import annotations
 
@@ -57,9 +62,9 @@ def mla_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor, positions):
     """x [T, d], positions [T] -> (absorbed q [T, H, kv_lora+rope], the
     latent kv [T, 1, kv_lora+rope]).  RoPE rotates each head's q_rope and
     the one shared k_rope; the latent is RMS-normed; q_abs = q_nope @
-    W_uk."""
+    W_uk.  H: the heads ``params`` holds (``w_uk``'s first dim)."""
     m = cfg.mla
-    h = cfg.num_heads
+    h = params["w_uk"].shape[0]
     t = x.shape[0]
     q = (x @ params["w_q"]).reshape(t, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]

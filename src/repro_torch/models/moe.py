@@ -28,6 +28,20 @@ The group is the caller's choice, as in the reference: a rank's rows of
 a prefill or training wave (`models/transformer.py::_moe_block`), or the
 whole decode slab (`train/serve_step.py`), which `moe_forward_sharded`
 routes from each rank's share of its rows.
+
+Under tensor parallelism (`moe_forward`'s ``tp_comm``, the model group)
+model rank m holds experts [m·E/tp, (m+1)·E/tp) and its columns (rows) of
+the shared experts' in (out) projections: the reference's expert
+parallelism (`src/repro/models/moe_manual.py`).  Every rank of the group
+routes the same C rows, so all pick the same experts and positions; the
+rank keeps the pairs of its experts below capacity, fills their
+``[E/tp·cap, d]`` buffer, combines its own pairs, adds its shared columns
+and sums the [C, d] partial over the group (one reduce).  A rank's gates
+reach the output only through its own pairs, so the router and its input
+take their gradients through `copy_to_model`.  The reference's other
+route at tp > 1 (``moe_impl="gather"``, GSPMD partitioning the capacity
+buffers) computes the same function; the tests hold this one against
+both.
 """
 from __future__ import annotations
 
@@ -38,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoESpec
 from repro_torch.models import layers as L
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 def moe_capacity(spec: MoESpec, n_tokens: int) -> int:
@@ -99,35 +114,44 @@ def moe_positions(idx: torch.Tensor, num_experts: int) -> torch.Tensor:
 
 
 def moe_experts(params: dict, cfg: ModelConfig, x: torch.Tensor, gates,
-                idx, pos, cap: int) -> torch.Tensor:
+                idx, pos, cap: int, tp_comm=None) -> torch.Tensor:
     """The experts on routed rows: x [T, d], gates and idx [T, k] from
     `moe_route`, pos [T·k] from `moe_positions` (over this group, or the
     whole group this x is a part of), ``cap`` the group's capacity.
-    Pairs at ``pos >= cap`` are dropped.  -> [T, d] in x's dtype."""
+    Pairs at ``pos >= cap`` are dropped.  -> [T, d] in x's dtype.
+
+    ``tp_comm``: the model group, whose rank holds ``params``' experts
+    E/tp (dim 0 of ``w_in``) and shared columns; ``x`` and ``gates`` come
+    through `copy_to_model` (module docstring)."""
     spec = cfg.moe
     t, d = x.shape
-    e, k = spec.num_experts, spec.top_k
+    k = spec.top_k
     n = t * k
     act = L.act_fn(cfg.act)
-    keep = pos < cap
-    slot = torch.where(keep, idx.reshape(-1) * cap + pos,
-                       torch.full_like(pos, e * cap))      # overflow row
+    e_loc = params["w_in"].shape[0]               # the experts held here
+    lo = 0 if tp_comm is None else tp_comm.rank * e_loc
+    flat = idx.reshape(-1) - lo
+    # only this rank's experts have slots
+    keep = (pos < cap) & (flat >= 0) & (flat < e_loc)
+    rows = e_loc * cap
+    slot = torch.where(keep, flat * cap + pos,
+                       torch.full_like(pos, rows))         # overflow row
     # dispatch: buffer row -> pair (n: an empty row), then one gather
     pair = torch.arange(n, device=x.device)
-    src = torch.full((e * cap + 1,), n, dtype=torch.int64, device=x.device)
+    src = torch.full((rows + 1,), n, dtype=torch.int64, device=x.device)
     src.scatter_(0, slot, pair)
     xk = torch.cat([x.repeat_interleave(k, dim=0), x.new_zeros(1, d)])
-    buf = xk.index_select(0, src[: e * cap]).view(e, cap, d)
+    buf = xk.index_select(0, src[:rows]).view(e_loc, cap, d)
 
     h = torch.bmm(buf, params["w_in"])
     if cfg.gated_mlp:
         h = act(torch.bmm(buf, params["w_gate"])) * h
     else:
         h = act(h)
-    out = torch.bmm(h, params["w_out"]).view(e * cap, d)
+    out = torch.bmm(h, params["w_out"]).view(rows, d)
 
     # combine: each pair's row (dropped pairs masked), gate-weighted, Σ_k
-    y_pairs = out.index_select(0, slot.clamp(max=e * cap - 1))
+    y_pairs = out.index_select(0, slot.clamp(max=rows - 1))
     y_pairs = torch.where(keep[:, None], y_pairs, y_pairs.new_zeros(()))
     w = gates.reshape(n).to(x.dtype)
     y = (y_pairs * w[:, None]).view(t, k, d).sum(dim=1)
@@ -139,15 +163,22 @@ def moe_experts(params: dict, cfg: ModelConfig, x: torch.Tensor, gates,
         else:
             h_s = act(h_s)
         y = y + h_s @ params["shared_out"]
-    return y.to(x.dtype)
+    return reduce_from_model(y, tp_comm).to(x.dtype)
 
 
-def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor):
-    """x [T, d] -> [T, d]: the T rows route as one group."""
-    gates, idx = moe_route(params, cfg, x)
+def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                tp_comm=None):
+    """x [T, d] -> [T, d]: the T rows route as one group.  ``tp_comm``:
+    the model group (None: tp = 1), every rank of it with the same x
+    (module docstring)."""
+    spec = cfg.moe
+    x = copy_to_model(x, tp_comm)
+    # a rank's gates reach y only through its own experts' pairs
+    gates, idx = moe_route({**params, "router": copy_to_model(
+        params["router"], tp_comm)}, cfg, x)
     return moe_experts(params, cfg, x, gates, idx,
-                       moe_positions(idx, cfg.moe.num_experts),
-                       moe_capacity(cfg.moe, x.shape[0]))
+                       moe_positions(idx, spec.num_experts),
+                       moe_capacity(spec, x.shape[0]), tp_comm)
 
 
 def moe_forward_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,

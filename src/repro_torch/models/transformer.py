@@ -29,14 +29,21 @@ sequence sharded over HDP ranks is relayed across them by `_ssm_block`.
 Dense weights are [in, out] and used as ``x @ W``.  Mamba, non-token
 frontends and M-RoPE are later slices and raise `NotImplementedError`.
 
-Under tensor parallelism (``rt.tp > 1``, the dense decoders only) each
-model rank holds its slice of the split leaves
-(`parallel/sharding.py::tp_split_dim`) and runs its h_pad/tp heads, its
-columns of the MLP and its rows of the vocabulary: the column-parallel
-products take their input through `parallel/tensor.py::copy_to_model`,
-the row-parallel ones and the embedding lookup give theirs through
-``reduce_from_model``, and `logits_head` gives this rank's vocabulary
-columns (the loss combines them, `core/loss.py`).
+Under tensor parallelism (``rt.tp > 1``; every attention decoder, GQA or
+MLA, dense or MoE, with the Gemma flags) each model rank holds its slice
+of the split leaves (`parallel/sharding.py::tp_split_dim`) and runs its
+h_pad/tp heads (MLA: H/tp heads over the whole latent), its columns of
+the MLP, its experts (`models/moe.py`) and its rows of
+the vocabulary: the column-parallel products take their input through
+`parallel/tensor.py::copy_to_model`, the row-parallel ones and the
+embedding lookup give theirs through ``reduce_from_model``, and
+`logits_head` gives this rank's vocabulary columns (the loss combines
+them, `core/loss.py`).  A replicated leaf that only this rank's heads use
+(q/k norms; MLA's ``w_dkv`` and latent norm; a replicated ``w_kv``) goes
+through `copy_to_model`, so its gradient sums the ranks' heads; one used
+on the replicated stream (the block norms, post-block norms, final norm)
+gets its whole gradient on every rank.  Local windows and both softcaps
+act within a rank's heads or vocabulary columns and need no collective.
 """
 from __future__ import annotations
 
@@ -52,15 +59,16 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as RW
 from repro_torch.parallel.sharding import (TP_LATER, Runtime,
-                                           resolve_device, shard_param,
-                                           tp_split_dim)
+                                           check_tp_divides, resolve_device,
+                                           shard_param, tp_split_dim)
 from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 from repro_torch.tree import leaf_paths, leaves, tree_map
 
 
 def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
     """Raise NotImplementedError for what the port does not run yet; at
-    ``tp > 1`` also for everything but the dense GQA decoders."""
+    ``tp > 1`` also for RWKV, Mamba and the non-token frontends
+    (`_check_tensor_parallel`)."""
     if tp > 1:
         _check_tensor_parallel(cfg, tp)
     missing = []
@@ -85,27 +93,20 @@ def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
 
 
 def _check_tensor_parallel(cfg: ModelConfig, tp: int) -> None:
-    """Tensor parallelism runs the dense GQA decoders with global layers
-    (llama3.2-3b, the paper's LLaMA-7B): the rest raises, naming the queue
-    item that brings it."""
-    flags = {"moe": cfg.moe is not None, "mla": cfg.mla is not None,
-             "rwkv": "r" in cfg.layer_pattern or cfg.rwkv is not None,
+    """Tensor parallelism runs the attention decoders (GQA or MLA, dense or
+    MoE, global and local layers, the Gemma flags): RWKV, Mamba and the
+    non-token frontends raise NotImplementedError naming the queue item
+    that brings them, and a vocabulary, expert count or MLA head count
+    that tp does not divide raises ValueError (`check_tp_divides`)."""
+    flags = {"rwkv": "r" in cfg.layer_pattern or cfg.rwkv is not None,
              "mamba": "m" in cfg.layer_pattern or cfg.mamba is not None,
-             "local layers": "l" in cfg.layer_pattern,
-             "attention softcap": bool(cfg.attn_softcap),
-             "final softcap": bool(cfg.final_softcap),
-             "q/k norms": cfg.qk_norm,
-             "post-block norms": cfg.post_block_norm,
-             "embedding scale": bool(cfg.embed_scale),
              f"frontend {cfg.frontend!r}": cfg.frontend != "none"}
     missing = [k for k, v in flags.items() if v]
     if missing:
         raise NotImplementedError(
             f"{cfg.name} at tp {tp}: {', '.join(missing)} under tensor "
             f"parallelism come with {TP_LATER}")
-    if cfg.vocab_size % tp:
-        raise ValueError(f"{cfg.name}: vocabulary {cfg.vocab_size} does not "
-                         f"split over {tp} model ranks")
+    check_tp_divides(cfg, tp)
 
 
 def require_attention_only(cfg: ModelConfig, what: str) -> None:
@@ -292,7 +293,10 @@ def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
 
     MLA runs the reference's gather mode: every (padded) head takes the one
     latent as its KV (``kv_group_of_head`` zeros), and v is the latent's
-    first kv_lora_rank columns (``v_in_k``).
+    first kv_lora_rank columns (``v_in_k``).  Under tensor parallelism a
+    rank runs its H/tp heads over the whole latent, whose replicated
+    ``w_dkv`` and latent norm take their gradients through
+    `copy_to_model`, and its rows of ``w_o`` give a partial output.
 
     Model rank m of tp runs the heads [m·hpl, (m+1)·hpl), hpl = h_pad/tp:
     with KV sharded its own KV groups, else the whole (replicated) KV
@@ -303,37 +307,44 @@ def _attention_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,
     t = x.shape[0]
     pos_s = L.scalar_positions(cfg, pos)
     layout = rt.layout(cfg)
+    comm = rt.tp_comm
+    hpl = layout.h_pad // rt.tp
+    x = copy_to_model(x, comm)
     if cfg.mla is not None:
-        q_eff, kv_eff = MLA.mla_qkv(bp, cfg, x, pos_s)
+        # the latent is whole on every rank and used by this rank's heads
+        # only: its two leaves sum their gradients over the group
+        lat = {**bp, "w_dkv": copy_to_model(bp["w_dkv"], comm),
+               "latent_norm": {"scale": copy_to_model(
+                   bp["latent_norm"]["scale"], comm)}}
+        q_eff, kv_eff = MLA.mla_qkv(lat, cfg, x, pos_s)
         if collect is not None:
             collect.append({"kv_lat": kv_eff})
-        if q_eff.shape[1] < layout.h_pad:            # pad heads to tp
-            q_eff = torch.nn.functional.pad(
-                q_eff, (0, 0, 0, layout.h_pad - q_eff.shape[1]))
+        hq = q_eff.shape[1]                          # this rank's heads
+        if hq < hpl:                                 # pad heads to tp
+            q_eff = torch.nn.functional.pad(q_eff, (0, 0, 0, hpl - hq))
         out = R.ring_attention(
             q_eff, kv_eff, None, seg, seg, pos_s, pos_s,
             composition=rt.composition, kv_sharded=False,
-            kv_group_of_head=torch.zeros(layout.h_pad, dtype=torch.int64,
+            kv_group_of_head=torch.zeros(hpl, dtype=torch.int64,
                                          device=x.device),
             scale=MLA.mla_scale(cfg), window=window,
             softcap=cfg.attn_softcap, kv_chunk=rt.kv_chunk,
             block_skip=rt.block_skip, attn_impl=rt.attn_impl,
             v_in_k=(0, cfg.mla.kv_lora_rank), block_q=rt.attn_block_q,
             block_k=rt.attn_block_k, comm=rt.comm)
-        return MLA.mla_output(bp, cfg, out[:, :cfg.num_heads])
+        return reduce_from_model(MLA.mla_output(bp, cfg, out[:, :hq]), comm)
     dk = cfg.resolved_head_dim
-    comm = rt.tp_comm
-    hpl = layout.h_pad // rt.tp
     heads = slice(rt.model_rank * hpl, (rt.model_rank + 1) * hpl)
-    x = copy_to_model(x, comm)
     w_kv = bp["w_kv"] if layout.kv_sharded else copy_to_model(bp["w_kv"],
                                                               comm)
     q = (x @ bp["w_q"]).reshape(t, hpl, dk)
     kv = torch.einsum("td,dsgk->tsgk", x, w_kv)              # [T, 2, G, Dk]
     k, v = kv[:, 0], kv[:, 1]
-    if cfg.qk_norm:
-        q = L.qk_head_norm(bp["q_norm"], q, cfg.norm_eps)
-        k = L.qk_head_norm(bp["k_norm"], k, cfg.norm_eps)
+    if cfg.qk_norm:              # on this rank's heads: gradients summed
+        q = L.qk_head_norm(copy_to_model(bp["q_norm"], comm), q,
+                           cfg.norm_eps)
+        k = L.qk_head_norm(copy_to_model(bp["k_norm"], comm), k,
+                           cfg.norm_eps)
     q, k = L.positional_rotate(cfg, q, k, pos, pos)
     if collect is not None:
         collect.append({"k": k, "v": v})
@@ -370,10 +381,10 @@ def _moe_block(bp, cfg: ModelConfig, rt: Runtime, x):
     """This rank's rows route as one group.  The reference reshapes the
     wave's [T, d] to [hdp, T/hdp, d] and routes each HDP rank's rows
     apart; rank r of the port holds rows [r·C, (r+1)·C) of the wave, so
-    its rows are that group, padding rows included.  At tp = 1 the
-    reference's expert-parallel route (``moe_impl="manual"``) holds every
-    expert locally and computes the same."""
-    return MOE.moe_forward(bp, cfg, x)
+    its rows are that group, padding rows included.  Under tensor
+    parallelism each model rank runs its experts, the reference's
+    ``moe_impl="manual"`` (`models/moe.py`)."""
+    return MOE.moe_forward(bp, cfg, x, rt.tp_comm)
 
 
 def _ssm_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, which: str):
@@ -447,17 +458,18 @@ def embed_tokens(params, cfg: ModelConfig, tokens, tp_comm=None):
     """The embedding rows of ``tokens``.  Under tensor parallelism this
     rank holds vocabulary rows [m·V/tp, (m+1)·V/tp): it looks up the
     tokens in its rows, zeroes the others, and the rows are summed over
-    the model group (the reference's ``P(model, None)`` embedding)."""
+    the model group (the reference's ``P(model, None)`` embedding), then
+    scaled as at tp = 1."""
     if tp_comm is not None:
         table = params["embed"]
         ids = tokens.reshape(-1).long() - tp_comm.rank * table.shape[0]
         mine = (ids >= 0) & (ids < table.shape[0])
         x = table.index_select(0, ids.clamp(0, table.shape[0] - 1))
         x = torch.where(mine[:, None], x, torch.zeros_like(x))
-        return reduce_from_model(x, tp_comm).reshape(*tokens.shape,
-                                                     cfg.d_model)
-    x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
-        *tokens.shape, cfg.d_model)
+        x = reduce_from_model(x, tp_comm).reshape(*tokens.shape, cfg.d_model)
+    else:
+        x = params["embed"].index_select(0, tokens.reshape(-1)).reshape(
+            *tokens.shape, cfg.d_model)
     if cfg.embed_scale:
         # the reference multiplies by a weakly typed Python float, which
         # JAX rounds to the activation dtype first (59.866 -> 59.75 in

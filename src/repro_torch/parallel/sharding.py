@@ -1,7 +1,7 @@
 """The port's runtime: what model code needs to know about placement.
 
 Port of `repro/parallel/sharding.py::Runtime` and of its rule table
-(`param_spec` / `params_pspecs`) for the dense decoders.  There is no
+(`param_spec` / `params_pspecs`) for the attention decoders.  There is no
 mesh: the HDP ranks are ``comm`` (a `parallel.comm.HdpComm`, the
 reference's ``(mesh, hdp_axes)``); ``None`` is one rank, where every
 composition is ``(1,)``.  A composition must sum
@@ -26,12 +26,14 @@ reused from wave to wave.
 Under tensor parallelism ``tp_comm`` holds this rank's model group (the
 reference's ``model_axis``; `parallel/comm.py::tp_grid`), ``None`` is
 tp = 1.  Each rank holds its slice of the split leaves: `tp_split_dim`
-is the reference's rule table for the dense decoders' leaves (``w_q``,
-``w_in``, ``w_gate``, ``lm_head`` column-parallel; ``w_o``, ``w_out``
-row-parallel; ``embed`` by vocabulary rows; ``w_kv`` by KV head where the
-layout shards KV; norms replicated), and `shard_param` takes the slice.
-Every leaf outside it raises `NotImplementedError` at tp > 1 (the rules of
-the MoE, MLA, RWKV and Mamba leaves come with ROADMAP queue 1 item 7b-ii).
+is the reference's rule table (``w_q``, ``w_in``, ``w_gate``,
+``lm_head``, the shared experts' ``shared_in`` / ``shared_gate``
+column-parallel; ``w_o``, ``w_out``, ``shared_out`` row-parallel;
+``embed`` by vocabulary rows; ``w_kv`` by KV head where the layout shards
+KV; the experts' [E, ...] leaves and MLA's ``w_uk`` / ``w_uv`` on their
+first dimension; norms, the router, MLA's ``w_dkv`` and latent norm
+replicated), and `shard_param` takes the slice.  The RWKV and Mamba
+leaves raise `NotImplementedError` at tp > 1 (`TP_LATER`).
 
 A runtime on the card refuses TF32 matmuls: float32 products stay IEEE
 fp32, as the reference's on the CPU, and the MoE router's top-k hangs on
@@ -155,30 +157,40 @@ def check_tp_stages(tp: int, num_stages: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the tensor-parallel rule table (the reference's param_spec, dense leaves)
+# the tensor-parallel rule table (the reference's param_spec)
 # ---------------------------------------------------------------------------
 
-TP_LATER = ("ROADMAP queue 1 item 7b-ii (expert parallelism and the TP "
-            "rules of the MoE, MLA, RWKV, Mamba and Gemma leaves)")
+TP_LATER = ("ROADMAP queue 1 item 7b-ii's last part (the TP rules of "
+            "RWKV-6; Mamba's come with its model, item 8)")
 
 # (parent, leaf) -> the split dimension from the leaf's own first one
-# ("kv": w_kv [d, 2, G, Dk] on G iff KV is sharded); norms replicated
+# (-1: its last; "kv": w_kv [d, 2, G, Dk] on G iff KV is sharded); None:
+# replicated.  "moe" leaves: the [E, ...] experts on E, the shared experts
+# column- and row-parallel, the router replicated.  MLA: w_uk / w_uv
+# [H, ...] on their heads, the shared latent (w_dkv, latent_norm)
+# replicated.
 _RULES = {("attn", "w_q"): -1, ("mlp", "w_in"): -1, ("mlp", "w_gate"): -1,
           ("attn", "w_o"): 0, ("mlp", "w_out"): 0, ("attn", "w_kv"): "kv",
+          ("attn", "q_norm"): None, ("attn", "k_norm"): None,
+          ("attn", "w_uk"): 0, ("attn", "w_uv"): 0, ("attn", "w_dkv"): None,
+          ("latent_norm", "scale"): None,
+          ("moe", "w_in"): 0, ("moe", "w_gate"): 0, ("moe", "w_out"): 0,
+          ("moe", "shared_in"): -1, ("moe", "shared_gate"): -1,
+          ("moe", "shared_out"): 0, ("moe", "router"): None,
           ("norm1", "scale"): None, ("norm2", "scale"): None,
+          ("postnorm1", "scale"): None, ("postnorm2", "scale"): None,
           ("final_norm", "scale"): None}
 
 
 def tp_split_dim(path: Sequence[str], ndim: int,
                  kv_sharded: bool) -> Optional[int]:
     """The dimension a leaf is split on over the model group, or None
-    (replicated): the reference's `param_spec` for the dense decoders
-    (column-parallel ``w_q``, ``w_in``, ``w_gate``; row-parallel ``w_o``,
-    ``w_out``; ``embed`` on its rows, ``lm_head`` on its columns).
-    ``path``: the leaf's keys from the root (``("blocks", "0", "attn",
-    "w_q")``), ``ndim`` its dimensions as held (a stacked ``blocks`` leaf
-    has its [n_periods] dim first).  Every other leaf raises
-    `NotImplementedError`: its rule comes with a later item."""
+    (replicated): the reference's `param_spec` (`_RULES`; ``embed`` on its
+    rows, ``lm_head`` on its columns).  ``path``: the leaf's keys from the
+    root (``("blocks", "0", "attn", "w_q")``), ``ndim`` its dimensions as
+    held (a stacked ``blocks`` leaf has its [n_periods] dim first; a
+    ``head_blocks`` leaf is one layer's).  The RWKV and Mamba leaves, and
+    any leaf the table does not know, raise `NotImplementedError`."""
     path = [str(p) for p in path]
     if path in (["embed"], ["lm_head"]):
         return 0 if path[0] == "embed" else 1
@@ -193,6 +205,20 @@ def tp_split_dim(path: Sequence[str], ndim: int,
     if rule == "kv":
         return off + 2 if kv_sharded else None
     return ndim - 1 if rule == -1 else off
+
+
+def check_tp_divides(cfg: ModelConfig, tp: int) -> None:
+    """ValueError unless ``tp`` divides the vocabulary, the MoE's experts
+    and MLA's heads, whose leaves split on them.  The reference runs an E
+    that tp does not divide through ``"gather"`` with GSPMD's uneven
+    shards (`src/repro/models/transformer.py:283`), and MLA's heads so
+    too: this is the one place the port raises where it does not."""
+    for what, n in (("vocabulary", cfg.vocab_size),
+                    ("experts", cfg.moe.num_experts if cfg.moe else 0),
+                    ("MLA heads", cfg.num_heads if cfg.mla else 0)):
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {n} {what} do not split over "
+                             f"{tp} model ranks")
 
 
 def tp_splits(params, kv_sharded: bool, tp: int) -> List[Optional[int]]:

@@ -63,7 +63,7 @@ the save cover every rank of the world: a save gathers ZeRO-1 within
 each HDP group, then each stage's window over the stage group, to world
 rank 0, which writes the reference's global layout.
 
-Under tensor parallelism (``rt.tp_comm``, ``rt.tp > 1``; the dense
+Under tensor parallelism (``rt.tp_comm``, ``rt.tp > 1``; the attention
 decoders) the world is an hdp × tp grid, world rank h·tp + m
 (`parallel/comm.py::tp_grid`): each rank holds its model rank's slices of
 the split leaves (`init_params(..., model=(m, tp))`), the model ranks of

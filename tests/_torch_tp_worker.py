@@ -63,9 +63,10 @@ def config():
     return dataclasses.replace(get_config(ARCH).reduced(), dtype="float32")
 
 
-def trainer(comm, tp_comm, flat, impl="ref", **tcfg):
-    """The port's `Trainer` on ``comm``'s HDP ranks and ``tp_comm``'s
-    model ranks from the reference's global parameters, recording each
+def trainer(comm, tp_comm, flat, impl="ref", cfg=None, **tcfg):
+    """The port's `Trainer` of ``cfg`` (default `config`) on ``comm``'s
+    HDP ranks and ``tp_comm``'s model ranks from the reference's global
+    parameters, recording each
     step's plan fingerprint in ``.plans``."""
     from repro_torch import bridge
     from repro_torch.data.distribution import LengthDistribution
@@ -74,7 +75,7 @@ def trainer(comm, tp_comm, flat, impl="ref", **tcfg):
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.parallel.sharding import Runtime
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    cfg = config()
+    cfg = config() if cfg is None else cfg
     hdp = 1 if comm is None else comm.size
     model = (0, 1) if tp_comm is None else (tp_comm.rank, tp_comm.size)
     ds = SyntheticDataset(LengthDistribution(*DIST), cfg.vocab_size,

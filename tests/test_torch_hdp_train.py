@@ -568,11 +568,12 @@ def test_launcher_checkpoints_and_resumes_at_another_mesh(results, out_dir,
 
 
 def test_launcher_refuses_tensor_parallelism():
-    """``--mesh 2x2`` trains the dense decoders (`tests/test_torch_tp.py`);
-    what tensor parallelism does not run yet raises: an MoE architecture
-    (queue 1 item 7b-ii) and pipeline stages (TP x PP, item 7b)."""
+    """``--mesh 2x2`` trains the attention decoders (`tests/test_torch_tp.py`,
+    `tests/test_torch_ep.py`); what tensor parallelism does not run yet
+    raises: RWKV-6 (queue 1 item 7b-ii's last part) and pipeline stages
+    (TP x PP, item 7b)."""
     with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        launch_train.main(["--arch", "mistral-8x7b", "--reduced", "--mesh",
+        launch_train.main(["--arch", "rwkv6-7b", "--reduced", "--mesh",
                            "2x2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 7b"):
         launch_train.main(["--arch", "llama3.2-3b", "--reduced", "--mesh",

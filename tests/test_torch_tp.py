@@ -18,8 +18,12 @@ reference's ``"model"`` mesh axis.
   ranks are `ThreadRanks(4)` here.
 * (c) The split table (`tp_split_dim`) against the reference's
   `param_spec` / `params_pspecs`, and `zero1_dim` with the split taken
-  against `zero1_spec`, leaf by leaf: reduced and full llama3.2-3b and
-  LLaMA-7B at tp 2, 4, 8 and hdp 2, 4 (shapes only).
+  against `zero1_spec`, leaf by leaf: reduced and full llama3.2-3b,
+  LLaMA-7B, Mistral-8x7B, qwen3-moe-30b-a3b, deepseek-v2-lite-16b,
+  gemma2-9b and gemma3-12b at tp 2, 4, 8 and hdp 2, 4 (shapes only; the
+  MoE and MLA models where tp divides their experts and heads, a
+  `ValueError` where it does not).  The MoE, MLA and Gemma models'
+  parity at tp > 1 is `tests/test_torch_ep.py`'s.
 * (d) The vocab-parallel cross-entropy against the reference's
   `token_ce_from_logits`, float32 (1e-4) and bf16 (3e-2), nll and
   dlogits, with labels at each shard's first and last column.
@@ -55,6 +59,7 @@ from repro.parallel import sharding as jsharding
 from repro.parallel import zero1 as jzero1
 from repro_torch import bridge
 from repro_torch.ckpt.checkpoint import CheckpointManager
+from repro_torch.configs.base import MambaSpec
 from repro_torch.configs.registry import get_config
 from repro_torch.core.loss import token_ce_from_logits, token_ce_loss
 from repro_torch.launch import train as launch_train
@@ -285,17 +290,30 @@ def _jax_specs(name: str, tp: int):
                       for (path, leaf), spec in zip(flat, spec_leaves)]
 
 
+SPLIT_MODELS = ["llama3.2-3b", "llama-7b", "mistral-8x7b",
+                "qwen3-moe-30b-a3b", "deepseek-v2-lite-16b", "gemma2-9b",
+                "gemma3-12b"]
+
+
 @pytest.mark.parametrize("tp", [2, 4, 8])
-@pytest.mark.parametrize("name", ["llama3.2-3b-reduced", "llama3.2-3b",
-                                  "llama-7b"])
+@pytest.mark.parametrize("name", ["llama3.2-3b-reduced", *SPLIT_MODELS,
+                                  *[f"{m}-reduced" for m in SPLIT_MODELS[2:]]])
 def test_split_table_and_zero1_match_the_reference(name, tp):
     """Leaf by leaf: the dimension the port splits over the model group is
     the one `param_spec` puts ``model`` on, and the dimension ZeRO-1
     shards a rank's slice on (the split taken) is the one `zero1_spec`
     shards the global leaf on, at hdp 2 and 4; the ZeRO-1 bytes, priced
-    on the global tree, are the reference Trainer's."""
-    abstract, specs = _jax_specs(name, tp)
+    on the global tree, are the reference Trainer's.  Where tp does not
+    divide the experts or MLA's heads (the reduced MoE models' 4 at tp
+    8), the port raises `ValueError` instead."""
     cfg = get_config(name)
+    if (cfg.moe and cfg.moe.num_experts % tp) or \
+            (cfg.mla and cfg.num_heads % tp):
+        with pytest.raises(ValueError, match="do not split over"):
+            T.check_supported(cfg, tp)
+        return
+    T.check_supported(cfg, tp)
+    abstract, specs = _jax_specs(name, tp)
     kvs = JL.gqa_layout(cfg.num_heads, cfg.num_kv_heads, tp).kv_sharded
     assert len(specs) > 5
     split_any = 0
@@ -324,10 +342,11 @@ def test_split_table_and_zero1_match_the_reference(name, tp):
 
 
 def test_split_table_refuses_what_this_slice_does_not_run():
+    """RWKV-6's leaves (and Mamba's) have no rule yet."""
     with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        tp_split_dim(("blocks", "0", "moe", "w_in"), 4, True)
+        tp_split_dim(("blocks", "0", "channel_mix", "w_k"), 3, True)
     with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        tp_split_dim(("blocks", "0", "attn", "q_norm"), 2, True)
+        tp_split_dim(("blocks", "0", "time_mix", "bonus_u"), 3, True)
     with pytest.raises(NotImplementedError, match="item 7b-ii"):
         tp_split_dim(("blocks", "0", "time_mix", "w_r"), 3, True)
 
@@ -398,14 +417,18 @@ def test_a_seed_gives_the_same_model_at_every_tp(tp):
 def test_tensor_parallelism_refuses_what_this_slice_does_not_run():
     ranks = ThreadRanks(2)
 
+    rwkv = get_config("rwkv6-7b")
+
     def rank(comm):
         rt = Runtime(device="cpu", tp_comm=comm)
         got = []
-        for arch in ("mistral-8x7b", "gemma2-9b", "deepseek-v2-lite-16b",
-                     "rwkv6-7b"):
+        for cfg in (rwkv, rwkv.reduced(),
+                    dataclasses.replace(W.config(), layer_pattern="gr"),
+                    dataclasses.replace(W.config(), layer_pattern="m",
+                                        mamba=MambaSpec())):
             with pytest.raises(NotImplementedError, match="item 7b-ii"):
-                T.check_supported(get_config(arch).reduced(), rt.tp)
-            got.append(arch)
+                T.check_supported(cfg, rt.tp)
+            got.append(cfg.name)
         with pytest.raises(NotImplementedError, match="item 7b"):
             Runtime(device="cpu", tp_comm=comm, stage_comm=comm)
         from repro_torch.serve import ServeEngine
@@ -424,7 +447,7 @@ def test_tensor_parallelism_refuses_what_this_slice_does_not_run():
         with pytest.raises(NotImplementedError, match=match):
             launch_train.main(LAUNCH_ARGS + argv)
     with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        launch_train.main(["--arch", "mistral-8x7b", "--reduced", "--mesh",
+        launch_train.main(["--arch", "rwkv6-7b", "--reduced", "--mesh",
                            "2x2", "--device", "cpu"])
 
 
