@@ -199,7 +199,7 @@ Phases (any failure raises and exits non-zero before the result line):
    another expert printed.
 12. pipeline — pipeline parallelism (`parallel/pipeline.py`): the
    port's pipelined `Trainer` at 2 stages x hdp 2, llama3.2-3b at full
-   width cut to 4 layers (2 a stage; seed 0), phase 7's data planned by
+   width cut to 2 layers (1 a stage; seed 0), phase 7's data planned by
    PP-Balance (``mode="pp"``, ``num_stages=2``), rounds of at most 2
    waves (which bounds the logits the last stage keeps), 2 steps, the
    bytes ledger on.  Four processes share the card as in phase 7, a gloo
@@ -342,12 +342,38 @@ Phases (any failure raises and exits non-zero before the result line):
    (tgt exactly -1e30 there, onehot 0 in the backward), the backward
    from a global lse above the local one.  Prints the card, losses
    beside 2 x 1, peaks and step walls per rank.
-17. report — one JSON line of every kernel (launches on the paths that
+17. grid — the Trainer on stages x HDP ranks x model ranks
+   (`parallel/comm.py::grid`, world rank s·(hdp·tp) + h·tp + m) and
+   RWKV-6 under tensor parallelism.  Four processes share the card as in
+   phase 7, a gloo world of `HostStagedComm` split into 2 stages x hdp 1
+   x tp 2.  (a) llama3.2-3b at full width cut to 2 layers (1 a stage;
+   seed 0), phase 8's data (github at context 16384, 16384 tokens a
+   step, capacity 4096) planned by PP-Balance with Eq. 3's offload term,
+   one step with offload and the bytes ledger on, rounds of at most 2
+   waves.  Before the apply world rank 0 gathers every rank's window and
+   slices and runs the one-process route (hdp 1, tp 1, one stage, no
+   offload) over the step's global waves: each round's loss within 1e-3
+   relative of its waves', the grad norm within 1e-2.  Some round
+   offloads (stage-local k > 0); every round's measured bytes exactly
+   `obs/ledger.py::port_round_bytes` at tp 2 (one model rank's stage
+   sends and offloaded periods); exact launches per rank (per wave 2 x
+   the stage's layers carry, as many dq and dkv, one CE each way on the
+   last stage only); the leaves the stages or the model ranks share
+   bit-identical across them after the apply; applied == 1.  (b) In
+   stage 0's two processes: rwkv6-7b at full width cut to 1 layer, one
+   step on phase 5's data at hdp 1 x tp 2 (each rank 32 of the 64 WKV
+   heads), then on model rank 0 the same step at tp 1 from the same seed
+   (not counted): loss within 1e-3 relative, grad norm within 1e-2, one
+   CE each way a wave on each rank, the replicated leaves (mix and decay
+   LoRAs, norms) bit-identical across the model group.  Prints peaks,
+   step walls and the phase wall.
+18. report — one JSON line of every kernel (launches on the paths that
    run it: serve for the forward kernels, train for the rest, plus the
    ring's, the hdp = 4 trainer's, the offloading trainer's, the hdp = 4
    engine's, the checkpoint phase's, the MoE phase's, the pipelined
-   trainer's, the Gemma phase's, the MLA phase's, the RWKV phase's and
-   the 2 x 2 grid's; errors, times, bounds), then the result line.
+   trainer's, the Gemma phase's, the MLA phase's, the RWKV phase's, the
+   2 x 2 grid's and the 2 x 1 x 2 grid's; errors, times, bounds), then
+   the result line.
 
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero,
 printing no result, without a CUDA device or outside a checkout.
@@ -3100,7 +3126,7 @@ def phase_moe(torch, card):
 # 12. pipeline
 # ---------------------------------------------------------------------------
 
-PP_LAYERS = 4                   # llama3.2-3b's width, 2 periods a stage
+PP_LAYERS = 2                   # llama3.2-3b's width, 1 period a stage
 PP_STAGES, PP_HDP = 2, 2        # 4 processes on the one card
 PP_STEPS = 2
 PP_ROUND_WAVES = 2              # bounds the last stage's kept logits
@@ -4553,20 +4579,348 @@ def phase_tp(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# 17. report
+# 17. grid
+# ---------------------------------------------------------------------------
+
+GRID_S, GRID_H, GRID_TP = 2, 1, 2   # 4 processes on the one card
+GRID_LAYERS = 2                     # llama3.2-3b's width, 1 a stage
+GRID_RWKV_LAYERS = 1                # (b): rwkv6-7b's width
+
+
+def grid_rank(rank: int, store: str):
+    """One rank of phase 17, a process of its own on the one card (world
+    rank 0 is this script's process): a gloo world of 4 through
+    `HostStagedComm`, split by `parallel/comm.py::grid` into 2 stages x
+    hdp 1 x tp 2 (world rank s·2 + m).  Returns world rank 0's results
+    of (a) and (b)."""
+    import datetime
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.parallel.comm import HostStagedComm, grid
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}",
+        world_size=GRID_S * GRID_H * GRID_TP, rank=rank,
+        timeout=datetime.timedelta(seconds=HDP_TIMEOUT_S))
+    try:
+        _, stage_comm, tp_comm = grid(GRID_S, GRID_H, GRID_TP,
+                                      HostStagedComm)
+        a = grid_train_rank(torch, stage_comm, tp_comm)
+        b = grid_rwkv_rank(torch, tp_comm) if stage_comm.rank == 0 \
+            else None
+        return None if rank else (a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def grid_whole_tree(torch, tr, stage_comm, tp_comm):
+    """Every rank's window and slices gathered to world rank 0: the
+    global tree there, None elsewhere.  Every rank calls it."""
+    from repro_torch.parallel.zero1 import stage_owned
+    from repro_torch.tree import leaves, tree_map
+    got = []
+    for p, owned, split in zip(leaves(tr.params), stage_owned(tr.params),
+                               tr._splits):
+        x = p
+        if split is not None:
+            x = torch.cat(list(tp_comm.all_gather(x.contiguous())), split)
+        if owned:
+            x = torch.cat(list(stage_comm.all_gather(x.contiguous())), 0)
+        got.append(x)
+    if stage_comm.rank or tp_comm.rank:
+        return None
+    it = iter(got)
+    return tree_map(lambda _: next(it), tr.params)
+
+
+def grid_train_rank(torch, stage_comm, tp_comm):
+    """Phase 17 (a) on one rank: one step of llama3.2-3b cut to
+    `GRID_LAYERS` on the 2 x 1 x 2 grid with Eq. 3's offload and the
+    bytes ledger on; before the apply world rank 0 runs the one-process
+    route over the step's global waves from the gathered global tree
+    (`hdp_reference`).  Returns world rank 0's numbers (None
+    elsewhere)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.obs import ledger
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.parallel.zero1 import stage_owned
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    world = stage_comm.rank * GRID_TP + tp_comm.rank
+    cfg = dataclasses.replace(get_config("llama3.2-3b"),
+                              num_layers=GRID_LAYERS)
+    from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
+    sched = GlobalScheduler(
+        SyntheticDataset("github", cfg.vocab_size, tokens_per_step=16384,
+                         context=OFF_CONTEXT),
+        cfg, capacity=4096, hdp=GRID_H, strategy="balance", use_offload=True,
+        mode="pp", num_stages=GRID_S)
+    plans = []
+    plan_step = sched.plan_step
+
+    def recorded(step):
+        plans.append(plan_step(step))
+        return plans[-1]
+    sched.plan_step = recorded
+    ledger.set_ledger_enabled(True)
+    tr = Trainer(cfg, Runtime(device=DEVICE, stage_comm=stage_comm,
+                              tp_comm=tp_comm),
+                 AdamWConfig(lr=3e-4, warmup_steps=0), sched,
+                 TrainerConfig(capacity=4096, calibrate=False, mode="pp",
+                               use_offload=True, max_round_waves=2),
+                 seed=0)
+    ref = {}
+    plain_apply = tr.apply_step
+
+    def apply_step(params, state, acc):
+        full = grid_whole_tree(torch, tr, stage_comm, tp_comm)
+        if world == 0:
+            ref["wave_losses"], _, ref["grad_norm"] = hdp_reference(
+                torch, tr, plans[-1], tr.step, params=full)
+        del full
+        torch.cuda.empty_cache()
+        return plain_apply(params, state, acc)
+    tr.apply_step = apply_step
+    keys = []
+    tr.telemetry_fn = lambda ws, *_, **__: keys.append(
+        (tuple(ws[0].composition), ws[0].c_mult,
+         max(w.offload_ratio for w in ws), len(ws)))
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    try:
+        rec = tr.train_step()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        recs = tr.ledger.recent(64)
+        nu = tr.last_numerics
+        same = True             # the replicas of every leaf, bit for bit
+        for p, owned, split in zip(leaves(tr.params), stage_owned(tr.params),
+                                   tr._splits):
+            for c, shared in ((stage_comm, not owned),
+                              (tp_comm, split is None)):
+                if shared:
+                    b = p.clone()
+                    c.broadcast(b)
+                    same &= torch.equal(b, p)
+        names = [n for n, *_ in KERNELS]
+        mine = [counts[n] for n in names] + [
+            tr.peak.high_water() / 1e9, float(same), rec["wall_s"],
+            nu["applied"], tr.offload_store.d2h_bytes,
+            tr.offload_store.h2d_bytes]
+        got = stage_comm.all_gather(tp_comm.all_gather(torch.tensor(
+            mine, dtype=torch.float64, device=DEVICE))).reshape(
+                GRID_S * GRID_TP, -1).cpu().numpy()
+    finally:
+        ledger.set_ledger_enabled(False)
+        sched.stop()
+    offloaded = [tr._exec_cache[(c, cm, round(r, 2))].offload_periods
+                 for c, cm, r, _ in keys]
+    del tr
+    torch.cuda.empty_cache()
+    if world != 0:
+        return None
+    from repro_torch.obs.ledger import port_round_bytes
+    k = len(names)
+    lay = GRID_LAYERS // GRID_S
+    want = {n: [0] * (GRID_S * GRID_TP) for n in names}
+    for wave in plans[0].waves:
+        for s in range(GRID_S):
+            last = int(s == GRID_S - 1)
+            for m in range(GRID_TP):
+                for n, add in (("flash_fwd_carry", 2 * lay),
+                               ("flash_bwd_dq", lay), ("flash_bwd_dkv", lay),
+                               ("fused_ce_fwd", last),
+                               ("fused_ce_bwd", last)):
+                    want[n][s * GRID_TP + m] += add
+    kinds = ("ring", "pp", "offload_d2h", "offload_h2d")
+    return {
+        "model": f"{cfg.name}, {cfg.num_layers} layers, {GRID_S} stages x "
+                 f"hdp {GRID_H} x tp {GRID_TP}, offload on",
+        "rounds": [list(ids) for ids in nu["rounds"]],
+        "round_keys": [[list(c), cm, r, n] for c, cm, r, n in keys],
+        "k_by_round": offloaded,
+        "round_losses": nu["round_losses"],
+        "ref_round_losses": [float(sum(ref["wave_losses"][j] for j in ids))
+                             for ids in nu["rounds"]],
+        "loss": rec["loss"], "grad_norm": rec["grad_norm"],
+        "ref_grad_norm": ref["grad_norm"],
+        "ledger_meas": [[r["meas"][x] for x in kinds] for r in recs],
+        "ledger_pred": [[r["pred"][x] for x in kinds] for r in recs],
+        "port_formula": [[port_round_bytes(
+            cfg, c, n, GRID_S, 4096 * cm, GRID_H, k_off, tp=GRID_TP,
+            kv_sharded=True)[x] for x in kinds]
+            for (c, cm, _, n), k_off in zip(keys, offloaded)],
+        "launches_per_rank": {n: got[:, i].astype(int).tolist()
+                              for i, n in enumerate(names)},
+        "want_launches_per_rank": want,
+        "peak_mem_gb_per_rank": got[:, k].tolist(),
+        "replicas_same": got[:, k + 1].tolist(),
+        "step_wall_s_per_rank": got[:, k + 2].tolist(),
+        "applied": got[:, k + 3].tolist(),
+        "offload_d2h_h2d_bytes_per_rank": got[:, k + 4:k + 6].tolist(),
+        "wall_s": time.perf_counter() - t0}
+
+
+def grid_gates(res) -> list:
+    """Phase 17 (a)'s gates on world rank 0's numbers -> what failed."""
+    import numpy as np
+    fails = []
+    got, want = res["round_losses"], res["ref_round_losses"]
+    if not (len(got) == len(want) and np.all(np.isfinite(got)) and np.all(
+            np.abs(np.subtract(got, want)) <= PP_LOSS_TOL * np.abs(want))):
+        fails.append(f"round losses {got} vs the one-process route {want}")
+    g, w = res["grad_norm"], res["ref_grad_norm"]
+    if not abs(g - w) <= TRAIN_LOSS_TOL * abs(w):
+        fails.append(f"grad norm {g} vs the one-process route {w}")
+    if not any(k > 0 for k in res["k_by_round"]):
+        fails.append(f"no round offloads (k by round {res['k_by_round']})")
+    if res["ledger_meas"] != res["port_formula"]:
+        fails.append(f"measured bytes {res['ledger_meas']}, the port's "
+                     f"formula {res['port_formula']}")
+    for name, w in res["want_launches_per_rank"].items():
+        if res["launches_per_rank"][name] != w:
+            fails.append(f"{name} launches per rank "
+                         f"{res['launches_per_rank'][name]}, want {w}")
+    for key in ("replicas_same", "applied"):
+        if np.any(np.asarray(res[key]) != 1):
+            fails.append(f"{key} {res[key]}")
+    return fails
+
+
+def grid_rwkv_rank(torch, tp_comm):
+    """Phase 17 (b) on a rank of stage 0: rwkv6-7b at full width cut to
+    `GRID_RWKV_LAYERS`, one step on phase 5's data at hdp 1 x tp 2
+    (counted), then on model rank 0 the same step at tp 1 from the same
+    seed (not counted).  Returns model rank 0's numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.sharding import Runtime
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("rwkv6-7b"),
+                              num_layers=GRID_RWKV_LAYERS)
+
+    def step(rt):
+        sched = train_setup(cfg)
+        tr = Trainer(cfg, rt, AdamWConfig(lr=3e-4, warmup_steps=0), sched,
+                     TrainerConfig(capacity=4096, calibrate=False), seed=0)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            return tr, tr.train_step()
+        finally:
+            sched.stop()
+
+    torch.cuda.synchronize()
+    zero_counts()
+    tr, rec = step(Runtime(device=DEVICE, tp_comm=tp_comm))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    same = True
+    for p, split in zip(leaves(tr.params), tr._splits):
+        if split is None:
+            b = p.clone()
+            tp_comm.broadcast(b)
+            same &= torch.equal(b, p)
+    mine = torch.tensor([counts["fused_ce_fwd"], counts["fused_ce_bwd"],
+                         float(same), tr.peak.high_water() / 1e9,
+                         len(tr.last_numerics["wave_losses"])],
+                        dtype=torch.float64, device=DEVICE)
+    got = tp_comm.all_gather(mine).cpu().numpy()
+    del tr
+    torch.cuda.empty_cache()
+    if tp_comm.rank:
+        return None
+    tr1, rec1 = step(Runtime(device=DEVICE))
+    del tr1
+    torch.cuda.empty_cache()
+    return {"model": f"{cfg.name}, {cfg.num_layers} layer, hdp 1 x tp 2",
+            "loss": rec["loss"], "loss_tp1": rec1["loss"],
+            "grad_norm": rec["grad_norm"], "grad_norm_tp1": rec1["grad_norm"],
+            "ce_launches_per_rank": got[:, :2].astype(int).tolist(),
+            "waves": int(got[0, 4]),
+            "replicated_same_across_model_group": got[:, 2].tolist(),
+            "peak_mem_gb_per_rank": got[:, 3].tolist(),
+            "step_wall_s": rec["wall_s"]}
+
+
+def grid_rwkv_gates(res) -> list:
+    fails = []
+    for key, tol in (("loss", PP_LOSS_TOL), ("grad_norm", TRAIN_LOSS_TOL)):
+        got, want = res[key], res[key + "_tp1"]
+        if not abs(got - want) <= tol * abs(want):
+            fails.append(f"{key} {got} vs tp 1 {want}")
+    if res["ce_launches_per_rank"] != [[res["waves"]] * 2] * GRID_TP:
+        fails.append(f"CE launches per rank {res['ce_launches_per_rank']}, "
+                     f"want one each way a wave ({res['waves']})")
+    if any(x != 1 for x in res["replicated_same_across_model_group"]):
+        fails.append("a replicated leaf differs across the model group")
+    return fails
+
+
+def phase_grid(torch, card):
+    """Phase 17: 4 processes share the card, world rank 0 this one.  ->
+    the launches of (a) and (b), summed over the ranks."""
+    import tempfile
+    mp = torch.multiprocessing.get_context("spawn")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        store = str(Path(tmp) / "store")
+        procs = [mp.Process(target=grid_rank, args=(r, store), daemon=True)
+                 for r in range(1, GRID_S * GRID_H * GRID_TP)]
+        for pr in procs:
+            pr.start()
+        try:
+            a, b = grid_rank(0, store)
+            for pr in procs:
+                pr.join(HDP_TIMEOUT_S)
+        finally:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+                    pr.join()
+        codes = [pr.exitcode for pr in procs]
+        if codes != [0] * len(procs):
+            raise AssertionError(f"phase 17 rank exit codes {codes}")
+    log(f"[grid] {card}: 4 rank processes share this card (gloo through "
+        f"host memory), so the times measure no card-to-card transfer; "
+        f"phase wall {time.perf_counter() - t0:.1f} s")
+    log(f"[grid] (a) {json.dumps(a)}")
+    log(f"[grid] (b) {json.dumps(b)}")
+    fails = [f"(a) {f}" for f in grid_gates(a)] + \
+        [f"(b) {f}" for f in grid_rwkv_gates(b)]
+    if fails:
+        raise AssertionError("phase 17: " + "; ".join(fails))
+    out = {name: int(sum(v)) for name, v in a["launches_per_rank"].items()}
+    out["fused_ce_fwd"] += sum(r[0] for r in b["ce_launches_per_rank"])
+    out["fused_ce_bwd"] += sum(r[1] for r in b["ce_launches_per_rank"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 18. report
 # ---------------------------------------------------------------------------
 
 def kernels_line(cases, serve_launches, train_launches, ring_launches,
                  hdp_launches, offload_launches, hdp_serve_launches,
                  ckpt_launches, moe_launches, pp_launches, gemma_launches,
-                 mla_launches, rwkv_launches, tp_launches):
+                 mla_launches, rwkv_launches, tp_launches, grid_launches):
     """Launches: the serve path for the forward kernels, the train path for
     the rest, plus the ring path's, the hdp = 4 trainer's (summed over
     its ranks), the offloading trainer's, the hdp = 4 engine's (summed
     over its ranks), the checkpoint phase's, the MoE phase's, the
     pipelined trainer's (summed over its ranks), the Gemma phase's, the
-    MLA phase's, the RWKV phase's and the 2 x 2 grid's (summed over its
-    ranks)."""
+    MLA phase's, the RWKV phase's, the 2 x 2 grid's and the 2 x 1 x 2
+    grid's (each summed over its ranks)."""
     rows = []
     for name, src, replaces, _, _ in KERNELS:
         mine = [c[name] for c in cases if name in c]
@@ -4582,7 +4936,8 @@ def kernels_line(cases, serve_launches, train_launches, ring_launches,
             + hdp_serve_launches[name] + ckpt_launches[name]
             + moe_launches[name] + pp_launches[name]
             + gemma_launches[name] + mla_launches[name]
-            + rwkv_launches[name] + tp_launches[name],
+            + rwkv_launches[name] + tp_launches[name]
+            + grid_launches[name],
             "max_abs_err": max(c["err"] for c in mine),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": ms, "bound_by": by,
@@ -4633,12 +4988,15 @@ def main() -> int:
     log(f"[rwkv] done at {time.perf_counter() - t0:.1f} s")
     tp_launches = phase_tp(torch, card)
     log(f"[tp] done at {time.perf_counter() - t0:.1f} s")
+    grid_launches = phase_grid(torch, card)
+    log(f"[grid] done at {time.perf_counter() - t0:.1f} s")
     log(json.dumps(kernels_line(cases, serve_launches, train_launches,
                                 ring_launches, hdp_launches,
                                 offload_launches, hdp_serve_launches,
                                 ckpt_launches, moe_launches, pp_launches,
                                 gemma_launches, mla_launches,
-                                rwkv_launches, tp_launches)))
+                                rwkv_launches, tp_launches,
+                                grid_launches)))
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,23 +30,26 @@ measured peak memory); the step it resumed at, the checkpoint's seconds
 host memory.
 
 ``--mesh NxM`` with M > 1 trains the attention decoders (dense, MoE,
-MLA, Gemma-style) with tensor parallelism on N·M ranks: world rank h·M + m
-is HDP position h, model rank m (`parallel/comm.py::tp_grid`, the
-reference's ``("data", "model")`` mesh); each rank holds its model rank's
-slices of the split leaves (an MoE's experts E/M a rank: expert
-parallelism, `models/moe.py`) and ZeRO-1 shards over the HDP group of
-its model rank.  RWKV-6, ``--num-stages`` and ``--offload`` at M > 1 raise
-`NotImplementedError` naming the queue item that brings them.
-A checkpoint keeps the global layout, so a run written at ``--mesh 2x2``
-resumes at ``--mesh 4x1`` where the two layouts pad the heads alike.
+MLA, Gemma-style) and RWKV-6 with tensor parallelism on N·M ranks: world
+rank h·M + m is HDP position h, model rank m (the reference's ``("data",
+"model")`` mesh); each rank holds its model rank's slices of the split
+leaves (an MoE's experts E/M a rank: expert parallelism,
+`models/moe.py`; RWKV-6's WKV heads H/M a rank) and ZeRO-1 shards over
+the HDP group of its model rank.  It combines with ``--offload`` (each
+model rank offloads its own copy of the residual) and with
+``--num-stages``.  A checkpoint keeps the global layout, so a run written
+at ``--mesh 2x2`` resumes at ``--mesh 4x1`` where the two layouts pad the
+heads alike.
 
 ``--num-stages S`` (the reference dry-run's flag; its launcher reads a
 three-number ``--mesh`` as pod × data × model and never builds a stage
-axis) trains with pipeline parallelism on S·N ranks: world rank s·N + h
-is stage s, HDP position h (`parallel/comm.py::stage_grid`), the plans
-are PP-Balance's (``mode="pp"``, ``num_stages=S``) and the waves run as
-rounds of at most ``--max-round-waves`` (0: no cap) through
-`parallel/pipeline.py`.  The JSON line then also holds, per stage:
+axis) trains with pipeline parallelism on S·N·M ranks: world rank
+s·(N·M) + h·M + m is stage s, HDP position h, model rank m
+(`parallel/comm.py::grid`, the reference's ``("stage", "data",
+"model")`` mesh), the plans are PP-Balance's (``mode="pp"``,
+``num_stages=S``) and the waves run as rounds of at most
+``--max-round-waves`` (0: no cap) through `parallel/pipeline.py`.  The
+JSON line then also holds, per stage:
 tokens/s, the slowest rank's ms a warm round, the measured bubble share
 1 − Σ busy / (ranks × wall) over the warm rounds (busy: the stage's
 compute between its transfers; wall: the slowest rank's round), the
@@ -56,6 +59,15 @@ share of each step and the ledger's ``pp`` bytes.
 ``--layers N`` cuts the model's depth to N layers at its full width (a
 measurement aid, as ``chip_smoke.py`` cuts depth: Mistral-8x7B's 46.7 G
 parameters do not fit four cards under ZeRO-1, 4 of its 32 layers do).
+
+On CUDA the launcher sets ``PYTORCH_CUDA_ALLOC_CONF`` to
+``expandable_segments:True`` before CUDA starts in any rank, unless the
+user has set it: without it Mistral-8x7B at 4 layers at ``--mesh 4x1``
+on 80 GB H100s can run out of memory in a backward with 11.79 GiB of
+the card reserved by the caching allocator but free in segments too
+small for the 3.50 GiB it asks for; with it the run trains at the same
+peak allocation (70.34 GB a rank).  The JSON line gives the setting the
+run had.
 
 ``--ckpt-dir D`` (the reference's) checkpoints into D every 5 steps and
 after the last, and first resumes from the newest valid checkpoint in D,
@@ -86,10 +98,9 @@ from repro_torch.data.distribution import DISTRIBUTIONS, LengthDistribution
 from repro_torch.data.loader import GlobalScheduler, SyntheticDataset
 from repro_torch.obs import ledger
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.parallel.sharding import Runtime, check_tp_stages
+from repro_torch.parallel.sharding import Runtime
 from repro_torch.parallel.zero1 import stage_taken, zero1_bytes
-from repro_torch.train.trainer import (Trainer, TrainerConfig,
-                                      check_tp_offload)
+from repro_torch.train.trainer import Trainer, TrainerConfig
 from repro_torch.tree import leaves
 
 
@@ -122,19 +133,10 @@ def _mesh(text: str):
     return hdp, tp
 
 
-def _check_tensor_parallel(args, tp: int) -> None:
-    """The Runtime's, the Trainer's and the model's refusals at M > 1,
-    before any rank is spawned."""
-    check_tp_stages(tp, args.num_stages)
-    check_tp_offload(tp, args.offload)
-    cfg = get_config(args.arch)
-    check_supported(cfg.reduced() if args.reduced else cfg, tp)
-
-
 def train(args, comm=None, say=print, stage_comm=None, tp_comm=None):
-    """Builds the trainer on ``comm``'s HDP ranks (None: one) and, under
-    PP, ``stage_comm``'s stages, or under TP ``tp_comm``'s model ranks,
-    and runs ``args.steps`` steps ->
+    """Builds the trainer on ``comm``'s HDP ranks (None: one), under PP
+    ``stage_comm``'s stages and under TP ``tp_comm``'s model ranks, and
+    runs ``args.steps`` steps ->
     (trainer, every dispatch (a wave, or under PP a round) as
     (composition, fresh, per-rank seconds, (c_mult, r, k)), this rank's
     peak device memory in bytes (None on the CPU), (this rank's step
@@ -197,9 +199,11 @@ def stage_summary(trainer, peaks, ranks) -> dict:
     every rank's (its step walls, its ``(seconds, busy seconds, fresh)``
     of each round) (``ranks``, world order) and peaks (GB, None on the
     CPU).  Tokens/s counts the steps after the first (which builds the
-    kernels), over the stage's slowest rank's step walls."""
-    stages, hdp = trainer.rt.num_stages, trainer.rt.hdp_size
-    walls = np.array([w for w, _ in ranks])                   # [world, n]
+    kernels), over the stage's slowest rank's step walls; a stage's ranks
+    are its HDP positions times its model ranks."""
+    stages = trainer.rt.num_stages
+    n = trainer.rt.hdp_size * trainer.rt.tp       # ranks a stage
+    walls = np.array([w for w, _ in ranks])               # [world, steps]
     secs = np.array([[s for s, _, _ in r] for _, r in ranks])
     busy = np.array([[b for _, b, _ in r] for _, r in ranks])
     warm = np.array([not f for _, _, f in ranks[0][1]])
@@ -208,18 +212,18 @@ def stage_summary(trainer, peaks, ranks) -> dict:
     tokens = sum(r["tokens"] for r in trainer.history[later])
     out = {}
     for s in range(stages):
-        rows = slice(s * hdp, (s + 1) * hdp)
+        rows = slice(s * n, (s + 1) * n)
         out[str(s)] = {
             "tokens_per_s": tokens
             / float(walls[rows, later].max(axis=0).sum()),
             "ms_per_warm_round": (secs[rows][:, warm].max(axis=0)
                                   * 1e3).tolist(),
             "bubble_measured": 1.0 - float(busy[rows][:, warm].sum())
-            / (hdp * float(wall.sum())) if warm.any() else None,
+            / (n * float(wall.sum())) if warm.any() else None,
             "peak_mem_gb": None if peaks is None else peaks[rows]}
     return {"by_stage": out,
             "bubble_measured": 1.0 - float(busy[:, warm].sum())
-            / (stages * hdp * float(wall.sum())) if warm.any() else None,
+            / (stages * n * float(wall.sum())) if warm.any() else None,
             "bubble_analytic_by_step": [r["bubble_frac_pipeline"]
                                         for r in trainer.history],
             "rounds_by_step": [r["rounds"] for r in trainer.history]}
@@ -255,6 +259,7 @@ def summary(args, trainer, waves, peaks, ranks=None) -> dict:
         "pinned_host_gb": trainer.offload_store.pinned_bytes / 1e9
         if trainer.offload_store is not None else 0.0,
         "peak_mem_gb_by_rank": peaks,
+        "cuda_alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
         # under TP the reference Trainer's: the global tree, no specs
         "zero1_bytes": zero1_bytes(trainer.params, hdp,
                                    stage_taken(trainer.params,
@@ -278,7 +283,7 @@ def _rank_main(rank: int, hdp: int, stages: int, args, store: str,
                tp: int = 1) -> None:
     import datetime
     import torch.distributed as dist
-    from repro_torch.parallel.comm import stage_grid, tp_grid
+    from repro_torch.parallel.comm import grid
     cuda = args.device is None or args.device.startswith("cuda")
     world = hdp * stages * tp
     if cuda:
@@ -291,12 +296,7 @@ def _rank_main(rank: int, hdp: int, stages: int, args, store: str,
                             rank=rank,
                             timeout=datetime.timedelta(seconds=600))
     try:
-        tp_comm = None
-        if tp > 1:
-            comm, tp_comm = tp_grid(hdp, tp)
-            stage_comm = None
-        else:
-            comm, stage_comm = stage_grid(stages, hdp)
+        comm, stage_comm, tp_comm = grid(stages, hdp, tp)
         say = print if rank == 0 else (lambda *a, **k: None)
         trainer, waves, peak, rounds = train(args, comm, say, stage_comm,
                                              tp_comm)
@@ -363,7 +363,11 @@ def main(argv=None):
     stages = args.num_stages
     if stages < 1:
         raise ValueError(f"--num-stages {stages}: must be >= 1")
-    _check_tensor_parallel(args, tp)
+    cfg = get_config(args.arch)          # its refusals, before any rank
+    check_supported(cfg.reduced() if args.reduced else cfg, tp)
+    if args.device is None or args.device.startswith("cuda"):
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     world = hdp * stages * tp
     if world == 1:
         return train(args)[0]

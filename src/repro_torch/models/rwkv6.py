@@ -32,6 +32,20 @@ so the r/k/v/g and decay projections multiply float32 activations by the
 bf16 weights upcast, and the time mix's output projection takes the
 float32 ``y * g``.  The channel mix casts its mix back to the activation
 dtype before its projections.
+
+Under tensor parallelism (``tp_comm``, the model group) a rank holds its
+H/tp WKV heads' columns of the split leaves (`parallel/sharding.py`): it
+projects r, k, v, g and the decay on its columns, scans its heads (the
+state ``s0``, the group norm and the cross-rank state correction are its
+heads'), and its row of ``w_o`` gives a partial output that
+`parallel/tensor.py::reduce_from_model` sums, where the reference calls
+``tp_reduce``.  The token shift, the mixes and the decay LoRA's hidden
+layer act on the replicated stream; their outputs enter the split
+products through ``copy_to_model``, so the gradients of the replicated
+LoRAs (``mix_a``, ``mix_b``, ``decay_a``, ``mix_base``) and of the input
+sum over the model group, as the transpose of the reference's
+replicated shard_map inputs does.  The channel mix is a column-parallel
+``w_k`` and a row-parallel ``w_v``.
 """
 from __future__ import annotations
 
@@ -40,6 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 MIX_NAMES = ("r", "k", "v", "g", "w")
 CLIP = 30.0
@@ -207,29 +222,38 @@ def _mixes(params: dict, x, delta) -> dict:
             for i, name in enumerate(MIX_NAMES)}
 
 
-def _projections(params: dict, mixes: dict):
-    r = _mm(mixes["r"], params["w_r"])
-    k = _mm(mixes["k"], params["w_k"])
-    v = _mm(mixes["v"], params["w_v"])
-    g = F.silu(_mm(mixes["g"], params["w_g"]))
-    logw = -torch.exp(params["decay_base"] + _mm(
-        torch.tanh(_mm(mixes["w"], params["decay_a"])), params["decay_b"]))
+def _projections(params: dict, mixes: dict, tp_comm=None):
+    """r, k, v, g and the log-decay on this rank's columns; under tensor
+    parallelism the mixes and the decay LoRA's hidden layer enter the
+    split products through one ``copy_to_model`` each."""
+    mr, mk, mv, mg = (mixes[n] for n in "rkvg") if tp_comm is None else \
+        copy_to_model(torch.stack([mixes[n] for n in "rkvg"]),
+                      tp_comm).unbind(0)
+    r = _mm(mr, params["w_r"])
+    k = _mm(mk, params["w_k"])
+    v = _mm(mv, params["w_v"])
+    g = F.silu(_mm(mg, params["w_g"]))
+    hidden = copy_to_model(torch.tanh(_mm(mixes["w"], params["decay_a"])),
+                           tp_comm)
+    logw = -torch.exp(params["decay_base"] + _mm(hidden, params["decay_b"]))
     return r, k, v, g, logw
 
 
 def rwkv_time_mix(params: dict, cfg: ModelConfig, x, seg, x_prev_boundary,
-                  seg_prev_boundary, state_exchange=None):
+                  seg_prev_boundary, state_exchange=None, tp_comm=None):
     """The RWKV-6 time-mix block on this rank's token buffer x [T, d].
 
     ``state_exchange(s_local, a_total) -> h_in`` composes the ranks' (A,
     b) summaries when the sequence is sharded over an HDP group (None:
-    purely local, h_in = 0).  Returns out [T, d] (float32, as the
+    purely local, h_in = 0), on this rank's heads.  ``tp_comm``: the
+    model group (module docstring).  Returns out [T, d] (float32, as the
     reference's)."""
     rs = cfg.rwkv
     d = params["w_r"].shape[1]
     n = rs.head_size
     xp = token_shift(x, seg, x_prev_boundary, seg_prev_boundary)
-    r, k, v, g, logw = _projections(params, _mixes(params, x, xp - x))
+    r, k, v, g, logw = _projections(params, _mixes(params, x, xp - x),
+                                    tp_comm)
     # carry_seg = the previous rank's last segment: the cross-rank decay
     # chain (and the h_in correction) stays alive only while it continues
     y, s_local, a_total, corr = wkv6_chunked(
@@ -242,15 +266,15 @@ def rwkv_time_mix(params: dict, cfg: ModelConfig, x, seg, x_prev_boundary,
         y = y + torch.einsum("thn,hnm->thm", corr,
                              h_in.float()).reshape(y.shape)
     y = _group_norm(y, n) * params["ln_x"]["scale"] + params["ln_x"]["bias"]
-    return _mm(y.to(x.dtype) * g, params["w_o"])
+    return reduce_from_model(_mm(y.to(x.dtype) * g, params["w_o"]), tp_comm)
 
 
 def rwkv_channel_mix(params: dict, cfg: ModelConfig, x, seg, x_prev_boundary,
-                     seg_prev_boundary):
+                     seg_prev_boundary, tp_comm=None):
     xp = token_shift(x, seg, x_prev_boundary, seg_prev_boundary)
-    xk = x + params["mix_k"] * (xp - x)
-    kk = torch.square(F.relu(xk.to(x.dtype) @ params["w_k"]))
-    return kk @ params["w_v"]
+    xk = copy_to_model((x + params["mix_k"] * (xp - x)).to(x.dtype), tp_comm)
+    kk = torch.square(F.relu(xk @ params["w_k"]))
+    return reduce_from_model(kk @ params["w_v"], tp_comm)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ through `copy_to_model`, so its gradient sums the ranks' heads; one used
 on the replicated stream (the block norms, post-block norms, final norm)
 gets its whole gradient on every rank.  Local windows and both softcaps
 act within a rank's heads or vocabulary columns and need no collective.
+An RWKV-6 layer runs its H/tp WKV heads (`models/rwkv6.py`).
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ from repro_torch.tree import leaf_paths, leaves, tree_map
 
 def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
     """Raise NotImplementedError for what the port does not run yet; at
-    ``tp > 1`` also for RWKV, Mamba and the non-token frontends
+    ``tp > 1`` also for Mamba and the non-token frontends
     (`_check_tensor_parallel`)."""
     if tp > 1:
         _check_tensor_parallel(cfg, tp)
@@ -94,12 +95,12 @@ def check_supported(cfg: ModelConfig, tp: int = 1) -> None:
 
 def _check_tensor_parallel(cfg: ModelConfig, tp: int) -> None:
     """Tensor parallelism runs the attention decoders (GQA or MLA, dense or
-    MoE, global and local layers, the Gemma flags): RWKV, Mamba and the
-    non-token frontends raise NotImplementedError naming the queue item
-    that brings them, and a vocabulary, expert count or MLA head count
-    that tp does not divide raises ValueError (`check_tp_divides`)."""
-    flags = {"rwkv": "r" in cfg.layer_pattern or cfg.rwkv is not None,
-             "mamba": "m" in cfg.layer_pattern or cfg.mamba is not None,
+    MoE, global and local layers, the Gemma flags) and RWKV-6: Mamba and
+    the non-token frontends raise NotImplementedError naming the queue
+    item that brings them, and a vocabulary, expert count, MLA or WKV head
+    count or dense width that tp does not divide raises ValueError
+    (`check_tp_divides`)."""
+    flags = {"mamba": "m" in cfg.layer_pattern or cfg.mamba is not None,
              f"frontend {cfg.frontend!r}": cfg.frontend != "none"}
     missing = [k for k, v in flags.items() if v]
     if missing:
@@ -403,7 +404,11 @@ def _ssm_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, which: str):
     the buffer the last row is padding (segment 0) and the reference cuts
     the sequence's token shift and state at that rank boundary; from the
     last non-padding row both continue, as in one unsharded buffer.  Where
-    the piece fills the buffer the two rows are the same."""
+    the piece fills the buffer the two rows are the same.
+
+    Under tensor parallelism the buffer is replicated over the model
+    group, so each model rank relays the same boundary over its own HDP
+    group, and the state scan composes its own heads' states."""
     comp = rt.composition
     exch = None
     if max(comp) > 1:
@@ -421,8 +426,9 @@ def _ssm_block(bp, cfg: ModelConfig, rt: Runtime, x, seg, which: str):
         bx = torch.zeros_like(x[-1])
         bseg = torch.zeros_like(seg[-1])
     if which == "channel_mix":
-        return RW.rwkv_channel_mix(bp, cfg, x, seg, bx, bseg)
-    return RW.rwkv_time_mix(bp, cfg, x, seg, bx, bseg, state_exchange=exch)
+        return RW.rwkv_channel_mix(bp, cfg, x, seg, bx, bseg, rt.tp_comm)
+    return RW.rwkv_time_mix(bp, cfg, x, seg, bx, bseg, state_exchange=exch,
+                            tp_comm=rt.tp_comm)
 
 
 def block_forward(bp, cfg: ModelConfig, rt: Runtime, x, seg, pos,

@@ -66,6 +66,19 @@ measured side is exactly (`port_round_bytes`):
 * offload: M x S x k x (global tokens) x d_model x itemsize each way, with
   the stage-local k = `core.offload.offload_periods(cfg, r, S)`.
 
+Under tensor parallelism the reference's byte model has no tp term in
+its offload and stage-roll prices: `offload_dispatch_bytes` is r x
+n_periods x tokens_global x d_model x itemsize, `pp_tick_bytes` S x
+tokens_global x (d_model x itemsize + 8), both over one copy of the
+residual stream, which is replicated over the model axis.  Each model
+rank offloads and sends its own copy, so the port's fleet totals are
+one model rank's: the trainer keeps model rank 0's tallies
+(`Trainer._share_waves`), summed over its HDP group and stages.  Its
+measured offload and pp bytes then hold the formulas above (k x
+tokens_global x d_model x itemsize each way; M x (S − 1) x
+tokens_global x d_model x itemsize), and its ring bytes those of model
+rank 0's heads (`wave_ring_bytes` at tp, less `ring_meta_bytes`).
+
 Zero-overhead contract: with tracing and ``REPRO_LEDGER`` both off the
 trainer builds no `Ledger`, opens no capture and resets no memory peak,
 and each site costs one thread-local read.
@@ -240,13 +253,17 @@ def pp_tick_bytes(cfg, num_stages: int, tokens_global: int) -> int:
 
 def port_round_bytes(cfg, composition: Sequence[int], n_waves: int,
                      num_stages: int, tokens_per_rank: int, hdp: int,
-                     offload_periods: int = 0) -> Dict[str, float]:
-    """The port's measured fleet bytes of one pipelined round, exactly
-    (module docstring): what it sends where the reference's wavefront
-    prediction counts padding ticks, seg/pos and the ring's metadata."""
+                     offload_periods: int = 0, *, tp: int = 1,
+                     kv_sharded: Optional[bool] = None) -> Dict[str, float]:
+    """The port's measured fleet bytes of one pipelined round (at one
+    stage, of ``n_waves`` waves), exactly (module docstring): what it
+    sends where the reference's wavefront prediction counts padding
+    ticks, seg/pos and the ring's metadata.  At ``tp`` > 1, one model
+    rank's (module docstring)."""
     tokens_global = hdp * tokens_per_rank
     resid = tokens_global * cfg.d_model * act_itemsize(cfg)
-    ring1 = wave_ring_bytes(cfg, composition, tokens_per_rank)
+    ring1 = wave_ring_bytes(cfg, composition, tokens_per_rank, tp=tp,
+                            kv_sharded=kv_sharded)
     moved = float(n_waves * num_stages * offload_periods * resid)
     return {"ring": float(n_waves * (ring1
                                      - ring_meta_bytes(cfg, composition))),

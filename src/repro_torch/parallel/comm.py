@@ -250,62 +250,65 @@ class HostStagedComm(ProcessGroupComm):
         self.device = torch.device("cuda", torch.cuda.current_device())
 
 
-def stage_grid(stages: int, hdp: int, comm_cls=ProcessGroupComm):
-    """This process's two groups of a ``(stages, hdp)`` grid over the
-    world -> (its HDP comm, its stage comm), ``None`` for a group of one.
+def grid(stages: int, hdp: int, tp: int, comm_cls=ProcessGroupComm):
+    """This process's three groups of a ``(stages, hdp, tp)`` grid over
+    the world -> (its HDP comm, its stage comm, its model comm), ``None``
+    for a group of one.
 
-    World rank ``s·hdp + h`` is stage s, HDP position h (stage-major, the
-    reference's ``("stage", "data", "model")`` axis order at tp = 1).  The
-    HDP group of stage s is the ranks ``{s·hdp + h'}``, the stage group of
-    position h the ranks ``{s'·hdp + h}``.  ``dist.new_group`` must be
-    called by every process for every group in one order, so every
-    process creates all of them: the HDP groups by stage, then the stage
-    groups by position.  ``comm_cls`` is `ProcessGroupComm` (gloo on the
-    CPU, NCCL one process per card) or `HostStagedComm` (gloo, processes
-    sharing a card); its construction runs one collective over each
-    group, HDP group first, on every rank alike."""
-    return _grid(stages, hdp, comm_cls)
+    World rank ``s·(hdp·tp) + h·tp + m`` is stage s, HDP position h, model
+    rank m: the reference's ``("stage", "data", "model")`` mesh, model
+    fastest.  The model group of (s, h) is the ranks that share s and h,
+    the HDP group of (s, m) those that share s and m, the stage group of
+    (h, m) those that share h and m.  ``dist.new_group`` must be called
+    by every process for every group in one order, so every process
+    creates all of them: the model groups, then the HDP groups, then the
+    stage groups, each in world order of its first rank.  ``comm_cls`` is
+    `ProcessGroupComm` (gloo on the CPU, NCCL one process per card) or
+    `HostStagedComm` (gloo, processes sharing a card); its construction
+    runs one collective over each group, model group first, then HDP
+    group, then stage group, on every rank alike."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    if stages * hdp * tp != world:
+        raise ValueError(f"a {stages} x {hdp} x {tp} grid needs "
+                         f"{stages * hdp * tp} ranks, the world has {world}")
+    s, rest = divmod(dist.get_rank(), hdp * tp)
+    h, m = divmod(rest, tp)
+
+    def rank(s_, h_, m_):
+        return (s_ * hdp + h_) * tp + m_
+
+    def groups(size, members):
+        """Every group of ``members``, created in order (None for groups
+        of one; the world group itself for one that spans the world)."""
+        if size == 1 or size == world:
+            return [None] * len(members)
+        return [dist.new_group(g) for g in members]
+
+    model_groups = groups(tp, [[rank(a, b, c) for c in range(tp)]
+                               for a in range(stages) for b in range(hdp)])
+    hdp_groups = groups(hdp, [[rank(a, b, c) for b in range(hdp)]
+                              for a in range(stages) for c in range(tp)])
+    stage_groups = groups(stages, [[rank(a, b, c) for a in range(stages)]
+                                   for b in range(hdp) for c in range(tp)])
+    tp_comm = None if tp == 1 else comm_cls(model_groups[s * hdp + h])
+    hdp_comm = None if hdp == 1 else comm_cls(hdp_groups[s * tp + m])
+    stage_comm = None if stages == 1 else comm_cls(stage_groups[h * tp + m])
+    return hdp_comm, stage_comm, tp_comm
+
+
+def stage_grid(stages: int, hdp: int, comm_cls=ProcessGroupComm):
+    """`grid` at tp = 1 -> (this process's HDP comm, its stage comm):
+    world rank ``s·hdp + h`` is stage s, HDP position h."""
+    hdp_comm, stage_comm, _ = grid(stages, hdp, 1, comm_cls)
+    return hdp_comm, stage_comm
 
 
 def tp_grid(hdp: int, tp: int, comm_cls=ProcessGroupComm):
-    """This process's two groups of an ``(hdp, tp)`` grid over the world
-    -> (its HDP comm, its model comm), ``None`` for a group of one.
-
-    World rank ``h·tp + m`` is HDP position h, model rank m (the
-    reference's ``("data", "model")`` mesh, model fastest).  The model
-    group of position h is the ranks ``{h·tp + m'}``, the HDP group of
-    model rank m the ranks ``{h'·tp + m}``.  Every process creates every
-    group in one order (the model groups by position, then the HDP groups
-    by model rank) and constructs its model comm before its HDP comm, as
-    `stage_grid` does."""
-    tp_comm, hdp_comm = _grid(hdp, tp, comm_cls)
+    """`grid` at one stage -> (this process's HDP comm, its model comm):
+    world rank ``h·tp + m`` is HDP position h, model rank m."""
+    hdp_comm, _, tp_comm = grid(1, hdp, tp, comm_cls)
     return hdp_comm, tp_comm
-
-
-def _grid(outer: int, inner: int, comm_cls):
-    """The groups of an ``(outer, inner)`` grid, world rank ``a·inner +
-    b`` -> (this process's inner comm, its outer comm)."""
-    import torch.distributed as dist
-    world = dist.get_world_size()
-    if outer * inner != world:
-        raise ValueError(f"a {outer} x {inner} grid needs {outer * inner} "
-                         f"ranks, the world has {world}")
-    a, b = divmod(dist.get_rank(), inner)
-
-    def groups(members):
-        if len(members[0]) == 1:
-            return [None] * len(members)
-        if len(members) == 1:
-            return [None]          # the world itself
-        return [dist.new_group(m) for m in members]
-
-    inner_groups = groups([[x * inner + y for y in range(inner)]
-                           for x in range(outer)])
-    outer_groups = groups([[x * inner + y for x in range(outer)]
-                           for y in range(inner)])
-    inner_comm = None if inner == 1 else comm_cls(inner_groups[a])
-    outer_comm = None if outer == 1 else comm_cls(outer_groups[b])
-    return inner_comm, outer_comm
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ explicitly — a runtime never falls back to the CPU on its own.
 
 Under pipeline parallelism (`parallel/pipeline.py`) ``stage_comm`` holds
 the ranks of this rank's stage group, one per stage at the same HDP
-position (the reference's ``stage_axis``); ``None`` is one stage.
+position and model rank (the reference's ``stage_axis``); ``None`` is one
+stage.
 ``hdp_size`` stays the size of the HDP group, not of the world, as the
 reference's leaves the stage axis out (`launch/mesh.py::NON_HDP_AXES`).
 
@@ -24,16 +25,21 @@ needs one; the trainer hands one store to every wave, so the buffers are
 reused from wave to wave.
 
 Under tensor parallelism ``tp_comm`` holds this rank's model group (the
-reference's ``model_axis``; `parallel/comm.py::tp_grid`), ``None`` is
-tp = 1.  Each rank holds its slice of the split leaves: `tp_split_dim`
+reference's ``model_axis``; `parallel/comm.py::grid` lays out stage x
+HDP x model ranks), ``None`` is tp = 1; it combines with stages and with
+offload.  Each rank holds its slice of the split leaves: `tp_split_dim`
 is the reference's rule table (``w_q``, ``w_in``, ``w_gate``,
 ``lm_head``, the shared experts' ``shared_in`` / ``shared_gate``
 column-parallel; ``w_o``, ``w_out``, ``shared_out`` row-parallel;
 ``embed`` by vocabulary rows; ``w_kv`` by KV head where the layout shards
 KV; the experts' [E, ...] leaves and MLA's ``w_uk`` / ``w_uv`` on their
 first dimension; norms, the router, MLA's ``w_dkv`` and latent norm
-replicated), and `shard_param` takes the slice.  The RWKV and Mamba
-leaves raise `NotImplementedError` at tp > 1 (`TP_LATER`).
+replicated; RWKV-6's time mix by WKV head: ``w_r``, ``w_k``, ``w_v``,
+``w_g``, ``decay_b`` column-parallel, ``w_o`` row-parallel,
+``decay_base``, ``bonus_u`` and ``ln_x`` on their heads, the mix and decay
+LoRAs' inputs replicated, and its channel mix's ``w_k`` / ``w_v`` column-
+and row-parallel), and `shard_param` takes the slice.  The Mamba leaves
+raise `NotImplementedError` at tp > 1 (`TP_LATER`).
 
 A runtime on the card refuses TF32 matmuls: float32 products stay IEEE
 fp32, as the reference's on the CPU, and the MoE router's top-k hangs on
@@ -116,7 +122,6 @@ class Runtime:
                              "router's among them) must stay IEEE fp32")
         if self.offload_periods < 0:
             raise ValueError(f"offload_periods {self.offload_periods} < 0")
-        check_tp_stages(self.tp, self.num_stages)
 
     @property
     def tp(self) -> int:
@@ -147,28 +152,22 @@ class Runtime:
         return gqa_layout(cfg.num_heads, cfg.num_kv_heads, self.tp)
 
 
-def check_tp_stages(tp: int, num_stages: int) -> None:
-    """Tensor parallelism runs without pipeline stages: TP x PP raises."""
-    if tp > 1 and num_stages > 1:
-        raise NotImplementedError(
-            f"tensor parallelism (tp {tp}) with pipeline stages "
-            f"({num_stages}) is not ported yet: TP x PP waits in ROADMAP "
-            f"queue 1 item 7b-iii")
-
-
 # ---------------------------------------------------------------------------
 # the tensor-parallel rule table (the reference's param_spec)
 # ---------------------------------------------------------------------------
 
-TP_LATER = ("ROADMAP queue 1 item 7b-ii's last part (the TP rules of "
-            "RWKV-6; Mamba's come with its model, item 8)")
+TP_LATER = "ROADMAP queue 1 item 8 (Mamba's TP rules come with its model)"
 
 # (parent, leaf) -> the split dimension from the leaf's own first one
 # (-1: its last; "kv": w_kv [d, 2, G, Dk] on G iff KV is sharded); None:
 # replicated.  "moe" leaves: the [E, ...] experts on E, the shared experts
 # column- and row-parallel, the router replicated.  MLA: w_uk / w_uv
 # [H, ...] on their heads, the shared latent (w_dkv, latent_norm)
-# replicated.
+# replicated.  RWKV-6 (the reference's `_ssm_param_specs`): the time
+# mix's projections and decay_b column-parallel, w_o row-parallel,
+# decay_base, bonus_u [H, N] and ln_x on their WKV heads, the mix and
+# decay LoRAs' other leaves replicated; the channel mix's w_k / w_v
+# column- and row-parallel, its mix_k replicated.
 _RULES = {("attn", "w_q"): -1, ("mlp", "w_in"): -1, ("mlp", "w_gate"): -1,
           ("attn", "w_o"): 0, ("mlp", "w_out"): 0, ("attn", "w_kv"): "kv",
           ("attn", "q_norm"): None, ("attn", "k_norm"): None,
@@ -179,7 +178,16 @@ _RULES = {("attn", "w_q"): -1, ("mlp", "w_in"): -1, ("mlp", "w_gate"): -1,
           ("moe", "shared_out"): 0, ("moe", "router"): None,
           ("norm1", "scale"): None, ("norm2", "scale"): None,
           ("postnorm1", "scale"): None, ("postnorm2", "scale"): None,
-          ("final_norm", "scale"): None}
+          ("final_norm", "scale"): None,
+          **{("time_mix", w): -1 for w in ("w_r", "w_k", "w_v", "w_g",
+                                            "decay_b")},
+          ("time_mix", "w_o"): 0, ("time_mix", "decay_base"): 0,
+          ("time_mix", "bonus_u"): 0, ("ln_x", "scale"): 0,
+          ("ln_x", "bias"): 0,
+          **{("time_mix", w): None for w in ("mix_base", "mix_a", "mix_b",
+                                              "decay_a")},
+          ("channel_mix", "w_k"): -1, ("channel_mix", "w_v"): 0,
+          ("channel_mix", "mix_k"): None}
 
 
 def tp_split_dim(path: Sequence[str], ndim: int,
@@ -189,8 +197,8 @@ def tp_split_dim(path: Sequence[str], ndim: int,
     rows, ``lm_head`` on its columns).  ``path``: the leaf's keys from the
     root (``("blocks", "0", "attn", "w_q")``), ``ndim`` its dimensions as
     held (a stacked ``blocks`` leaf has its [n_periods] dim first; a
-    ``head_blocks`` leaf is one layer's).  The RWKV and Mamba leaves, and
-    any leaf the table does not know, raise `NotImplementedError`."""
+    ``head_blocks`` leaf is one layer's).  The Mamba leaves, and any leaf
+    the table does not know, raise `NotImplementedError`."""
     path = [str(p) for p in path]
     if path in (["embed"], ["lm_head"]):
         return 0 if path[0] == "embed" else 1
@@ -208,14 +216,19 @@ def tp_split_dim(path: Sequence[str], ndim: int,
 
 
 def check_tp_divides(cfg: ModelConfig, tp: int) -> None:
-    """ValueError unless ``tp`` divides the vocabulary, the MoE's experts
-    and MLA's heads, whose leaves split on them.  The reference runs an E
-    that tp does not divide through ``"gather"`` with GSPMD's uneven
+    """ValueError unless ``tp`` divides the vocabulary, the MoE's experts,
+    MLA's heads, RWKV-6's WKV heads and the width ``d_ff`` of a dense
+    model's MLP or channel mix, whose leaves split on them.  The reference runs
+    an E that tp does not divide through ``"gather"`` with GSPMD's uneven
     shards (`src/repro/models/transformer.py:283`), and MLA's heads so
     too: this is the one place the port raises where it does not."""
+    rwkv = cfg.rwkv is not None and "r" in cfg.layer_pattern
     for what, n in (("vocabulary", cfg.vocab_size),
                     ("experts", cfg.moe.num_experts if cfg.moe else 0),
-                    ("MLA heads", cfg.num_heads if cfg.mla else 0)):
+                    ("MLA heads", cfg.num_heads if cfg.mla else 0),
+                    ("WKV heads",
+                     cfg.d_model // cfg.rwkv.head_size if rwkv else 0),
+                    ("d_ff columns", 0 if cfg.moe else cfg.d_ff)):
         if n % tp:
             raise ValueError(f"{cfg.name}: {n} {what} do not split over "
                              f"{tp} model ranks")

@@ -64,19 +64,28 @@ each HDP group, then each stage's window over the stage group, to world
 rank 0, which writes the reference's global layout.
 
 Under tensor parallelism (``rt.tp_comm``, ``rt.tp > 1``; the attention
-decoders) the world is an hdp × tp grid, world rank h·tp + m
-(`parallel/comm.py::tp_grid`): each rank holds its model rank's slices of
-the split leaves (`init_params(..., model=(m, tp))`), the model ranks of
-one HDP position take the same rows of every wave, rank 0's initial
-weights are broadcast within each model rank's HDP group (never across
-model ranks), and ZeRO-1 shards over the HDP group of each model rank.
-The plan check, the step's numbers and the checkpoint checks span the
-whole grid; a save gathers ZeRO-1 within each HDP group, then the model
-slices over the model group, to world rank 0, which writes the global
-layout, and a restore takes this rank's model slice, then its ZeRO-1
-shard, so a file moves between meshes where the layouts' ``h_pad``
-agree.  Offload and PP at tp > 1 raise `NotImplementedError` (queue 1
-item 7b-iii).
+decoders and RWKV-6) the world is a stages × hdp × tp grid, world rank
+s·(hdp·tp) + h·tp + m (`parallel/comm.py::grid`, the reference's
+``("stage", "data", "model")`` mesh): each rank holds its model rank's
+slices of the split leaves (`init_params(..., model=(m, tp))`) of its
+stage's window, the model ranks of one HDP position take the same rows
+of every wave, rank 0's initial weights are broadcast within each model
+rank's HDP group (never across model ranks), and ZeRO-1 shards over the
+HDP group of each model rank, skipping both the stage's and the model's
+dimension.  Under PP the residual a stage sends goes to the rank of the
+next stage at the same HDP position and model rank, the last stage runs
+the vocab-parallel CE over its model group, and the tied embedding sums
+its gradient over the stage group on each model rank's vocabulary rows.
+With ``use_offload`` each model rank offloads its own copy of the
+replicated residual through its own `HostOffload`, as every device of
+the reference's mesh does; the plan is the reference's (the planner has
+no tp term).  The plan check, the step's numbers and the checkpoint
+checks span the whole grid; a save gathers ZeRO-1 within each HDP group,
+then the model slices over the model group, then the stage windows over
+the stage group, to world rank 0, which writes the global layout, and a
+restore takes this rank's stage window, its model slice, then its ZeRO-1
+shard, so a file moves between grids where the layouts' ``h_pad``
+agree.
 
 What the port does not run yet raises `NotImplementedError` naming the
 ROADMAP queue item that brings it: the in-place ``resize`` to another
@@ -119,15 +128,6 @@ from repro_torch.parallel.zero1 import (gather_dim_to_host, gather_to_host,
 from repro_torch.sched.calibrate import OnlineCalibrator, fit_length_of
 from repro_torch.train.train_step import make_accum_steps, zeros_accum
 from repro_torch.tree import leaves, tree_map
-
-
-def check_tp_offload(tp: int, use_offload: bool) -> None:
-    """Tensor parallelism runs without activation offload: TP x offload
-    raises."""
-    if tp > 1 and use_offload:
-        raise NotImplementedError(
-            f"offload under tensor parallelism (tp {tp}) waits in ROADMAP "
-            f"queue 1 item 7b-iii (TP x offload)")
 
 
 @dataclass
@@ -190,7 +190,6 @@ class Trainer:
             assert_pipeline_ready(cfg, self.rt)
         tp = self.rt.tp
         check_supported(cfg, tp)
-        check_tp_offload(tp, tcfg.use_offload)
         self.opt_cfg = opt_cfg
         self.sched = scheduler
         self.tcfg = tcfg
@@ -329,10 +328,9 @@ class Trainer:
             and self.rt.stage_rank == 0 and self.rt.model_rank == 0
 
     def _gather_world(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` -> [world, ...], world rank s·hdp + h's (or
-        under TP h·tp + m's) at that row (an all-gather over the model
-        group, then one over the HDP group, then one over the stage
-        group)."""
+        """Every rank's ``x`` -> [world, ...], world rank s·(hdp·tp) + h·tp
+        + m's at that row (an all-gather over the model group, then one
+        over the HDP group, then one over the stage group)."""
         shape = x.shape
         for comm in (self.rt.tp_comm, self.rt.comm, self.rt.stage_comm):
             x = x[None] if comm is None else comm.all_gather(x)
@@ -409,9 +407,11 @@ class Trainer:
     def _gathered_trees(self):
         """(params, optimiser state) with the global leaves, on world rank
         0: at one rank its own trees; over several, every HDP group's
-        ZeRO-1 shards gathered to its rank 0, then under PP every stage's
-        window of the stacked leaves gathered to stage 0 (host arrays
-        there).  None leaves elsewhere.  Every rank must call it."""
+        ZeRO-1 shards gathered to its rank 0, then under TP every model
+        rank's slices gathered to model rank 0, then under PP every
+        stage's window of the stacked leaves gathered to stage 0 (host
+        arrays there).  None leaves elsewhere.  Every rank must call
+        it."""
         if not self._multi:
             return self.params, self.opt_state
         comm, stages, model = self.rt.comm, self.rt.stage_comm, \
@@ -420,9 +420,9 @@ class Trainer:
         def global_leaf(x, p, taken, owned, split, sharded):
             """This rank's part of a leaf (its ZeRO-1 shard if ``sharded``,
             else the whole leaf) -> the global leaf at world rank 0.  A
-            stage group's (or model group's) ranks share their HDP
-            position, so all of them or none reach the stage (model)
-            gather."""
+            model group's ranks share their HDP position, and a stage
+            group's their HDP position and model rank, so all of a
+            group's ranks or none reach its gather."""
             if sharded and comm is not None:
                 x = gather_to_host(x, p.shape, comm, taken)
             elif comm is not None and comm.rank != 0:

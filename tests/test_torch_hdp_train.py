@@ -568,16 +568,19 @@ def test_launcher_checkpoints_and_resumes_at_another_mesh(results, out_dir,
 
 
 def test_launcher_refuses_tensor_parallelism():
-    """``--mesh 2x2`` trains the attention decoders (`tests/test_torch_tp.py`,
-    `tests/test_torch_ep.py`); what tensor parallelism does not run yet
-    raises: RWKV-6 (queue 1 item 7b-ii's last part) and pipeline stages
-    (TP x PP, item 7b)."""
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        launch_train.main(["--arch", "rwkv6-7b", "--reduced", "--mesh",
-                           "2x2", "--device", "cpu"])
+    """``--mesh NxM`` trains the attention decoders and RWKV-6, with
+    stages and offload too (`tests/test_torch_tp.py`,
+    `tests/test_torch_ep.py`, `tests/test_torch_grid.py`,
+    `tests/test_torch_rwkv_tp.py`); what tensor parallelism does not run
+    raises before any rank starts: an expert count the model ranks do not
+    divide (`ValueError`) and tensor-parallel serving (queue 1 item
+    7b-iii)."""
+    with pytest.raises(ValueError, match="do not split over"):
+        launch_train.main(["--arch", "mistral-8x7b", "--reduced", "--mesh",
+                           "1x8", "--device", "cpu"])
+    from repro_torch.launch import profile_serve
     with pytest.raises(NotImplementedError, match="item 7b"):
-        launch_train.main(["--arch", "llama3.2-3b", "--reduced", "--mesh",
-                           "2x2", "--num-stages", "2", "--device", "cpu"])
+        profile_serve.main(["--reduced", "--mesh", "2x2", "--device", "cpu"])
     with pytest.raises(ValueError, match="NxM"):
         launch_train.main(["--arch", "llama3.2-3b", "--mesh", "four"])
 

@@ -342,13 +342,14 @@ def test_split_table_and_zero1_match_the_reference(name, tp):
 
 
 def test_split_table_refuses_what_this_slice_does_not_run():
-    """RWKV-6's leaves (and Mamba's) have no rule yet."""
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        tp_split_dim(("blocks", "0", "channel_mix", "w_k"), 3, True)
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        tp_split_dim(("blocks", "0", "time_mix", "bonus_u"), 3, True)
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        tp_split_dim(("blocks", "0", "time_mix", "w_r"), 3, True)
+    """Mamba's leaves have no rule yet (they come with its model, queue 1
+    item 8); RWKV-6's have theirs (`tests/test_torch_rwkv_tp.py`)."""
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tp_split_dim(("blocks", "0", "mamba", "w_in"), 3, True)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tp_split_dim(("blocks", "0", "mamba", "A_log"), 3, True)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tp_split_dim(("blocks", "0", "mamba", "conv_w"), 3, True)
 
 
 # ---------------------------------------------------------------------------
@@ -415,40 +416,44 @@ def test_a_seed_gives_the_same_model_at_every_tp(tp):
 
 
 def test_tensor_parallelism_refuses_what_this_slice_does_not_run():
+    """At tp 2: Mamba and the non-token frontends (queue 1 item 8), TP
+    serving (the engine, RWKV-6's decode step, the serving launcher) and
+    an expert count tp does not divide still raise; pipeline stages,
+    offload and RWKV-6's training run (`tests/test_torch_grid.py`,
+    `tests/test_torch_rwkv_tp.py`)."""
     ranks = ThreadRanks(2)
-
-    rwkv = get_config("rwkv6-7b")
 
     def rank(comm):
         rt = Runtime(device="cpu", tp_comm=comm)
         got = []
-        for cfg in (rwkv, rwkv.reduced(),
-                    dataclasses.replace(W.config(), layer_pattern="gr"),
-                    dataclasses.replace(W.config(), layer_pattern="m",
-                                        mamba=MambaSpec())):
-            with pytest.raises(NotImplementedError, match="item 7b-ii"):
+        for cfg in (dataclasses.replace(W.config(), layer_pattern="m",
+                                        mamba=MambaSpec()),
+                    dataclasses.replace(W.config(), layer_pattern="gm",
+                                        mamba=MambaSpec()),
+                    dataclasses.replace(W.config(), frontend="vision_stub"),
+                    dataclasses.replace(W.config(), frontend="audio_stub")):
+            with pytest.raises(NotImplementedError, match="item 8"):
                 T.check_supported(cfg, rt.tp)
             got.append(cfg.name)
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            Runtime(device="cpu", tp_comm=comm, stage_comm=comm)
+        T.check_supported(get_config("rwkv6-7b"), rt.tp)
         from repro_torch.serve import ServeEngine
+        from repro_torch.train import serve_step
         cfg = W.config()
         params = T.init_params(cfg, device="cpu", model=(comm.rank, 2))
         with pytest.raises(NotImplementedError, match="TP serving"):
             ServeEngine(params, cfg, rt)
-        with pytest.raises(NotImplementedError, match="TP x offload"):
-            W.trainer(None, comm, bridge.params_to_flat(
-                T.init_params(cfg, device="cpu")), use_offload=True)
+        with pytest.raises(NotImplementedError, match="TP serving"):
+            serve_step.make_decode_step(get_config("rwkv6-7b").reduced(), rt,
+                                        4, 64)
         return got
 
     assert all(len(r) == 4 for r in ranks.run(rank))
-    for argv, match in ((["--num-stages", "2"], "TP x PP"),
-                        (["--offload"], "TP x offload")):
-        with pytest.raises(NotImplementedError, match=match):
-            launch_train.main(LAUNCH_ARGS + argv)
-    with pytest.raises(NotImplementedError, match="item 7b-ii"):
-        launch_train.main(["--arch", "rwkv6-7b", "--reduced", "--mesh",
-                           "2x2", "--device", "cpu"])
+    from repro_torch.launch import profile_serve
+    with pytest.raises(NotImplementedError, match="TP serving"):
+        profile_serve.main(["--reduced", "--mesh", "2x2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="do not split over"):
+        launch_train.main(["--arch", "mistral-8x7b", "--reduced", "--mesh",
+                           "1x8", "--device", "cpu"])
 
 
 def test_a_checkpoint_of_another_head_padding_is_refused(tmp_path):

@@ -362,13 +362,14 @@ def test_entry_points_refuse_a_missing_gpu_and_unported_settings(tmp_path):
             launch_train.main(["--arch", ARCH, "--reduced", "--steps", "1"])
     rt = Runtime(device="cpu")
     # pipeline parallelism is ported (tests/test_torch_pipeline.py), and
-    # tensor and expert parallelism for the attention decoders
-    # (tests/test_torch_tp.py, tests/test_torch_ep.py); RWKV-6 at tp > 1
-    # is not
-    from repro_torch.launch import train as launch_train
+    # tensor and expert parallelism for training, RWKV-6 included, with
+    # stages and offload (tests/test_torch_tp.py, tests/test_torch_ep.py,
+    # tests/test_torch_grid.py, tests/test_torch_rwkv_tp.py); serving at
+    # tp > 1 is not
+    from repro_torch.launch import profile_serve
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        launch_train.main(["--arch", "rwkv6-7b", "--reduced", "--steps",
-                           "1", "--device", "cpu", "--mesh", "1x2"])
+        profile_serve.main(["--arch", "rwkv6-7b", "--reduced", "--device",
+                            "cpu", "--mesh", "1x2"])
     # checkpointing is ported: ckpt_dir saves at the end of run, and a
     # fresh Trainer resumes there with the same parameters and state
     saver = Trainer(cfg, rt, opt, GlobalScheduler(ds, cfg, capacity=256,
